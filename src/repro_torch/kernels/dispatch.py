@@ -1,0 +1,112 @@
+"""Backend registry and resolution for the port's engine ops.
+
+**Resolution** maps a requested backend to the one that runs, from the
+operands' device and dtype:
+
+  requested         device   dtype     resolved
+  ---------         ------   -----     --------
+  auto              cuda     float32   cuda             (hand-written kernel)
+  auto              cuda     other     raises: the kernels take f32 only
+  auto              cpu      any       torch_reference
+  torch_reference   any      any       torch_reference  (plain PyTorch)
+  cuda              any      any       cuda             (plain version on CPU
+                                                         tensors, kernel on
+                                                         CUDA tensors)
+
+A CUDA tensor never falls back to the plain version on its own: only a
+caller's ``use_backend("torch_reference")`` puts it there.
+
+**Registry**: implementations are registered per ``(op, backend)`` with
+:func:`register_impl`.  This slice registers ``lmme`` only.
+
+The platform (is there a card at all?) is read once per process by
+:func:`current_platform`.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from ..core.ops import lmme_reference
+from .lmme import lmme_cuda
+
+__all__ = ["BACKENDS", "CONCRETE_BACKENDS", "current_platform", "resolve_device",
+           "resolve_backend", "register_impl", "registered_backends",
+           "registered_impls", "get_impl"]
+
+CONCRETE_BACKENDS = ("torch_reference", "cuda")
+BACKENDS = ("auto",) + CONCRETE_BACKENDS
+
+
+@functools.lru_cache(maxsize=None)
+def current_platform() -> str:
+    """``"cuda"`` when the process sees a CUDA card, else ``"cpu"``; read once."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another.  Raises when ``cuda`` is asked for and there is no card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and current_platform() != "cuda":
+        raise RuntimeError("device 'cuda' requested but no CUDA device is "
+                           "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def resolve_backend(requested: str, *, device_type: str,
+                    dtype: torch.dtype = torch.float32) -> str:
+    """Resolve a requested backend name to a registered one (table above)."""
+    if requested in CONCRETE_BACKENDS:
+        return requested
+    if requested != "auto":
+        raise ValueError(f"unknown backend {requested!r}; one of {BACKENDS}")
+    if device_type == "cpu":
+        return "torch_reference"
+    if device_type == "cuda":
+        if dtype == torch.float32:
+            return "cuda"
+        raise TypeError(
+            f"no CUDA kernel takes {dtype} planes (float32 only); cast the "
+            "operands or request use_backend('torch_reference')")
+    raise ValueError(f"no backend for device type {device_type!r}")
+
+
+_Impl = Callable
+_REGISTRY: Dict[Tuple[str, str], _Impl] = {}
+
+
+def register_impl(op: str, *backends: str):
+    """Decorator: register ``impl`` for ``op`` on each named backend."""
+
+    def deco(impl: _Impl) -> _Impl:
+        for backend in backends:
+            _REGISTRY[(op, backend)] = impl
+        return impl
+
+    return deco
+
+
+def registered_backends(op: str) -> Tuple[str, ...]:
+    return tuple(b for (o, b) in _REGISTRY if o == op)
+
+
+def registered_impls() -> Tuple[Tuple[str, str], ...]:
+    """Every registered ``(op, backend)`` pair, sorted."""
+    return tuple(sorted(_REGISTRY))
+
+
+register_impl("lmme", "torch_reference")(lmme_reference)
+register_impl("lmme", "cuda")(lmme_cuda)
+
+
+def get_impl(op: str, resolved: str) -> _Impl:
+    try:
+        return _REGISTRY[(op, resolved)]
+    except KeyError:
+        raise KeyError(
+            f"no implementation registered for op {op!r} on backend "
+            f"{resolved!r}; registered: {registered_backends(op)}") from None

@@ -1,0 +1,48 @@
+"""Shared model helpers: the scan chunk length and the dense projection."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+def chunk_len(s: int, chunk: int) -> int:
+    """Largest divisor of ``s`` that is <= ``chunk``.
+
+    The goom layer's time-invariant A multiplies every step, so there is no
+    identity element to pad with: a scan of length ``s`` runs as ``s // L``
+    chunks of length L.  L sets the in-chunk reassociation, so it must be
+    the JAX package's choice exactly.  Prime ``s`` > ``chunk`` degrades to
+    L=1 (sequential, slow but right)."""
+    L = min(chunk, s)
+    while s % L:
+        L -= 1
+    return L
+
+
+def dense_apply(w: torch.Tensor, x: torch.Tensor, *,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """y[..., o1, o2, ...] = x[..., i] @ w[i, o1, o2, ...] in ``compute_dtype``
+    (default: x's dtype)."""
+    cd = compute_dtype or x.dtype
+    out_dims = w.shape[1:]
+    y = torch.matmul(x.to(cd), w.to(cd).reshape(w.shape[0], -1))
+    return y.reshape(x.shape[:-1] + out_dims)
+
+
+class Dense(nn.Module):
+    """Weight ``w`` of shape (in_dim, *out_dims), the JAX package's layout;
+    initialised LeCun-normal (std 1/sqrt(in_dim)) from ``generator``."""
+
+    def __init__(self, in_dim: int, out_dims, *, device=None,
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        w = torch.randn((in_dim, *out_dims), generator=generator,
+                        device=device, dtype=dtype) / in_dim ** 0.5
+        self.w = nn.Parameter(w)
+
+    def forward(self, x: torch.Tensor, *,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return dense_apply(self.w, x, compute_dtype=compute_dtype)

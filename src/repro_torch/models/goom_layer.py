@@ -1,0 +1,172 @@
+"""The paper's deep RNN layer (§4.3): a non-diagonal SSM over GOOMs.
+
+Per head:  x_t = A·x_{t-1} + B·u_t ; y_t = C·x_t + D·u_t  (eq. 25), with the
+recurrence over GOOMs, LSE(LMME(A', x'_{t-1}), LMME(B', u'_t)) (eq. 26), and
+no stabilization of any kind.  States come back to floats through the scaled
+exponentiation of eq. 27.
+
+Layer: LayerNorm → linear (heads) → GOOM scan → scaled exp → C, D → GLU →
+linear.  Every GOOM product is an ``engine.lmme`` call, so on the card each
+one is a launch of the CUDA LMME kernel.  Counterpart of
+``repro/models/goom_layer.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import GoomSSMCfg
+from ..core import engine
+from ..core.goom import Goom, finite_floor, to_goom
+from ..core.ops import goom_add, scaled_exp
+from .common import Dense, chunk_len
+from .norms import LayerNorm
+
+_FLOOR = finite_floor(torch.float32)
+
+
+def _cat(gs: List[Goom]) -> Goom:
+    return Goom(torch.cat([g.log_abs for g in gs]),
+                torch.cat([g.sign for g in gs]))
+
+
+def _scan_shared_a(
+    a_g: Goom,            # (H, d, d) time-invariant transition
+    bu_g: Goom,           # (S, B, H, d, 1) inputs B·u_t
+    x0: Optional[Goom],   # (B, H, d, 1) entering state, or None
+    chunk: int,
+) -> Tuple[Goom, Goom]:
+    """All prefix states, exploiting the time-invariant A.
+
+    Within a chunk of length L (``chunk_len``), Hillis-Steele doubling runs
+    on the vector side alone:
+
+        b_i ← LSE( LMME(A^(2^k), b_{i-2^k}), b_i );   A^(2^(k+1)) = (A^(2^k))²
+
+    and the entering state is folded into each chunk's first element.  The
+    shifted operand is padded with the finite floor (an exact zero that
+    keeps gradients finite), as in the JAX package.
+    Returns (states (S,B,H,d,1), final state (B,H,d,1)).
+    """
+    s = bu_g.shape[0]
+    L = chunk_len(s, chunk)
+    nc = s // L
+
+    def chunk_prefix(b: Goom) -> Goom:
+        a_pow = a_g
+        k = 1
+        while k < L:
+            pad_shape = (k,) + tuple(b.shape[1:])
+            shifted = Goom(
+                torch.cat([torch.full(pad_shape, _FLOOR, dtype=b.dtype,
+                                      device=b.device), b.log_abs[:-k]]),
+                torch.cat([torch.ones(pad_shape, dtype=b.sign.dtype,
+                                      device=b.device), b.sign[:-k]]),
+            )
+            b = goom_add(engine.lmme(a_pow, shifted), b)
+            if 2 * k < L:
+                a_pow = engine.lmme(a_pow, a_pow)
+            k *= 2
+        return b
+
+    if x0 is None:
+        bsz, h, hd = bu_g.shape[1], bu_g.shape[2], a_g.shape[-1]
+        shape = (bsz, h, hd, 1)
+        x0 = Goom(torch.full(shape, _FLOOR, device=bu_g.device),
+                  torch.ones(shape, device=bu_g.device))
+
+    carry = x0
+    states = []
+    for c in range(nc):
+        b_chunk = bu_g[c * L:(c + 1) * L]
+        # fold the carry into the first element: b_1 ← LSE(A·x0, b_1)
+        first = goom_add(engine.lmme(a_g, carry), b_chunk[0])
+        b_chunk = _cat([first[None], b_chunk[1:]])
+        st = chunk_prefix(b_chunk)
+        carry = st[-1]
+        states.append(st)
+    return _cat(states), carry
+
+
+class GoomSSM(nn.Module):
+    """One goom_ssm mixer; parameter names follow the JAX param tree."""
+
+    def __init__(self, cfg: GoomSSMCfg, *, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.scan_variant != "shared_a":
+            raise NotImplementedError(
+                f"scan_variant={cfg.scan_variant!r} rides the fused matrix-scan "
+                "kernel, which a later slice of the port brings; this slice "
+                "runs 'shared_a'")
+        self.cfg = cfg
+        d, hd, h = cfg.d_model, cfg.head_dim, cfg.n_heads
+        kw = dict(device=device, dtype=dtype)
+
+        def normal(std, shape):
+            return nn.Parameter(
+                std * torch.randn(shape, generator=generator, **kw))
+
+        self.ln = LayerNorm(d, **kw)
+        self.in_proj = Dense(d, (h, hd), generator=generator, **kw)
+        # A near-identity with small noise: a stable start, free to grow or
+        # shrink in training (the point of the paper)
+        eye = torch.eye(hd, **kw)[None] * 0.9
+        self.A = nn.Parameter(
+            eye + 0.1 * torch.randn((h, hd, hd), generator=generator, **kw)
+            / hd ** 0.5)
+        self.B = normal(0.5 / hd ** 0.5, (h, hd, hd))
+        self.C = normal(0.5 / hd ** 0.5, (h, hd, 2 * hd))
+        self.D = normal(0.5 / hd ** 0.5, (h, hd, 2 * hd))
+        self.out_proj = Dense(h * hd, (d,), generator=generator, **kw)
+
+    def forward(self, x: torch.Tensor, *,
+                state: Optional[Dict[str, torch.Tensor]] = None,
+                compute_dtype: torch.dtype = torch.bfloat16):
+        """x (B, S, d) → (out (B, S, d), new state or None)."""
+        b, s, _ = x.shape
+        h, hd = self.cfg.n_heads, self.cfg.head_dim
+
+        xin = self.ln(x)
+        u = self.in_proj(xin, compute_dtype=torch.float32)   # (B,S,H,hd)
+
+        a_g = to_goom(self.A.float(), use_floor=True)
+        b_g = to_goom(self.B.float(), use_floor=True)
+        u_g = to_goom(u, use_floor=True)
+
+        # B·u_t over GOOMs: (H,hd,hd) ∘ (S,B,H,hd,1), A broadcast by strides
+        u_col = Goom(u_g.log_abs.permute(1, 0, 2, 3)[..., None],
+                     u_g.sign.permute(1, 0, 2, 3)[..., None])
+        bu = engine.lmme(b_g, u_col)
+
+        x0 = None if state is None else Goom(state["x_log"], state["x_sign"])
+        states, final = _scan_shared_a(a_g, bu, x0, self.cfg.chunk)
+
+        # back to floats (eq. 27): one max over heads and head_dim per position
+        xs = Goom(states.log_abs[..., 0].permute(1, 0, 2, 3),   # (B,S,H,hd)
+                  states.sign[..., 0].permute(1, 0, 2, 3))
+        vals, _ = scaled_exp(xs, dim=(-2, -1), shift=2.0)
+
+        cd = compute_dtype
+        y = torch.einsum("bshd,hde->bshe", vals.to(cd), self.C.to(cd))
+        y = y + torch.einsum("bshd,hde->bshe", u.to(cd), self.D.to(cd))
+        y1, y2 = y.chunk(2, dim=-1)
+        y = (y1 * torch.sigmoid(y2)).reshape(b, s, h * hd)   # GLU
+        out = self.out_proj(y, compute_dtype=cd)
+
+        new_state = None
+        if state is not None:
+            new_state = {"x_log": final.log_abs, "x_sign": final.sign}
+        return out, new_state
+
+
+def goom_ssm_init_state(batch: int, cfg: GoomSSMCfg, *, device) -> Dict[str, torch.Tensor]:
+    """The fixed-size decode state: an all-zero (floored) (B,H,hd,1) carry."""
+    shape = (batch, cfg.n_heads, cfg.head_dim, 1)
+    return {
+        "x_log": torch.full(shape, _FLOOR, dtype=torch.float32, device=device),
+        "x_sign": torch.ones(shape, dtype=torch.float32, device=device),
+    }

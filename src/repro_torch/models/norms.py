@@ -1,0 +1,28 @@
+"""LayerNorm with JAX-package semantics: statistics in f32, cast back."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def layernorm_apply(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                    *, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+class LayerNorm(nn.Module):
+    """Elementwise-affine LayerNorm (eps 1e-5) computed in f32."""
+
+    def __init__(self, dim: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm_apply(self.scale, self.bias, x)

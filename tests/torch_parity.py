@@ -1,0 +1,79 @@
+"""Shared helpers for the port's parity tests (``test_torch_*.py``).
+
+Inputs are made with numpy from a seed and handed to both the JAX package
+(on the CPU) and the PyTorch port (``device="cpu"``); results come back as
+numpy arrays and are compared here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def t(x, dtype=torch.float32) -> torch.Tensor:
+    """numpy -> CPU torch tensor (a copy)."""
+    return torch.tensor(np.asarray(x), dtype=dtype)
+
+
+def n(x) -> np.ndarray:
+    """torch tensor or JAX array -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def assert_goom_close(got_log, got_sign, want_log, want_sign, *, scale_log=None,
+                      atol=1e-4, cancel_margin=12.0):
+    """Port of ``tests/test_kernels.py::assert_goom_close`` on numpy planes.
+
+    Values normalised by their scale agree to ``atol``; away from
+    cancellation (entries within ``cancel_margin`` log-units of the scale)
+    log-magnitudes agree to rtol 1e-4 / atol 1e-3 and signs exactly.  The
+    scale is the output's row max, as in the JAX helper, or, where larger,
+    ``scale_log``: the log of the entry's own absolute contraction
+    sum_k |a_ik b_kj| (see ``lmme_abs_scale``).  The row max alone cannot
+    see cancellation in an (n, 1) matvec output, whose row is one entry.
+    """
+    got_log, got_sign = n(got_log), n(got_sign)
+    want_log, want_sign = n(want_log), n(want_sign)
+    m = np.maximum(want_log.max(-1, keepdims=True), got_log.max(-1, keepdims=True))
+    if scale_log is not None:
+        m = np.maximum(m, n(scale_log))
+    m = np.where(np.isfinite(m), m, 0.0)
+    gv = got_sign * np.exp(got_log - m)
+    wv = want_sign * np.exp(want_log - m)
+    np.testing.assert_allclose(gv, wv, atol=atol, rtol=0)
+    ok = want_log > m - cancel_margin
+    np.testing.assert_allclose(got_log[ok], want_log[ok], rtol=1e-4, atol=1e-3)
+    np.testing.assert_array_equal(got_sign[ok], want_sign[ok])
+
+
+def lmme_abs_scale(a_log, b_log) -> np.ndarray:
+    """log sum_k |a_ik||b_kj|: each LMME entry's scale without cancellation."""
+    from repro_torch.core.goom import Goom
+    from repro_torch.core.ops import lmme_reference
+
+    al, bl = t(a_log), t(b_log)
+    out = lmme_reference(Goom(al, torch.ones_like(al)), Goom(bl, torch.ones_like(bl)))
+    return n(out.log_abs)
+
+
+def goom_planes(rng: np.random.Generator, shape, *, spread: float = 0.0,
+                along: str = "row", zero_rows: bool = False):
+    """Random (log_abs, sign) f32 planes of an LMME operand.
+
+    ``spread`` shifts each row (``along="row"``, for A) or column
+    (``along="col"``, for B) by a log offset from [-spread, spread]: outputs
+    then span e±spread while each contraction stays well conditioned, as in
+    the JAX package's e±200 tests.  ``zero_rows`` sets the first row of every
+    matrix to exact zeros (log -inf)."""
+    log = rng.normal(size=shape).astype(np.float32)
+    if spread:
+        off = shape[:-1] + (1,) if along == "row" else shape[:-2] + (1, shape[-1])
+        log += rng.uniform(-spread, spread, size=off).astype(np.float32)
+    sign = np.where(rng.random(shape) < 0.5, -1.0, 1.0).astype(np.float32)
+    if zero_rows:
+        log[..., 0, :] = -np.inf
+        sign[..., 0, :] = 1.0
+    return log, sign
