@@ -6,18 +6,33 @@
 from the root of a checkout, on a machine with an NVIDIA Hopper card and the
 CUDA toolkit.  Phases, in order; any failure exits non-zero:
 
-  1. build   — compile every CUDA kernel source with nvcc (sm_90a), in parallel;
-  2. kernels — hold each kernel against its plain PyTorch version on the card
-               at the serving path's shapes and more, on inputs spread to
-               e±200 with exact-zero rows and columns, and time both;
-  3. serve   — serve goom-rnn-124m at full width (24 layers, d=768, vocab
-               50257, seeded random weights, bf16 compute) through
-               ``Engine(max_slots=4, page_len=512, chunk=64)``: 6 requests,
-               two of which wait for a slot and join mid-batch.  Every
-               engine LMME call must have launched the CUDA kernel;
-  4. parity  — serve the same requests at f32 compute on the kernel and under
-               ``use_backend("torch_reference")``; tokens must agree except
-               after a near tie (top-2 margin below 1e-4·std(logits)).
+  1. build    — compile every CUDA kernel source with nvcc (sm_90a), in
+                parallel;
+  2. kernels  — hold each kernel against its plain PyTorch version on the
+                card, and time both: the LMME kernel on e±200 inputs with
+                exact-zero rows and columns; the matrix-scan kernel (with B,
+                and its zero-B form from X_0 = I) at the generic layer's
+                shapes, on e±200 and odd signed shapes, and on the chains'
+                and the LLE's lengths, each also against float64;
+  3. serve    — serve goom-rnn-124m at full width (24 layers, d=768, vocab
+                50257, seeded random weights, bf16 compute) through
+                ``Engine(max_slots=4, page_len=512, chunk=64)``: 6 requests,
+                two of which wait for a slot and join mid-batch.  Every
+                engine LMME and matrix-scan call must have launched its CUDA
+                kernel.  Once with ``scan_variant="shared_a"`` (every GOOM op
+                an LMME) and once with the paper-literal ``"generic"`` (B·u on
+                the LMME kernel, the recurrence one matrix-scan launch per
+                layer), each with a profiler trace of steady decode steps;
+  4. parity   — serve the same requests at f32 compute on the kernels and
+                under ``use_backend("torch_reference")``; tokens must agree
+                except after a near tie (top-2 margin below 1e-4·std(logits)).
+                For ``generic`` also the prefill-logit gap to ``shared_a`` on
+                the same weights;
+  5. experiments — the paper's experiments 1 and 2 on the card: float
+                chains fail, GOOM chains complete, the parallel chain (zero-B
+                kernel) equals a loop of LMME launches; Lyapunov spectra and
+                LLE of the four in-repo systems at 4096 steps, parallel
+                against sequential and λ1 against the literature.
 
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit (from nvidia-smi), and ``{"ok": true, "device": {...}}``.
@@ -87,12 +102,8 @@ def goom_close(got, want, scale_log, *, atol=1e-4, margin=12.0):
     return err <= atol and logs_ok and signs_ok, err
 
 
-def device_ms(fn, iters: int) -> float:
-    """Device time per call of ``fn``: the summed durations of the kernels
-    (and memsets or copies) that ``iters`` calls put on the card, from a
-    profiler trace.  Host time and the gaps between kernels are left out,
-    so a call that launches many small kernels is not timed at the host's
-    launch rate."""
+def _profile(fn, iters: int):
+    """A profiler trace of ``iters`` calls of ``fn`` after one warm call."""
     import torch
 
     fn()
@@ -102,7 +113,50 @@ def device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return _device_ms(prof) / iters
+    return prof
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn``: the summed durations of the kernels
+    (and memsets or copies) that ``iters`` calls put on the card, from a
+    profiler trace.  Host time and the gaps between kernels are left out,
+    so a call that launches many small kernels is not timed at the host's
+    launch rate."""
+    return _device_ms(_profile(fn, iters)) / iters
+
+
+def event_ms(fn, iters: int) -> float:
+    """Per-call time between CUDA events around ``iters`` calls.  Right for
+    a call of one long kernel, where the launches queue up ahead of the
+    device; a call of many tiny kernels would time the host's launch rate."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int, kernel: str):
+    """(ms, how) per call of ``fn``, which launches the one kernel whose
+    name holds ``kernel``: the mean device duration of its launches in a
+    profiler trace.  The profiler has been seen to drop launch records on an
+    H100 (it kept 46 of 50 short ones, and none of 3 that ran 70 ms), so the
+    mean is over the launches it kept, and CUDA events time the call when it
+    kept none."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in _profile(fn, iters).events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if events:
+        ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / len(events)
+        return ms, f"profiler, {len(events)} of {iters} launches"
+    return event_ms(fn, iters), f"events; the profiler kept none of {iters} launches"
 
 
 def _device_ms(prof, name: str = "") -> float:
@@ -225,6 +279,211 @@ def kernel_phase():
     return rows, max_err
 
 
+# name, T, batch, d, m, kind: the generic layer's decode and 64-token chunk
+# (48 heads of 16; A time-invariant, passed as a stride-0 view), the JAX
+# tests' e±200 and odd signed shapes
+SCAN_CASES = [
+    ("decode (G=48,T=1,d=16,m=4)", 1, (48,), 16, 4, "shared_a"),
+    ("64-token chunk (G=48,T=64,d=16,m=1)", 64, (48,), 16, 1, "shared_a"),
+    ("positive e±200 (T=150,d=4,m=1)", 150, (), 4, 1, "positive"),
+    ("signed (T=13,d=4,m=1)", 13, (), 4, 1, "signed"),
+    ("signed (T=9,G=2,d=5,m=3)", 9, (2,), 5, 3, "signed"),
+    ("signed (T=16,G=2x2,d=3,m=1)", 16, (2, 2), 3, 1, "signed"),
+    ("signed (T=5,d=8,m=8)", 5, (), 8, 8, "signed"),
+    ("signed e±200 (T=17,d=4,m=2)", 17, (), 4, 2, "e200_signed"),
+]
+# zero-B from X_0 = I (cumulative_lmme): the quickstart's chain, the d=128
+# chain of fig. 1 (2000 steps after S_0), the LLE's 4096 steps after u_0
+ZERO_B_CASES = [
+    ("zero-B (1000,16,16)", 1000, 16, 20),
+    ("zero-B d=128 chain (2001,128,128)", 2001, 128, 3),
+    ("zero-B LLE (4097,3,3)", 4097, 3, 5),
+]
+
+
+def _goom(x):
+    import torch
+
+    from repro_torch.core.goom import Goom
+
+    return Goom(torch.log(x.abs()), torch.where(x >= 0, 1.0, -1.0).to(x.dtype))
+
+
+def _as(g, dtype=None, positive=False):
+    """``g`` in ``dtype`` (None keeps it), with all signs +1 if ``positive``."""
+    import torch
+
+    from repro_torch.core.goom import Goom
+
+    if g is None:
+        return None
+    log = g.log_abs if dtype is None else g.log_abs.to(dtype)
+    sign = g.sign if dtype is None else g.sign.to(dtype)
+    return Goom(log, torch.ones_like(sign) if positive else sign)
+
+
+def goom_dist(x, exact, scale_log) -> float:
+    """max |x - exact| over each entry's scale, in float64."""
+    import torch
+
+    sc = scale_log.double()
+    sc = torch.where(torch.isfinite(sc), sc, torch.zeros_like(sc))
+    xv = x.sign.double() * torch.exp(x.log_abs.double() - sc)
+    ev = exact.sign.double() * torch.exp(exact.log_abs.double() - sc)
+    return float((xv - ev).abs().max())
+
+
+def scan_operands(t, batch, d, m, kind, gen):
+    """(a, b, x0) on the card; ``shared_a`` gives a near-identity A that is a
+    stride-0 view over time, as the generic layer passes it."""
+    import torch
+
+    from repro_torch.core.goom import Goom
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    if kind == "shared_a":
+        a = _goom(0.9 * torch.eye(d, device=DEVICE) + 0.3 * normal(*batch, d, d) / d ** 0.5)
+        a = Goom(a.log_abs.expand((t,) + a.shape), a.sign.expand((t,) + a.shape))
+        return a, _goom(normal(t, *batch, d, m)), _goom(normal(*batch, d, m))
+    if kind == "positive":
+        return (_goom(normal(t, *batch, d, d).abs() * 4.0),
+                _goom(normal(t, *batch, d, m).abs()), None)
+    k = 1.0 if kind == "e200_signed" else 0.6
+    a = _goom(normal(t, *batch, d, d) * k)
+    if kind == "e200_signed":
+        shift = 200.0 * torch.where(torch.rand(t, 1, 1, generator=gen, device=DEVICE) < 0.5,
+                                    -1.0, 1.0)
+        a = Goom(a.log_abs + shift, a.sign)
+    return a, _goom(normal(t, *batch, d, m) * k), _goom(normal(*batch, d, m))
+
+
+def scan_bound(t, g, d, m, *, has_b, a_fixed):
+    """(bound ms, bound_by): each input plane read once (a stride-0 A once
+    per g), each output plane written once; exps of A and of the carry, 2
+    flops per multiply-add, a log per output, and 2 exps and a log more per
+    output for the LSE with B."""
+    a_reads = (1 if a_fixed else t) * g * d * d
+    outs = t * g * d * m
+    n_in = a_reads + (outs if has_b else 0) + g * d * m
+    nbytes = 4 * 2 * (n_in + outs)
+    ops = a_reads + outs + 2 * t * g * d * d * m + outs + (3 * outs if has_b else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def scan_kernel_phase():
+    """The matrix-scan kernel (both forms) against its plain version.  The
+    kernel walks time in order and the plain version brackets as a tree, so
+    besides the f32 comparison each is held to the float64 plain version:
+    the kernel's distance to it must be at most twice the f32 plain
+    version's (floor 1e-6)."""
+    import math
+
+    import torch
+
+    from repro_torch.core.chains import goom_log_norm
+    from repro_torch.core.goom import Goom
+    from repro_torch.kernels.goom_scan import (
+        matrix_scan_cuda,
+        matrix_scan_ref,
+        matrix_scan_zero_b_ref,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rows, errs = {}, {"matrix_scan": 0.0, "matrix_scan_zero_b": 0.0}
+    f64 = torch.float64
+    for name, t, batch, d, m, kind in SCAN_CASES:
+        a, b, x0 = scan_operands(t, batch, d, m, kind, gen)
+        copies = matrix_scan_cuda.copies
+        got = matrix_scan_cuda(a, b, x0)
+        torch.cuda.synchronize()
+        check(matrix_scan_cuda.copies == copies, f"{name}: an operand was copied")
+        plain = matrix_scan_ref(a, b, x0)
+        exact = matrix_scan_ref(_as(a, f64), _as(b, f64), _as(x0, f64))
+        scale = matrix_scan_ref(_as(a, f64, True), _as(b, f64, True),
+                                _as(x0, f64, True)).log_abs
+        check(tuple(got.shape) == tuple(plain.shape)
+              and not bool(torch.isnan(got.log_abs).any()), f"{name}: bad output")
+        d_k, d_p = goom_dist(got, exact, scale), goom_dist(plain, exact, scale)
+        check(d_k <= 2.0 * d_p + 1e-6, f"matrix-scan kernel at {name}: distance "
+              f"to float64 {d_k:.3e} > twice the plain version's {d_p:.3e}")
+        err = goom_dist(got, plain, scale)
+        if kind == "positive":
+            w = plain.log_abs
+            rel = float(((got.log_abs - w).abs() / w.abs().clamp_min(1.0)).max())
+            check(float(w.abs().max()) > 200.0 and rel <= 1e-4,
+                  f"{name}: relative log error {rel:.3e} > 1e-4")
+        elif kind != "e200_signed":
+            ok, _ = goom_close(got, plain, scale.float(), margin=8.0)
+            check(ok, f"matrix-scan kernel disagrees with its plain version at {name}")
+        errs["matrix_scan"] = max(errs["matrix_scan"], err)
+        g = math.prod(batch)
+        iters = 50 if t <= 64 else 10
+        k_ms, k_how = kernel_ms(lambda: matrix_scan_cuda(a, b, x0), iters, "matrix_scan")
+        p_ms = device_ms(lambda: matrix_scan_ref(a, b, x0), iters)
+        bound, bound_by = scan_bound(t, g, d, m, has_b=True, a_fixed=kind == "shared_a")
+        rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+                          max_abs_err=err)
+        print(f"matrix_scan {name}: kernel {k_ms:.4f} ms ({k_how}), plain "
+              f"{p_ms:.4f} ms, "
+              f"bound {bound:.6f} ms ({bound_by}); error vs plain {err:.2e}; "
+              f"distance to float64: kernel {d_k:.2e}, plain {d_p:.2e}", flush=True)
+
+    for name, t, d, iters in ZERO_B_CASES:
+        a = _goom(torch.randn(t, d, d, generator=gen, device=DEVICE))
+        eye = torch.eye(d, dtype=torch.bool, device=DEVICE)
+        x0 = Goom(torch.zeros(d, d, device=DEVICE).masked_fill(~eye, -math.inf),
+                  torch.ones(d, d, device=DEVICE))
+        got = matrix_scan_cuda(a, None, x0)
+        torch.cuda.synchronize()
+        plain = matrix_scan_zero_b_ref(a, x0)
+        exact = matrix_scan_zero_b_ref(_as(a, f64), _as(x0, f64))
+        # long products turn rank-1: values over each matrix's largest entry
+        scale = exact.log_abs.amax((-2, -1), keepdim=True).expand_as(exact.log_abs)
+        check(tuple(got.shape) == (t, d, d) and bool(torch.isfinite(got.log_abs).all()),
+              f"{name}: non-finite or misshapen output")
+        d_k, d_p = goom_dist(got, exact, scale), goom_dist(plain, exact, scale)
+        check(d_k <= 2.0 * d_p + 1e-6, f"zero-B kernel at {name}: distance to "
+              f"float64 {d_k:.3e} > twice the plain version's {d_p:.3e}")
+        fro_k, fro_x = float(goom_log_norm(got[-1])), float(goom_log_norm(exact[-1]))
+        check(abs(fro_k - fro_x) <= 1e-5 * abs(fro_x), f"{name}: final log "
+              f"Frobenius norm {fro_k} vs float64 {fro_x}")
+        err = goom_dist(got, plain, scale)
+        errs["matrix_scan_zero_b"] = max(errs["matrix_scan_zero_b"], err)
+        k_ms, k_how = kernel_ms(lambda: matrix_scan_cuda(a, None, x0), iters, "matrix_scan")
+        p_ms = device_ms(lambda: matrix_scan_zero_b_ref(a, x0), iters)
+        bound, bound_by = scan_bound(t, 1, d, d, has_b=False, a_fixed=False)
+        rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+                          max_abs_err=err)
+        print(f"matrix_scan {name}: kernel {k_ms:.4f} ms ({k_how}), plain "
+              f"{p_ms:.4f} ms, "
+              f"bound {bound:.6f} ms ({bound_by}); error vs plain {err:.2e}; "
+              f"distance to float64: kernel {d_k:.2e}, plain {d_p:.2e}; final "
+              f"log Frobenius norm {fro_k:.4f} (float64 {fro_x:.4f})", flush=True)
+
+    # backward: autograd of the plain version, reached through the kernel
+    a, b, x0 = scan_operands(9, (2,), 5, 3, "signed", gen)
+    for with_b in (True, False):
+        grads = []
+        for fn in (matrix_scan_cuda, None):
+            al, bl, xl = (x.log_abs.clone().requires_grad_() for x in (a, b, x0))
+            ga, gb, gx = Goom(al, a.sign), Goom(bl, b.sign) if with_b else None, Goom(xl, x0.sign)
+            if fn is not None:
+                out = fn(ga, gb, gx)
+            else:
+                out = matrix_scan_ref(ga, gb, gx) if with_b else matrix_scan_zero_b_ref(ga, gx)
+            out.log_abs.sum().backward()
+            grads.append((al.grad, bl.grad, xl.grad))
+        for g_k, g_p in zip(*grads):
+            check((g_k is None and g_p is None) or torch.equal(g_k, g_p),
+                  "matrix-scan backward through the kernel differs from the plain one")
+    print("matrix_scan backward (with B and zero-B): gradients equal to the "
+          "plain version's", flush=True)
+    return rows, errs
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: serving
 # ---------------------------------------------------------------------------
@@ -308,18 +567,62 @@ def check_finished(reqs, results, reasons):
                   f"request {r.uid}: {len(out)} tokens of {r.max_new_tokens}")
 
 
-def serve_phase(cfg):
+def with_scan_variant(cfg, variant: str):
+    """``cfg`` with every goom layer's ``scan_variant`` set to ``variant``
+    (the package names no config for ``generic``)."""
+    def block(b):
+        return dataclasses.replace(b, goom=dataclasses.replace(b.goom, scan_variant=variant))
+
+    return dataclasses.replace(cfg, groups=tuple(
+        dataclasses.replace(g, period=tuple(block(b) for b in g.period))
+        for g in cfg.groups))
+
+
+def reset_counts():
+    """Every kernel's launch count and every engine call count to 0."""
+    from repro_torch.core import engine
+    from repro_torch.kernels.goom_scan import matrix_scan_cuda
+    from repro_torch.kernels.lmme import lmme_cuda
+
+    engine.reset_calls()
+    lmme_cuda.launches = 0
+    matrix_scan_cuda.launches = 0
+    matrix_scan_cuda.launches_zero_b = 0
+
+
+def read_counts():
+    """(launches by kernel, engine calls by op) since ``reset_counts``."""
+    from repro_torch.core import engine
+    from repro_torch.kernels.goom_scan import matrix_scan_cuda
+    from repro_torch.kernels.lmme import lmme_cuda
+
+    return ({"lmme": lmme_cuda.launches, "matrix_scan": matrix_scan_cuda.launches,
+             "matrix_scan_zero_b": matrix_scan_cuda.launches_zero_b}, dict(engine.calls))
+
+
+def check_launches(launches, calls, path, used):
+    """Every engine call of the path reached its kernel, and each kernel in
+    ``used`` launched at least once; the others not at all."""
+    for kernel, op in (("lmme", "lmme"), ("matrix_scan", "matrix_scan"),
+                       ("matrix_scan_zero_b", "cumulative_lmme")):
+        check(launches[kernel] == calls[op], f"{path}: {kernel} launches "
+              f"{launches[kernel]} != engine {op} calls {calls[op]}")
+        check((launches[kernel] > 0) == (kernel in used),
+              f"{path}: {kernel} launched {launches[kernel]} times")
+
+
+def serve_phase(cfg, model=None):
     import torch
 
     from repro_torch import DecoderLM
-    from repro_torch.core import engine
-    from repro_torch.kernels.lmme import lmme_cuda
 
+    variant = cfg.layer_list[0].goom.scan_variant
     t0 = time.perf_counter()
-    model = DecoderLM(cfg, device=DEVICE,
-                      generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    if model is None:
+        model = DecoderLM(cfg, device=DEVICE,
+                          generator=torch.Generator(device=DEVICE).manual_seed(SEED))
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"serve: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+    print(f"serve [{variant}]: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
           f"vocab={cfg.vocab}, {n_params / 1e6:.1f}M params, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -329,14 +632,13 @@ def serve_phase(cfg):
     eos = pick_eos(warm)
     reqs = requests(cfg.vocab, eos=eos)
 
-    engine.reset_calls()
-    lmme_cuda.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     results, reasons, stats = serve(model, reqs, timed=True)
-    launches, calls = lmme_cuda.launches, engine.calls["lmme"]
+    launches, calls = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(calls > 0 and launches == calls,
-          f"LMME kernel launches {launches} != engine lmme calls {calls}")
+    used = {"lmme"} | ({"matrix_scan"} if variant == "generic" else set())
+    check_launches(launches, calls, f"serve [{variant}]", used)
     check_finished(reqs, results, reasons)
     check(stats["joined_late"] >= 2, f"only {stats['joined_late']} requests "
           "waited for a slot and joined mid-batch")
@@ -347,44 +649,45 @@ def serve_phase(cfg):
 
     # what one decode step and one prefill chunk cost in launches, and a
     # look at the logits themselves
-    engine.reset_calls()
-    before = lmme_cuda.launches
     with torch.no_grad():
+        reset_counts()
         logits, _ = model.decode_step(torch.zeros(4, 1, dtype=torch.long, device=DEVICE),
                                       model.init_caches(4))
-        per_decode = lmme_cuda.launches - before
-        before = lmme_cuda.launches
+        per_decode = read_counts()[0]
+        reset_counts()
         tok = torch.tensor([max((r.prompt for r in reqs), key=len)[:64]],
                            device=DEVICE)
         chunk_logits, _ = model.prefill(tok, model.init_caches(1))
-        per_chunk = lmme_cuda.launches - before
+        per_chunk = read_counts()[0]
     check(tuple(logits.shape) == (4, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
           and bool(torch.isfinite(chunk_logits).all()), "non-finite or misshapen logits")
 
     ttft = stats["ttft_ms"]
-    print(f"serve: {stats['tokens']} tokens in {stats['wall_s']:.3f} s = "
+    print(f"serve [{variant}]: {stats['tokens']} tokens in {stats['wall_s']:.3f} s = "
           f"{stats['tokens_per_s']:.1f} tokens/s; TTFT ms by request "
           + ", ".join(f"{u}:{ttft[u]:.1f}" for u in sorted(ttft))
           + f"; decode step {stats['decode_step_ms']:.2f} ms (median, 4 slots); "
           f"{stats['decode_steps']} decode steps; {stats['joined_late']} "
           f"requests joined mid-batch; peak memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
-    print(f"serve: finish reasons {reasons}; LMME launches {launches} == engine "
-          f"calls {calls}; per decode step {per_decode}, per 64-token prefill "
-          f"chunk {per_chunk}", flush=True)
+    print(f"serve [{variant}]: finish reasons {reasons}; launches {launches} == "
+          f"engine calls {calls}; LMME / matrix-scan launches per decode step "
+          f"{per_decode['lmme']} / {per_decode['matrix_scan']}, per 64-token "
+          f"prefill chunk {per_chunk['lmme']} / {per_chunk['matrix_scan']}", flush=True)
     return model, reqs, dict(stats, launches=launches, peak_bytes=peak,
                              per_decode=per_decode, per_chunk=per_chunk)
 
 
 def trace_phase(model):
     """A profiler trace of steady decode steps over 4 busy slots: device
-    busy ms per step, the LMME kernel's part of it, kernels per step, and
-    the card's idle share against the step's unprofiled wall time."""
+    busy ms per step, each kernel's part of it, kernels per step, and the
+    card's idle share against the step's unprofiled wall time."""
     import torch
     from torch.autograd import DeviceType
 
     from repro_torch import Engine, Request
 
+    variant = model.cfg.layer_list[0].goom.scan_variant
     n_steps = 8
     eng = Engine(model, **SERVE)
     for i in range(SERVE["max_slots"]):
@@ -406,20 +709,26 @@ def trace_phase(model):
     n_dev = sum(e.device_type == DeviceType.CUDA for e in prof.events())
     busy = _device_ms(prof) / n_steps
     lmme = _device_ms(prof, "lmme") / n_steps
-    print(f"trace: decode step (4 slots) {step_ms:.3f} ms wall, device busy "
-          f"{busy:.3f} ms in {n_dev / n_steps:.0f} kernels, of which "
-          f"LMME {lmme:.3f} ms; device idle share {1 - busy / step_ms:.3f}",
-          flush=True)
+    mscan = _device_ms(prof, "matrix_scan") / n_steps
+    print(f"trace [{variant}]: decode step (4 slots) {step_ms:.3f} ms wall, device "
+          f"busy {busy:.3f} ms in {n_dev / n_steps:.0f} kernels, of which LMME "
+          f"{lmme:.3f} ms and matrix scan {mscan:.3f} ms; device idle share "
+          f"{1 - busy / step_ms:.3f}", flush=True)
+    return dict(step_ms=step_ms, busy_ms=busy, kernels=n_dev / n_steps,
+                idle=1 - busy / step_ms)
 
 
-def parity_phase(model, cfg, reqs):
-    """f32 serving on the kernel vs under the plain version: tokens equal up
-    to the first near tie of the reference's logits."""
+def parity_phase(model, cfg, reqs, compare_variant=None):
+    """f32 serving on the kernels vs under the plain versions: tokens equal
+    up to the first near tie of the reference's logits.  With
+    ``compare_variant``, also the f32 prefill-logit gap to that scan variant
+    on the same weights."""
     import torch
 
     from repro_torch import DecoderLM
     from repro_torch.core import engine
 
+    variant = cfg.layer_list[0].goom.scan_variant
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     m32 = DecoderLM(cfg32, device=DEVICE,
                     generator=torch.Generator(device=DEVICE).manual_seed(SEED))
@@ -431,10 +740,20 @@ def parity_phase(model, cfg, reqs):
         lg_kernel, _ = m32.prefill(seq, m32.init_caches(1))
         with engine.use_backend("torch_reference"):
             lg_plain, _ = m32.prefill(seq, m32.init_caches(1))
-    print(f"parity (f32): prefill logits of a {seq.shape[1]}-token prompt, "
-          f"kernel vs plain: max |diff| "
+    print(f"parity [{variant}] (f32): prefill logits of a {seq.shape[1]}-token "
+          f"prompt, kernel vs plain: max |diff| "
           f"{float((lg_kernel - lg_plain).abs().max()):.3e}, std "
           f"{float(lg_plain.std()):.3e}", flush=True)
+    if compare_variant:
+        other = DecoderLM(with_scan_variant(cfg32, compare_variant), device=DEVICE,
+                          generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+        other.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            lg_other, _ = other.prefill(seq, other.init_caches(1))
+        del other
+        print(f"parity [{variant}] (f32): prefill logits {variant} vs "
+              f"{compare_variant} on the same weights: max |diff| "
+              f"{float((lg_kernel - lg_other).abs().max()):.3e}", flush=True)
     with engine.use_backend("torch_reference"):
         want, _, _ = serve(m32, reqs)
         compared, stopped = 0, []
@@ -456,9 +775,115 @@ def parity_phase(model, cfg, reqs):
                 compared += 1
             else:
                 check(len(g) == len(w), f"request {r.uid}: lengths {len(g)} != {len(w)}")
-    print(f"parity (f32): {compared} tokens compared equal; stopped at near "
-          f"ties {stopped or 'none'}", flush=True)
+    print(f"parity [{variant}] (f32): {compared} tokens compared equal; stopped "
+          f"at near ties {stopped or 'none'}", flush=True)
     return compared
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the paper's experiments 1 and 2
+# ---------------------------------------------------------------------------
+def _wall_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def experiments_phase():
+    """Chains (fig. 1) and Lyapunov spectra (fig. 3) on the card, through
+    the engine: the parallel chain and the LLE on the zero-B kernel, the
+    spectrum's reset scan on the LMME kernel.  The rollouts of the systems
+    (a sequential loop of 3-vector steps, on no kernel path) run on the CPU,
+    and their Jacobians move to the card."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.core.chains import (
+        chain_matrices,
+        float_chain_survival,
+        goom_chain,
+        goom_log_norm,
+    )
+    from repro_torch.core.goom import to_goom
+    from repro_torch.core.lyapunov import (
+        SYSTEMS,
+        lle_parallel,
+        lle_sequential,
+        spectrum_parallel,
+        spectrum_sequential,
+        trajectory_and_jacobians,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    reset_counts()
+    for d in (8, 32, 128):
+        res = float_chain_survival(gen, d, 20_000, device=DEVICE)
+        check(res.steps_survived < 20_000, f"float chain d={d} did not fail")
+        g, ms = _wall_ms(lambda: goom_chain(gen, d, 2_000, device=DEVICE))
+        check(g.steps_survived == 2_000, f"GOOM chain d={d} did not complete")
+        print(f"chains d={d}: float32 fails after {res.steps_survived} steps; "
+              f"GOOM chain completes 2000 steps, final log Frobenius norm "
+              f"{g.final_log_norm:.4f} ({ms:.1f} ms, a loop of LMME launches)",
+              flush=True)
+    mats = chain_matrices(gen, 128, 2_000, device=DEVICE)
+    par, par_ms = _wall_ms(lambda: engine.cumulative_lmme(to_goom(mats)))
+
+    def loop():
+        s = to_goom(mats[0])
+        for a in mats[1:]:
+            s = engine.lmme(to_goom(a), s)
+        return s
+
+    seq, loop_ms = _wall_ms(loop)
+    f_par, f_seq = float(goom_log_norm(par[-1])), float(goom_log_norm(seq))
+    check(abs(f_par - f_seq) <= 1e-5 * abs(f_seq), f"parallel chain log norm "
+          f"{f_par} vs LMME loop {f_seq}")
+    print(f"chains d=128, 2000 steps: goom_chain_parallel (zero-B kernel) "
+          f"{par_ms:.1f} ms, log Frobenius norm {f_par:.4f}; loop of LMME "
+          f"launches {loop_ms:.1f} ms, {f_seq:.4f}; relative gap "
+          f"{abs(f_par - f_seq) / abs(f_seq):.2e}", flush=True)
+    q = engine.cumulative_lmme(to_goom(torch.randn(1000, 16, 16, generator=gen,
+                                                   device=DEVICE)))
+    check(bool(torch.isfinite(q.log_abs).all()) and float(q.log_abs[-1].max()) > 88.0,
+          "the quickstart's (1000,16,16) chain is not finite beyond f32")
+    print(f"chains (1000,16,16): final log-magnitudes "
+          f"{float(q.log_abs[-1].min()):.1f} .. {float(q.log_abs[-1].max()):.1f}, "
+          "all finite", flush=True)
+
+    results = {}
+    for name, sys_ in SYSTEMS.items():
+        _, js = trajectory_and_jacobians(sys_, 4096, device="cpu")
+        js = js.to(DEVICE)
+        seq_s, t_seq = _wall_ms(lambda: spectrum_sequential(js, sys_.dt))
+        par_s, t_par = _wall_ms(lambda: spectrum_parallel(js, sys_.dt, chunk_size=256))
+        lle_s, t_lle_s = _wall_ms(lambda: lle_sequential(js, sys_.dt))
+        lle_p, t_lle_p = _wall_ms(lambda: lle_parallel(js, sys_.dt))
+        check(bool(torch.isfinite(par_s).all()), f"{name}: non-finite spectrum")
+        check(bool(torch.allclose(par_s, seq_s, rtol=1e-3, atol=1e-3)),
+              f"{name}: parallel spectrum {par_s.tolist()} vs sequential {seq_s.tolist()}")
+        gap = abs(float(lle_p) - float(lle_s))
+        check(gap <= max(0.05, 0.05 * abs(float(lle_s))),
+              f"{name}: LLE parallel {float(lle_p)} vs sequential {float(lle_s)}")
+        est = sorted(par_s.tolist(), reverse=True)[0]
+        ref = sorted(sys_.ref_spectrum, reverse=True)[0]
+        check(abs(est - ref) < max(0.15, 0.2 * abs(ref) + 0.05),
+              f"{name}: lambda_1 {est} vs literature {ref}")
+        results[name] = dict(seq=seq_s.tolist(), par=par_s.tolist(), lle_seq=float(lle_s),
+                             lle_par=float(lle_p), ms=(t_seq, t_par, t_lle_s, t_lle_p))
+        print(f"lyapunov {name} (4096 steps): sequential "
+              f"{[round(v, 4) for v in seq_s.tolist()]} {t_seq:.1f} ms; parallel "
+              f"{[round(v, 4) for v in par_s.tolist()]} {t_par:.1f} ms; LLE "
+              f"sequential {float(lle_s):.4f} {t_lle_s:.1f} ms, parallel "
+              f"{float(lle_p):.4f} {t_lle_p:.1f} ms; literature lambda_1 {ref}",
+              flush=True)
+    launches, calls = read_counts()
+    check_launches(launches, calls, "experiments", {"lmme", "matrix_scan_zero_b"})
+    print(f"experiments: launches {launches} == engine calls {calls}", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -471,7 +896,7 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch beside {ROOT}; run it from a "
               "checkout of the repository", file=sys.stderr)
         return 1
-    from repro_torch import get_config
+    from repro_torch import DecoderLM, get_config
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -480,35 +905,66 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.build_logs().items():
         print(f"build {name}: {(log or 'loaded from an earlier build').strip()}",
               flush=True)
 
+    def elapsed(phase):
+        print(f"[{phase} done at {time.perf_counter() - t_start:.1f} s]", flush=True)
+
     rows, max_err = kernel_phase()
+    scan_rows, scan_errs = scan_kernel_phase()
+    elapsed("kernels")
     cfg = get_config("goom-rnn-124m")
     model, reqs, stats = serve_phase(cfg)
     trace_phase(model)
     parity_phase(model, cfg, reqs)
+    elapsed("shared_a")
+    cfg_g = with_scan_variant(cfg, "generic")
+    model_g = DecoderLM(cfg_g, device=DEVICE,
+                        generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    model_g.load_state_dict(model.state_dict())
+    del model
+    model_g, _, stats_g = serve_phase(cfg_g, model_g)
+    trace_phase(model_g)
+    parity_phase(model_g, cfg_g, reqs, compare_variant="shared_a")
+    del model_g
+    elapsed("generic")
+    exp_launches = experiments_phase()
+    elapsed("experiments")
 
-    # the decode step's shape: the one the serving path launches most
-    main_row = next(r for r in rows if r["shape"].startswith("decode"))
+    # each kernel's row: the shape its main path launches most, and the
+    # launches of the run of that path (the other paths' beside them)
+    by_path = {k: {"serve shared_a": stats["launches"][k], "serve generic":
+                   stats_g["launches"][k], "experiments": exp_launches[k]}
+               for k in ("lmme", "matrix_scan", "matrix_scan_zero_b")}
+    lmme_row = next(r for r in rows if r["shape"].startswith("decode"))
+    scan_row = next(v for k, v in scan_rows.items() if k.startswith("decode"))
+    zb_row = next(v for k, v in scan_rows.items() if k.startswith("zero-B d=128"))
+    src = "src/repro_torch/kernels"
+    entries = [
+        ("lmme", f"{src}/lmme/csrc/lmme.cu", "src/repro/kernels/lmme/lmme.py:36",
+         stats["launches"]["lmme"], max_err, lmme_row, lmme_row["shape"],
+         "serve shared_a"),
+        ("matrix_scan", f"{src}/goom_scan/csrc/matrix_scan.cu",
+         "src/repro/kernels/goom_scan/matrix_scan.py:75",
+         stats_g["launches"]["matrix_scan"], scan_errs["matrix_scan"], scan_row,
+         "decode (G=48,T=1,d=16,m=4)", "serve generic"),
+        ("matrix_scan_zero_b", f"{src}/goom_scan/csrc/matrix_scan.cu",
+         "src/repro/kernels/goom_scan/matrix_scan.py:124",
+         exp_launches["matrix_scan_zero_b"], scan_errs["matrix_scan_zero_b"], zb_row,
+         "zero-B d=128 chain (2001,128,128)", "experiments"),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "lmme",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/lmme/csrc/lmme.cu",
-        "replaces": "src/repro/kernels/lmme/lmme.py:36",
-        "launches": stats["launches"],
-        "max_abs_err": max_err,
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": None,
-        "shape": main_row["shape"],
-    }]}))
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None, "shape": shape,
+        "main_path": path, "launches_by_path": by_path[name],
+    } for name, source, replaces, launches, err, row, shape, path in entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,8 @@ class GoomSSMCfg:
     d_model: int
     head_dim: int = 16      # d of the per-head state-space model
     chunk: int = 128        # in-chunk scan length cap (see models.common.chunk_len)
-    scan_variant: str = "shared_a"  # "shared_a" | "generic" (later slice)
+    scan_variant: str = "shared_a"  # "shared_a" (time-invariant A doubling)
+                                    # | "generic" (paper-literal eq. 26)
 
     @property
     def n_heads(self) -> int:

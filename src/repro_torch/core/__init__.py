@@ -14,11 +14,20 @@ from .goom import (
     signed_exp,
     to_goom,
 )
-from .ops import goom_add, goom_lse, goom_mul, lmme_naive, lmme_reference, scaled_exp
+from .ops import (
+    goom_add,
+    goom_lse,
+    goom_mul,
+    goom_norm,
+    goom_normalize_cols,
+    lmme_naive,
+    lmme_reference,
+    scaled_exp,
+)
 
 __all__ = [
     "engine", "LOG_ZERO", "Goom", "finite_floor", "from_goom", "goom_ones",
     "goom_zeros", "nonzero_sign", "safe_abs", "safe_log", "signed_exp",
-    "to_goom", "goom_add", "goom_lse", "goom_mul", "lmme_naive",
-    "lmme_reference", "scaled_exp",
+    "to_goom", "goom_add", "goom_lse", "goom_mul", "goom_norm",
+    "goom_normalize_cols", "lmme_naive", "lmme_reference", "scaled_exp",
 ]

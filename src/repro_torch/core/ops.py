@@ -21,6 +21,8 @@ __all__ = [
     "goom_mul",
     "goom_add",
     "goom_lse",
+    "goom_norm",
+    "goom_normalize_cols",
     "lmme_naive",
     "lmme_reference",
     "scaled_exp",
@@ -95,6 +97,21 @@ def lmme_reference(a: Goom, b: Goom, *, clip_at_zero: bool = False) -> Goom:
     prod = torch.matmul(ar, br)
     out_log = safe_log(safe_abs(prod)) + ai + bk  # eq. 10 un-scaling
     return Goom(out_log, nonzero_sign(prod))
+
+
+def goom_norm(a: Goom, dim: Dims = -1, keepdim: bool = False) -> torch.Tensor:
+    """log of the L2 norm over ``dim``: 0.5 * LSE(2*log_abs)."""
+    doubled = Goom(2.0 * a.log_abs, torch.ones_like(a.sign))
+    return 0.5 * goom_lse(doubled, dim=dim, keepdim=keepdim).log_abs
+
+
+def goom_normalize_cols(a: Goom) -> Goom:
+    """Log-scale the columns of a (..., d, k) GOOM matrix to log-unit norms.
+
+    The norm is detached; all-zero columns (norm == -inf) are left unscaled
+    to avoid -inf - -inf."""
+    ln = _finite_or_zero(goom_norm(a, dim=-2, keepdim=True).detach())
+    return Goom(a.log_abs - ln, a.sign)
 
 
 def scaled_exp(a: Goom, dim: Dims = None, shift: float = 2.0):

@@ -17,7 +17,9 @@ A CUDA tensor never falls back to the plain version on its own: only a
 caller's ``use_backend("torch_reference")`` puts it there.
 
 **Registry**: implementations are registered per ``(op, backend)`` with
-:func:`register_impl`.  This slice registers ``lmme`` only.
+:func:`register_impl`: ``lmme``, ``matrix_scan`` and ``cumulative_lmme``,
+each on both backends.  On ``cuda``, ``cumulative_lmme`` is the zero-B
+matrix-scan kernel with X_0 = I, as in the JAX package.
 
 The platform (is there a card at all?) is read once per process by
 :func:`current_platform`.
@@ -30,7 +32,10 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from ..core import scan
+from ..core.goom import Goom
 from ..core.ops import lmme_reference
+from .goom_scan import matrix_scan_cuda, matrix_scan_ref
 from .lmme import lmme_cuda
 
 __all__ = ["BACKENDS", "CONCRETE_BACKENDS", "current_platform", "resolve_device",
@@ -101,6 +106,24 @@ def registered_impls() -> Tuple[Tuple[str, str], ...]:
 
 register_impl("lmme", "torch_reference")(lmme_reference)
 register_impl("lmme", "cuda")(lmme_cuda)
+register_impl("matrix_scan", "torch_reference")(matrix_scan_ref)
+register_impl("matrix_scan", "cuda")(matrix_scan_cuda)
+
+
+@register_impl("cumulative_lmme", "torch_reference")
+def _cumulative_lmme_ref(a: Goom) -> Goom:
+    return scan.cumulative_lmme(a, matmul=lmme_reference)
+
+
+@register_impl("cumulative_lmme", "cuda")
+def _cumulative_lmme_cuda(a: Goom) -> Goom:
+    """A_t···A_1 as the B = 0 recurrence from X_0 = I: only the (d, d)
+    identity is built (0 on the diagonal, -inf off it), no B operand."""
+    d, dev = a.shape[-1], a.log_abs.device
+    eye = torch.eye(d, dtype=torch.bool, device=dev)
+    x0 = Goom(torch.zeros(d, d, device=dev).masked_fill(~eye, -torch.inf),
+              torch.ones(d, d, device=dev))
+    return matrix_scan_cuda(a, None, x0)
 
 
 def get_impl(op: str, resolved: str) -> _Impl:

@@ -1,0 +1,196 @@
+"""Wrapper of the CUDA matrix-scan kernel (``csrc/matrix_scan.cu``).
+
+``matrix_scan_cuda(a, b, x0)`` takes the engine's convention: a (T, ..., d, d)
+transitions, b (T, ..., d, m) biases, x0 (..., d, m) entering state or None
+(exact zeros); batch dims broadcast.  ``b=None`` is the zero-B form
+X_t = (A_t ··· A_1) X_0, which needs ``x0`` (it fixes m).  Returns all
+states, (T, ..., d, m).
+
+On CUDA f32 planes it launches the kernel on the current stream.  Operands
+go in by strides: time and the collapsed batch dims each as one stride, so a
+time-invariant A is a stride-0 view that is never materialised.  An operand
+is copied only when its batch dims cannot be collapsed into one stride
+(``matrix_scan_cuda.copies`` counts those copies).  T, d and m are taken as
+they are: nothing is padded.  d above 128, non-f32 planes and mixed devices
+raise.  On CPU planes it computes the plain version, because there is no
+kernel there to launch.
+
+Backward, as in the JAX wrapper (``repro/kernels/goom_scan/ops.py``), is
+autograd of the plain version on the saved inputs; sign planes get no
+gradient.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from ...core.goom import Goom
+from .ref import matrix_scan_ref, matrix_scan_zero_b_ref
+
+__all__ = ["MAX_D", "matrix_scan_cuda"]
+
+MAX_D = 128  # kMaxD in csrc/matrix_scan.cu
+_I64 = ctypes.c_int64
+_FNS = {}
+
+
+def _kernel_fn(has_b: bool):
+    fn = _FNS.get(has_b)
+    if fn is None:
+        from ..build import load
+
+        lib = load("matrix_scan")
+        ptr, i32, p64 = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_I64)
+        if has_b:
+            fn = lib.repro_matrix_scan_forward
+            fn.argtypes = [ptr] * 8 + [i32] * 4 + [p64] * 3 + [ptr]
+        else:
+            fn = lib.repro_matrix_scan_zero_b_forward
+            fn.argtypes = [ptr] * 6 + [i32] * 4 + [p64] * 2 + [ptr]
+        fn.restype = ctypes.c_int
+        _FNS[has_b] = fn
+    return fn
+
+
+def _collapsed_stride(shape, strides) -> Optional[int]:
+    """The one stride that walks ``shape``'s dims in row-major order, or None
+    when no single stride does (size-1 dims are free)."""
+    dims = [(n, s) for n, s in zip(shape, strides) if n != 1]
+    for (_, s0), (n1, s1) in zip(dims, dims[1:]):
+        if s0 != s1 * n1:
+            return None
+    return dims[-1][1] if dims else 0
+
+
+def _strides(log: torch.Tensor, sign: torch.Tensor, shape, timed: bool):
+    """Both planes of one operand expanded to ``shape`` ((T,) + batch + (r, c)
+    when ``timed``, else batch + (r, c)) with one set of strides, and those
+    strides as (t, g, r, c) or (g, r, c).  Copies only what cannot be
+    passed as strides."""
+    log, sign = log.expand(shape), sign.expand(shape)
+    lead = 1 if timed else 0
+    g = _collapsed_stride(shape[lead:-2], log.stride()[lead:-2])
+    if log.stride() != sign.stride() or g is None:
+        log, sign = log.contiguous(), sign.contiguous()
+        matrix_scan_cuda.copies += 1
+        g = _collapsed_stride(shape[lead:-2], log.stride()[lead:-2])
+    st = log.stride()
+    vals = ((st[0],) if timed else ()) + (g, st[-2], st[-1])
+    return log, sign, (_I64 * len(vals))(*vals)
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _launch(al, asn, bl, bsn, xl, xs):
+    has_b = bl is not None
+    planes = [p for p in (al, asn, bl, bsn, xl, xs) if p is not None]
+    dev = al.device
+    for x in planes:
+        if x.device != dev:
+            raise ValueError(f"matrix-scan operands on {x.device} and {dev}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"the CUDA matrix-scan kernel takes float32 planes, "
+                            f"got {x.dtype}")
+    if al.ndim < 3 or al.shape[-1] != al.shape[-2]:
+        raise ValueError(f"a must be (T, ..., d, d), got {tuple(al.shape)}")
+    t, d = al.shape[0], al.shape[-1]
+    if d > MAX_D:
+        raise ValueError(f"the CUDA matrix-scan kernel takes d <= {MAX_D}, got {d}")
+    m = (bl if has_b else xl).shape[-1]
+    batch = al.shape[1:-2]
+    if has_b:
+        if bl.ndim < 3 or bl.shape[0] != t or bl.shape[-2] != d:
+            raise ValueError(f"b must be (T={t}, ..., {d}, m), got {tuple(bl.shape)}")
+        batch = torch.broadcast_shapes(batch, bl.shape[1:-2])
+    if xl is not None:
+        if tuple(xl.shape[-2:]) != (d, m):
+            raise ValueError(f"x0 must be (..., {d}, {m}), got {tuple(xl.shape)}")
+        if torch.broadcast_shapes(batch, xl.shape[:-2]) != batch:
+            raise ValueError(f"x0 batch {tuple(xl.shape[:-2])} does not broadcast "
+                             f"to {tuple(batch)}")
+    out_log = torch.empty((t,) + batch + (d, m), dtype=torch.float32, device=dev)
+    out_sign = torch.empty_like(out_log)
+    g = math.prod(batch)
+    if out_log.numel() == 0:
+        return out_log, out_sign
+    al, asn, a_st = _strides(al, asn, (t,) + batch + (d, d), True)
+    x_st = (_I64 * 3)(0, 0, 0)
+    if xl is not None:
+        xl, xs, x_st = _strides(xl, xs, batch + (d, m), False)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if has_b:
+        bl, bsn, b_st = _strides(bl, bsn, (t,) + batch + (d, m), True)
+        rc = _kernel_fn(True)(
+            _ptr(al), _ptr(asn), _ptr(bl), _ptr(bsn), _ptr(xl), _ptr(xs),
+            out_log.data_ptr(), out_sign.data_ptr(), t, g, d, m,
+            a_st, b_st, x_st, stream)
+    else:
+        rc = _kernel_fn(False)(
+            _ptr(al), _ptr(asn), _ptr(xl), _ptr(xs),
+            out_log.data_ptr(), out_sign.data_ptr(), t, g, d, m,
+            a_st, x_st, stream)
+    if rc != 0:
+        raise RuntimeError(f"matrix-scan kernel launch failed: cudaError_t {rc}")
+    if has_b:
+        matrix_scan_cuda.launches += 1
+    else:
+        matrix_scan_cuda.launches_zero_b += 1
+    return out_log, out_sign
+
+
+def _plain(al, asn, bl, bsn, xl, xs) -> Goom:
+    a = Goom(al, asn)
+    x0 = None if xl is None else Goom(xl, xs)
+    if bl is None:
+        return matrix_scan_zero_b_ref(a, x0)
+    return matrix_scan_ref(a, Goom(bl, bsn), x0)
+
+
+class _MatrixScanFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, al, asn, bl, bsn, xl, xs):
+        out_log, out_sign = _launch(al, asn, bl, bsn, xl, xs)
+        ctx.save_for_backward(al, asn, bl, bsn, xl, xs)
+        ctx.mark_non_differentiable(out_sign)
+        return out_log, out_sign
+
+    @staticmethod
+    def backward(ctx, g_log, _g_sign):
+        al, asn, bl, bsn, xl, xs = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            logs = [None if x is None else x.detach().requires_grad_(need[i])
+                    for i, x in ((0, al), (2, bl), (4, xl))]
+            out = _plain(logs[0], asn, logs[1], bsn, logs[2], xs).log_abs
+            wrt = [x for x in logs if x is not None and x.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, g_log))
+        d_al, d_bl, d_xl = (next(grads) if x is not None and x.requires_grad else None
+                            for x in logs)
+        return d_al, None, d_bl, None, d_xl, None
+
+
+def matrix_scan_cuda(a: Goom, b: Optional[Goom], x0: Optional[Goom] = None) -> Goom:
+    """All states of X_t = A_t X_{t-1} ⊕ B_t (B = 0 when ``b`` is None)
+    through the CUDA kernel; the plain version on CPU planes."""
+    if b is None and x0 is None:
+        raise ValueError("matrix_scan_cuda(a, None) needs x0: with B = 0 and "
+                         "X_0 = 0 every state is zero, and x0 fixes the width m")
+    planes = (a.log_abs, a.sign,
+              None if b is None else b.log_abs, None if b is None else b.sign,
+              None if x0 is None else x0.log_abs, None if x0 is None else x0.sign)
+    if all(x.device.type == "cpu" for x in planes if x is not None):
+        return _plain(*planes)
+    return Goom(*_MatrixScanFn.apply(*planes))
+
+
+#: launches since the last reset (set to 0 to reset): with B, and zero-B
+matrix_scan_cuda.launches = 0
+matrix_scan_cuda.launches_zero_b = 0
+#: operands copied because their batch dims did not collapse into one stride
+matrix_scan_cuda.copies = 0

@@ -6,9 +6,16 @@ no stabilization of any kind.  States come back to floats through the scaled
 exponentiation of eq. 27.
 
 Layer: LayerNorm → linear (heads) → GOOM scan → scaled exp → C, D → GLU →
-linear.  Every GOOM product is an ``engine.lmme`` call, so on the card each
-one is a launch of the CUDA LMME kernel.  Counterpart of
-``repro/models/goom_layer.py``.
+linear.  Counterpart of ``repro/models/goom_layer.py``.  ``cfg.scan_variant``
+picks the scan:
+
+  * ``shared_a`` exploits the time-invariant A with doubling on the vector
+    side; every GOOM product is an ``engine.lmme`` call, on the card a
+    launch of the CUDA LMME kernel;
+  * ``generic`` is the paper-literal eq. 26: one ``engine.matrix_scan_carry``
+    call per layer, on the card one launch of the fused matrix-scan kernel.
+
+B·u is an ``engine.lmme`` call in both.
 """
 
 from __future__ import annotations
@@ -91,17 +98,46 @@ def _scan_shared_a(
     return _cat(states), carry
 
 
+def _scan_generic(
+    a_g: Goom,            # (H, d, d) time-invariant transition
+    bu_g: Goom,           # (S, B, H, d, 1) inputs B·u_t
+    x0: Optional[Goom],   # (B, H, d, 1) entering state, or None
+) -> Tuple[Goom, Goom]:
+    """All states through the engine's matrix scan (paper eq. 26).
+
+    The batch rides in the state columns, (S,B,H,d,1) → (S,H,d,B): the
+    recurrence is column-independent and A is shared across the batch.  A
+    goes in as a stride-0 view over S, never materialised.  Returns
+    (states (S,B,H,d,1), final state (B,H,d,1)).
+    """
+    s, _, h = bu_g.shape[:3]
+    d = a_g.shape[-1]
+
+    def cols(g: Goom) -> Goom:   # (S,B,H,d,1) -> (S,H,d,B)
+        return Goom(g.log_abs[..., 0].permute(0, 2, 3, 1),
+                    g.sign[..., 0].permute(0, 2, 3, 1))
+
+    a_s = Goom(a_g.log_abs.expand(s, h, d, d), a_g.sign.expand(s, h, d, d))
+    x0c = None
+    if x0 is not None:   # (B,H,d,1) -> (H,d,B)
+        x0c = Goom(x0.log_abs[..., 0].permute(1, 2, 0),
+                   x0.sign[..., 0].permute(1, 2, 0))
+    states_c, carry_c = engine.matrix_scan_carry(a_s, cols(bu_g), x0c)
+    states = Goom(states_c.log_abs.permute(0, 3, 1, 2)[..., None],
+                  states_c.sign.permute(0, 3, 1, 2)[..., None])
+    carry = Goom(carry_c.log_abs.permute(2, 0, 1)[..., None],
+                 carry_c.sign.permute(2, 0, 1)[..., None])
+    return states, carry
+
+
 class GoomSSM(nn.Module):
     """One goom_ssm mixer; parameter names follow the JAX param tree."""
 
     def __init__(self, cfg: GoomSSMCfg, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.scan_variant != "shared_a":
-            raise NotImplementedError(
-                f"scan_variant={cfg.scan_variant!r} rides the fused matrix-scan "
-                "kernel, which a later slice of the port brings; this slice "
-                "runs 'shared_a'")
+        if cfg.scan_variant not in ("shared_a", "generic"):
+            raise ValueError(f"unknown scan_variant {cfg.scan_variant!r}")
         self.cfg = cfg
         d, hd, h = cfg.d_model, cfg.head_dim, cfg.n_heads
         kw = dict(device=device, dtype=dtype)
@@ -143,7 +179,10 @@ class GoomSSM(nn.Module):
         bu = engine.lmme(b_g, u_col)
 
         x0 = None if state is None else Goom(state["x_log"], state["x_sign"])
-        states, final = _scan_shared_a(a_g, bu, x0, self.cfg.chunk)
+        if self.cfg.scan_variant == "shared_a":
+            states, final = _scan_shared_a(a_g, bu, x0, self.cfg.chunk)
+        else:
+            states, final = _scan_generic(a_g, bu, x0)
 
         # back to floats (eq. 27): one max over heads and head_dim per position
         xs = Goom(states.log_abs[..., 0].permute(1, 0, 2, 3),   # (B,S,H,hd)

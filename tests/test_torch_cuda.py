@@ -1,4 +1,5 @@
-"""The port's CUDA LMME kernel against its plain version, on a card.
+"""The port's CUDA kernels (LMME, matrix scan) against their plain
+versions, on a card.
 
 Every test here needs an NVIDIA card and ``nvcc``; elsewhere they skip.  On
 a machine with a card run them with
@@ -18,8 +19,14 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core.goom import Goom
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.goom_scan import (
+    matrix_scan_cuda,
+    matrix_scan_ref,
+    matrix_scan_zero_b_ref,
+)
 from repro_torch.kernels.lmme import lmme_cuda, lmme_ref
-from torch_parity import assert_goom_close, goom_planes, lmme_abs_scale
+from torch_parity import assert_goom_close, goom_dist, goom_planes, lmme_abs_scale
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +126,189 @@ def test_engine_auto_launches_the_kernel_and_refuses_bf16(card):
         lmme_cuda(bf, gb)
     with pytest.raises(ValueError):
         lmme_cuda(ga, Goom(gb.log_abs.cpu(), gb.sign.cpu()))
+
+
+# ---------------------------------------------------------------------------
+# the matrix-scan kernel
+# ---------------------------------------------------------------------------
+# name: (T, batch, d, m, kind).  decode and chunk64 are the generic layer's
+# shapes (G = 48 heads, d = 16; m = 4 slots, or one 64-token prompt chunk)
+# with a time-invariant A passed as a stride-0 view
+SCAN_SHAPES = {
+    "decode": (1, (48,), 16, 4, "shared_a"),
+    "chunk64": (64, (48,), 16, 1, "shared_a"),
+    "e200_positive": (150, (), 4, 1, "positive"),
+    "odd_13_4_1": (13, (), 4, 1, "signed"),
+    "odd_9_2_5_3": (9, (2,), 5, 3, "signed"),
+    "odd_16_2x2_3_1": (16, (2, 2), 3, 1, "signed"),
+    "odd_5_8_8": (5, (), 8, 8, "signed"),
+    "e200_signed": (17, (), 4, 2, "e200_signed"),
+}
+# zero-B with X_0 = I (cumulative_lmme): the quickstart's chain, the
+# benchmark's d=128 chain over 2000 steps, the LLE's 4096 Lorenz-size steps
+ZERO_B_SHAPES = {"quickstart": (1000, 16), "chain_d128": (2001, 128), "lle": (4097, 3)}
+
+
+def _goom(x: torch.Tensor) -> Goom:
+    return Goom(torch.log(x.abs()), torch.where(x >= 0, 1.0, -1.0).to(x.dtype))
+
+
+def _abs(g: Goom) -> Goom:
+    return Goom(g.log_abs, torch.ones_like(g.sign))
+
+
+def _f64(g):
+    return None if g is None else Goom(g.log_abs.double(), g.sign.double())
+
+
+def scan_operands(name, dev, seed=0):
+    """(a, b, x0) GOOMs of ``SCAN_SHAPES[name]`` on ``dev``, from a seed."""
+    tlen, batch, d, m, kind = SCAN_SHAPES[name]
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen)
+
+    if kind == "shared_a":
+        a = _goom(0.9 * torch.eye(d) + 0.3 * normal(*batch, d, d) / d ** 0.5)
+        a = Goom(a.log_abs.to(dev).expand((tlen,) + a.shape),
+                 a.sign.to(dev).expand((tlen,) + a.shape))
+        b, x0 = _goom(normal(tlen, *batch, d, m)), _goom(normal(*batch, d, m))
+    elif kind == "positive":  # tests/test_serve_engine.py's e±200 chain
+        a = _goom(normal(tlen, *batch, d, d).abs() * 4.0)
+        b, x0 = _goom(normal(tlen, *batch, d, m).abs()), None
+    else:
+        a = _goom(normal(tlen, *batch, d, d) * (1.0 if kind == "e200_signed" else 0.6))
+        if kind == "e200_signed":  # tests/test_engine.py: per-step e^±200
+            shift = 200.0 * torch.where(torch.rand(tlen, 1, 1, generator=gen) < 0.5, -1.0, 1.0)
+            a = Goom(a.log_abs + shift, a.sign)
+        b = _goom(normal(tlen, *batch, d, m) * (1.0 if kind == "e200_signed" else 0.6))
+        x0 = _goom(normal(*batch, d, m))
+    move = lambda g: None if g is None else Goom(g.log_abs.to(dev), g.sign.to(dev))  # noqa: E731
+    return move(a), move(b), move(x0)
+
+
+def assert_no_worse_than_plain(got, plain, exact, scale):
+    """The kernel walks time in order; the plain version brackets as a tree.
+    Hold the kernel to float64: its distance to the float64 plain version is
+    at most twice the f32 plain version's (floor 1e-6, some sixteen f32
+    roundings of a unit value)."""
+    d_kernel, d_plain = goom_dist(got, exact, scale), goom_dist(plain, exact, scale)
+    assert d_kernel <= 2.0 * d_plain + 1e-6, (d_kernel, d_plain)
+
+
+@pytest.mark.parametrize("name", sorted(SCAN_SHAPES))
+def test_matrix_scan_kernel_matches_plain_version(card, name):
+    a, b, x0 = scan_operands(name, card)
+    before = (matrix_scan_cuda.launches, matrix_scan_cuda.copies)
+    got = matrix_scan_cuda(a, b, x0)
+    torch.cuda.synchronize()
+    # one launch; the stride-0 A and the strided operands were not copied
+    assert (matrix_scan_cuda.launches, matrix_scan_cuda.copies) == (before[0] + 1, before[1])
+    plain = matrix_scan_ref(a, b, x0)
+    assert got.shape == plain.shape and not torch.isnan(got.log_abs).any()
+    exact = matrix_scan_ref(_f64(a), _f64(b), _f64(x0))
+    scale = matrix_scan_ref(_abs(_f64(a)), _abs(_f64(b)), _abs(_f64(x0)) if x0 is not None else None)
+    assert_no_worse_than_plain(got, plain, exact, scale.log_abs)
+    kind = SCAN_SHAPES[name][-1]
+    if kind == "positive":  # no cancellation: 1e-4 relative in log space
+        w = plain.log_abs
+        assert float(w.abs().max()) > 200.0
+        rel = (got.log_abs - w).abs() / w.abs().clamp_min(1.0)
+        assert float(rel.max()) <= 1e-4
+    elif kind != "e200_signed":  # test_engine.py's bar away from cancellation
+        assert_goom_close(got.log_abs, got.sign, plain.log_abs, plain.sign,
+                          scale_log=scale.log_abs.float(), cancel_margin=8.0)
+
+
+@pytest.mark.parametrize("name", sorted(ZERO_B_SHAPES))
+def test_zero_b_kernel_matches_plain_version(card, name):
+    """cumulative_lmme on the card: the zero-B kernel from X_0 = I.  Long
+    products turn rank-1, so values are held over each matrix's largest
+    entry, and the final log Frobenius norms to 1e-5 relative."""
+    from repro_torch.core.chains import goom_log_norm
+
+    tlen, d = ZERO_B_SHAPES[name]
+    gen = torch.Generator().manual_seed(1)
+    a = _goom(torch.randn(tlen, d, d, generator=gen).to(card))
+    engine.reset_calls()
+    before = matrix_scan_cuda.launches_zero_b
+    got = engine.cumulative_lmme(a)
+    torch.cuda.synchronize()
+    assert matrix_scan_cuda.launches_zero_b == before + 1 == before + engine.calls["cumulative_lmme"]
+    with engine.use_backend("torch_reference"):
+        plain = engine.cumulative_lmme(a)
+        exact = engine.cumulative_lmme(_f64(a))
+    assert got.shape == plain.shape and torch.isfinite(got.log_abs).all()
+    scale = exact.log_abs.amax((-2, -1), keepdim=True).expand_as(exact.log_abs)
+    assert_no_worse_than_plain(got, plain, exact, scale)
+    fro = [float(goom_log_norm(g[-1])) for g in (got, exact)]
+    assert abs(fro[0] - fro[1]) <= 1e-5 * abs(fro[1])
+
+
+def test_matrix_scan_kernel_starts_from_zeros_and_from_the_floor(card):
+    """x0=None starts at exact zeros (-inf), a model state at the finite
+    floor: both flow through as in the plain version."""
+    from repro_torch.core.goom import finite_floor
+
+    a, b, _ = scan_operands("chunk64", card, seed=2)
+    floor = Goom(torch.full((48, 16, 1), finite_floor(torch.float32), device=card),
+                 torch.ones(48, 16, 1, device=card))
+    zeros_b = Goom(torch.full_like(b.log_abs, -torch.inf), torch.ones_like(b.sign))
+    for bb, x0 in ((b, None), (b, floor), (zeros_b, floor)):
+        got = matrix_scan_cuda(a, bb, x0)
+        want = matrix_scan_ref(a, bb, x0)
+        assert torch.equal(torch.isinf(got.log_abs), torch.isinf(want.log_abs))
+        scale = matrix_scan_ref(_abs(a), _abs(bb), None if x0 is None else _abs(x0))
+        assert_goom_close(got.log_abs, got.sign, want.log_abs, want.sign,
+                          scale_log=scale.log_abs, cancel_margin=8.0)
+    got = matrix_scan_cuda(a, zeros_b, None)  # zeros stay exact zeros
+    assert bool((got.log_abs == -torch.inf).all()) and bool((got.sign == 1).all())
+
+
+def test_matrix_scan_kernel_backward_is_the_plain_versions(card):
+    a, b, x0 = scan_operands("odd_9_2_5_3", card, seed=3)
+    for with_b in (True, False):
+        grads = []
+        for fn in (matrix_scan_cuda,
+                   lambda a_, b_, x_: (matrix_scan_ref(a_, b_, x_) if b_ is not None
+                                       else matrix_scan_zero_b_ref(a_, x_))):
+            al = a.log_abs.clone().requires_grad_()
+            bl = b.log_abs.clone().requires_grad_()
+            xl = x0.log_abs.clone().requires_grad_()
+            out = fn(Goom(al, a.sign), Goom(bl, b.sign) if with_b else None, Goom(xl, x0.sign))
+            out.log_abs.sum().backward()
+            grads.append((al.grad, bl.grad, xl.grad))
+        for g_kernel, g_plain in zip(*grads):
+            if g_plain is None:
+                assert g_kernel is None
+            else:
+                assert torch.equal(g_kernel, g_plain)
+
+
+def test_matrix_scan_kernel_raises_on_what_it_does_not_take(card):
+    a, b, x0 = scan_operands("odd_13_4_1", card)
+    big = Goom(torch.zeros(2, 129, 129, device=card), torch.ones(2, 129, 129, device=card))
+    with pytest.raises(ValueError, match="d <= 128"):
+        matrix_scan_cuda(big, None, Goom(big.log_abs[0], big.sign[0]))
+    bf = Goom(a.log_abs.bfloat16(), a.sign.bfloat16())
+    with pytest.raises(TypeError, match="float32"):
+        matrix_scan_cuda(bf, b, x0)
+    with pytest.raises(TypeError, match="float32"):
+        engine.matrix_scan(bf, b, x0)
+    with pytest.raises(ValueError):
+        matrix_scan_cuda(a, Goom(b.log_abs.cpu(), b.sign.cpu()), x0)
+
+
+def test_engine_routes_scans_to_the_kernel(card):
+    a, b, x0 = scan_operands("odd_9_2_5_3", card, seed=4)
+    before = (matrix_scan_cuda.launches, matrix_scan_cuda.launches_zero_b)
+    engine.matrix_scan(a, b, x0)
+    engine.matrix_scan_carry(a, b, x0)
+    engine.cumulative_lmme(a)
+    with engine.use_backend("torch_reference"):
+        engine.matrix_scan(a, b, x0)
+        engine.cumulative_lmme(a)
+    assert (matrix_scan_cuda.launches, matrix_scan_cuda.launches_zero_b) == \
+        (before[0] + 2, before[1] + 1)
+    assert dispatch.get_impl("cumulative_lmme", "cuda") is not None

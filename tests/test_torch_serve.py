@@ -1,6 +1,7 @@
 """The serving slice of the PyTorch port against the JAX package.
 
-``smoke_config()`` of goom-rnn-124m at f32 compute, with the JAX model's
+``smoke_config()`` of goom-rnn-124m at f32 compute, in both scan variants
+(``shared_a`` and the paper-literal ``generic``), with the JAX model's
 weights carried over by ``params_from_jax``:
 
   * prefill logits against JAX's ``model.prefill`` under the reference
@@ -33,7 +34,9 @@ from repro.serve import Request as JaxRequest
 from repro_torch import DecoderLM, Engine, Request, get_config, params_from_jax
 from repro_torch.core import engine
 from repro_torch.kernels.lmme import lmme_cuda
+from repro_torch.kernels.goom_scan import matrix_scan_cuda
 from repro_torch.serve import ChunkedPrefill, SlotAllocator, merge_frozen, read_slot, write_slot
+from torch_parity import with_scan_variant
 
 torch.set_num_threads(2)
 
@@ -41,16 +44,19 @@ PROMPT_LENS = [1, 7, 19, 64]
 BUDGETS = [5, 4, 6, 3]
 
 
-@pytest.fixture(scope="module")
-def pair():
-    """(JAX model, JAX params, port model) sharing weights, f32 compute."""
-    jcfg = dataclasses.replace(jax_get_config("goom-rnn-124m", smoke=True),
-                               compute_dtype=jnp.float32)
+@pytest.fixture(scope="module", params=["shared_a", "generic"])
+def pair(request):
+    """(JAX model, JAX params, port model) sharing weights, f32 compute, in
+    the scan variant the test is parametrised over."""
+    jcfg = dataclasses.replace(
+        with_scan_variant(jax_get_config("goom-rnn-124m", smoke=True), request.param),
+        compute_dtype=jnp.float32)
     jmodel = JaxLM(jcfg)
     jparams, _ = unzip(jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
     tree = jax.tree.map(np.asarray, jparams)
-    cfg = dataclasses.replace(get_config("goom-rnn-124m", smoke=True),
-                              compute_dtype=torch.float32)
+    cfg = dataclasses.replace(
+        with_scan_variant(get_config("goom-rnn-124m", smoke=True), request.param),
+        compute_dtype=torch.float32)
     model = DecoderLM(cfg, device="cpu")
     model.load_state_dict(params_from_jax(cfg, tree))
     return jmodel, jparams, model
@@ -201,26 +207,67 @@ def test_cuda_without_a_card_raises(monkeypatch):
         DecoderLM(cfg)  # the default device is cuda
 
 
-def test_generic_scan_variant_is_a_later_slice():
+def _layer_state(tree):
+    """One goom layer's JAX param tree as the port module's state dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({f"{k}.{kk}": vv for kk, vv in _layer_state(v).items()})
+        else:
+            out[k] = v
+    return out
+
+
+def test_scan_variants_agree_and_match_jax():
+    """The layer's ``generic`` (engine.matrix_scan) and ``shared_a`` paths
+    compute the same recurrence (``tests/test_engine.py``'s 2e-3), and the
+    port's ``generic`` layer is JAX's on the same weights."""
+    from repro.models.common import KeyGen
+    from repro.models.goom_layer import GoomSSMCfg as JCfg
+    from repro.models.goom_layer import goom_ssm_apply, goom_ssm_init
     from repro_torch.configs import GoomSSMCfg
     from repro_torch.models import GoomSSM
 
-    with pytest.raises(NotImplementedError, match="matrix-scan"):
-        GoomSSM(GoomSSMCfg(d_model=16, head_dim=8, scan_variant="generic"),
-                device="cpu")
+    jcfg = JCfg(d_model=8, head_dim=4, chunk=4, scan_variant="generic")
+    jp, _ = unzip(goom_ssm_init(KeyGen(jax.random.PRNGKey(3)), jcfg))
+    x = np.random.default_rng(4).normal(size=(2, 8, 8)).astype(np.float32)
+    with jax_engine.use_backend("reference"):
+        want, _ = jax.jit(lambda p, v: goom_ssm_apply(p, v, jcfg, compute_dtype=jnp.float32))(
+            jp, jnp.asarray(x))
+    outs = {}
+    for variant in ("shared_a", "generic"):
+        layer = GoomSSM(GoomSSMCfg(d_model=8, head_dim=4, chunk=4, scan_variant=variant),
+                        device="cpu")
+        layer.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in
+                               _layer_state(jax.tree.map(np.asarray, jp)).items()})
+        with torch.no_grad():
+            outs[variant], _ = layer(torch.tensor(x), compute_dtype=torch.float32)
+    np.testing.assert_allclose(outs["generic"].numpy(), outs["shared_a"].numpy(),
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(outs["generic"].numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="scan_variant"):
+        GoomSSM(GoomSSMCfg(d_model=8, head_dim=4, scan_variant="diagonal"), device="cpu")
 
 
 def test_serving_on_cpu_routes_every_lmme_through_the_engine(pair):
     _, _, model = pair
     engine.reset_calls()
-    before = lmme_cuda.launches
+    before = (lmme_cuda.launches, matrix_scan_cuda.launches)
     Engine(model, max_slots=1, page_len=32, chunk=4).run(
         [Request(uid=0, prompt=[1, 2, 3, 4, 5], max_new_tokens=3)])
     n_layers = model.cfg.n_layers
-    # one 4-chunk (1 + 1 + 2 doubling + 1 power) + 2 for each decode-step
-    # token: tail token 5, then decode steps for tokens 2 and 3
-    assert engine.calls["lmme"] == n_layers * (5 + 2 * 3)
-    assert lmme_cuda.launches == before  # the CPU never launches a kernel
+    # one 4-token chunk, then single tokens: tail token 5 and the decode
+    # steps for tokens 2 and 3
+    if model.cfg.layer_list[0].goom.scan_variant == "shared_a":
+        # the chunk: B·u, fold, 2 doublings, 1 power; a token: B·u, fold
+        assert engine.calls["lmme"] == n_layers * (5 + 2 * 3)
+        assert engine.calls["matrix_scan"] == 0
+    else:  # B·u and one matrix scan per layer per call
+        assert engine.calls["lmme"] == n_layers * 4
+        assert engine.calls["matrix_scan"] == engine.calls["matrix_scan_carry"] == n_layers * 4
+    # the CPU never launches a kernel
+    assert (lmme_cuda.launches, matrix_scan_cuda.launches) == before
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

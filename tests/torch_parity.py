@@ -7,6 +7,8 @@ numpy arrays and are compared here.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -77,3 +79,27 @@ def goom_planes(rng: np.random.Generator, shape, *, spread: float = 0.0,
         log[..., 0, :] = -np.inf
         sign[..., 0, :] = 1.0
     return log, sign
+
+
+def with_scan_variant(cfg, variant: str):
+    """``cfg`` (a JAX or a port ``LMConfig``) with every goom layer's
+    ``scan_variant`` set to ``variant``; neither package names such a config."""
+    def block(b):
+        return dataclasses.replace(b, goom=dataclasses.replace(b.goom, scan_variant=variant))
+
+    return dataclasses.replace(cfg, groups=tuple(
+        dataclasses.replace(g, period=tuple(block(b) for b in g.period))
+        for g in cfg.groups))
+
+
+def goom_dist(x, exact, scale_log) -> float:
+    """max |x - exact| over each entry's scale: the distance of GOOM ``x``
+    (any ``.log_abs``/``.sign`` pair) to ``exact``, with ``scale_log`` the
+    log of the entry's size before cancellation."""
+    def f64(v):
+        return v.detach().cpu().double().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v, np.float64)
+
+    xl, el, sc = f64(x.log_abs), f64(exact.log_abs), f64(scale_log)
+    sc = np.where(np.isfinite(sc), sc, 0.0)
+    return float(np.abs(f64(x.sign) * np.exp(xl - sc) - f64(exact.sign) * np.exp(el - sc)).max())
