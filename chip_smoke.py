@@ -13,7 +13,11 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 exact-zero rows and columns; the matrix-scan kernel (with B,
                 and its zero-B form from X_0 = I) at the generic layer's
                 shapes, on e±200 and odd signed shapes, and on the chains'
-                and the LLE's lengths, each also against float64;
+                and the LLE's lengths, each also against float64; the
+                diagonal-scan kernel at Mamba's decode, prefill-chunk and
+                tail shapes, on e±200 signed inputs with exact zeros and
+                cancellations, T=1, odd C and the autotune shape (4096, 512),
+                each also against float64, with its backward;
   3. serve    — serve goom-rnn-124m at full width (24 layers, d=768, vocab
                 50257, seeded random weights, bf16 compute) through
                 ``Engine(max_slots=4, page_len=512, chunk=64)``: 6 requests,
@@ -32,7 +36,17 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 chains fail, GOOM chains complete, the parallel chain (zero-B
                 kernel) equals a loop of LMME launches; Lyapunov spectra and
                 LLE of the four in-repo systems at 4096 steps, parallel
-                against sequential and λ1 against the literature.
+                against sequential and λ1 against the literature;
+  6. jamba    — serve jamba-v0.1 at full width (d=4096, vocab 65536, GQA
+                32/8 heads, 16-expert top-2 MoE) cut to two of its four
+                8-layer periods (16 layers, 26.1B parameters, 52 GB in bf16:
+                the most whole periods one 80 GB card holds), seeded random
+                bf16 weights built on the card, bf16 compute, f32 recurrent
+                state, through the same Engine and requests.  Every engine
+                diagonal_scan call must have launched the diagonal-scan
+                kernel, and no other GOOM op may run; a profiler trace of
+                steady decode steps; then the parity check of phase 4 at f32
+                compute on the same weights.
 
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit (from nvidia-smi), and ``{"ok": true, "device": {...}}``.
@@ -64,6 +78,8 @@ PROMPT_LENS = [63, 64, 65, 200, 333, 1]
 BUDGETS = [8, 16, 32, 32, 32, 1]
 SERVE = dict(max_slots=4, page_len=512, chunk=64)
 DEVICE = "cuda"
+# jamba-v0.1 is cut to this many of its four 8-layer periods (depth only)
+JAMBA_PERIODS = 2
 
 
 def check(cond, msg: str) -> None:
@@ -484,6 +500,135 @@ def scan_kernel_phase():
     return rows, errs
 
 
+# name, T, trailing shape, kind: Mamba's decode step over 4 slots, its
+# 64-token prefill chunk and a batch-1 tail token (d_inner=8192, d_state=16),
+# signed e±200 inputs with exact zeros and cancellations, T=1, odd C, and
+# the JAX package's autotune shape (4096, 512)
+DIAG_CASES = [
+    ("decode (T=1, C=4x8192x16)", 1, (4, 8192, 16), "mamba"),
+    ("64-token chunk (T=64, C=8192x16)", 64, (1, 8192, 16), "mamba"),
+    ("tail token (T=1, C=8192x16)", 1, (1, 8192, 16), "mamba"),
+    ("signed e±200, zeros, cancellations (T=64, C=4x33)", 64, (4, 33), "e200"),
+    ("signed e±200 T=1 (C=1000)", 1, (1000,), "e200"),
+    ("signed e±200 odd C (T=37, C=3x7x5)", 37, (3, 7, 5), "e200"),
+    ("autotune shape (T=4096, C=512)", 4096, (512,), "mamba"),
+]
+N_CANCEL = 8   # channels of an e200 case whose first state cancels exactly
+
+
+def diag_operands(t, trail, kind, gen):
+    """(a, b, x0) on the card.  ``mamba``: decays log a = Δ·A with Δ in
+    [1e-3, 0.1] and A in -[1, 16], sign +1, and inputs Δ·x·B, as Mamba's
+    segment_states makes them.  ``e200``: signed decays, inputs shifted by up
+    to e±200, a tenth of them exact zeros, and the first ``N_CANCEL``
+    channels cancelling exactly at t=0 (a_0 = 1, x0 = 1, b_0 = -1)."""
+    import torch
+
+    from repro_torch.core.goom import Goom
+
+    shape = (t,) + tuple(trail)
+
+    def rand(*sh):
+        return torch.rand(sh, generator=gen, device=DEVICE)
+
+    def normal(*sh):
+        return torch.randn(sh, generator=gen, device=DEVICE)
+
+    if kind == "mamba":
+        dt = 1e-3 + 0.099 * rand(*shape)
+        a = Goom(-dt * (1.0 + torch.floor(16 * rand(*shape))), torch.ones(shape, device=DEVICE))
+        return a, _goom(dt * normal(*shape)), _goom(normal(*trail))
+    a = _goom(1.5 * normal(*shape))
+    b = _goom(normal(*shape))
+    zero = rand(*shape) < 0.1
+    b = Goom((b.log_abs + 400 * rand(*shape) - 200).masked_fill(zero, -float("inf")),
+             b.sign.masked_fill(zero, 1.0))
+    x0 = _goom(normal(*trail))
+    k = min(N_CANCEL, x0.log_abs.numel())
+    for g, (log, sign) in ((a, (0.0, 1.0)), (b, (0.0, -1.0))):
+        g.log_abs[0].view(-1)[:k], g.sign[0].view(-1)[:k] = log, sign
+    x0.log_abs.view(-1)[:k], x0.sign.view(-1)[:k] = 0.0, 1.0
+    return a, b, x0
+
+
+def diag_bound(t, c):
+    """(bound ms, bound_by): a and b read once (log and sign, 16 B), the
+    states written once (8 B) per element, x0 read once (8 B) per channel;
+    some ten f32 operations per element (two exps, a log, adds, a max)."""
+    nbytes = 24 * t * c + 8 * c
+    ops = 10 * t * c
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def diag_kernel_phase():
+    """The diagonal-scan kernel against its plain version on the card, and
+    both against float64: the kernel walks time in order and the plain
+    version brackets as a tree, so the kernel's distance to the float64
+    plain version must be at most twice the f32 plain version's (floor
+    1e-6)."""
+    import math
+
+    import torch
+
+    from repro_torch.core.goom import Goom
+    from repro_torch.kernels.goom_scan import diagonal_scan_cuda, goom_diag_scan_ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rows, max_err = {}, 0.0
+    f64 = torch.float64
+    for name, t, trail, kind in DIAG_CASES:
+        a, b, x0 = diag_operands(t, trail, kind, gen)
+        copies = diagonal_scan_cuda.copies
+        got = diagonal_scan_cuda(a, b, x0)
+        torch.cuda.synchronize()
+        check(diagonal_scan_cuda.copies == copies, f"{name}: an operand was copied")
+        plain = goom_diag_scan_ref(a, b, x0)
+        exact = goom_diag_scan_ref(_as(a, f64), _as(b, f64), _as(x0, f64))
+        scale = goom_diag_scan_ref(_as(a, f64, True), _as(b, f64, True),
+                                   _as(x0, f64, True)).log_abs
+        check(tuple(got.shape) == tuple(plain.shape)
+              and not bool(torch.isnan(got.log_abs).any()), f"{name}: bad output")
+        d_k, d_p = goom_dist(got, exact, scale), goom_dist(plain, exact, scale)
+        check(d_k <= 2.0 * d_p + 1e-6, f"diagonal-scan kernel at {name}: distance "
+              f"to float64 {d_k:.3e} > twice the plain version's {d_p:.3e}")
+        ok, _ = goom_close(got, plain, scale.float(), margin=8.0)
+        check(ok, f"diagonal-scan kernel disagrees with its plain version at {name}")
+        if kind == "e200":
+            k = min(N_CANCEL, x0.log_abs.numel())
+            for out in (got, plain):
+                check(bool((out.log_abs[0].reshape(-1)[:k] == -math.inf).all())
+                      and bool((out.sign[0].reshape(-1)[:k] == 1.0).all()),
+                      f"{name}: an exact cancellation is not (-inf, +1)")
+        err = goom_dist(got, plain, scale)
+        max_err = max(max_err, err)
+        c = math.prod(trail)
+        iters = 50 if t <= 64 else 10
+        k_ms, k_how = kernel_ms(lambda: diagonal_scan_cuda(a, b, x0), iters, "diag_scan")
+        p_ms = device_ms(lambda: goom_diag_scan_ref(a, b, x0), iters)
+        bound, bound_by = diag_bound(t, c)
+        rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+                          max_abs_err=err)
+        print(f"diag_scan {name}: kernel {k_ms:.4f} ms ({k_how}), plain "
+              f"{p_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}), "
+              f"{bound / k_ms:.2f} of the bound; error vs plain {err:.2e}; "
+              f"distance to float64: kernel {d_k:.2e}, plain {d_p:.2e}", flush=True)
+
+    # backward: autograd of the plain version, reached through the kernel
+    a, b, x0 = diag_operands(9, (2, 5), "mamba", gen)
+    grads = []
+    for fn in (diagonal_scan_cuda, goom_diag_scan_ref):
+        logs = [g.log_abs.clone().requires_grad_() for g in (a, b, x0)]
+        fn(Goom(logs[0], a.sign), Goom(logs[1], b.sign), Goom(logs[2], x0.sign)
+           ).log_abs.sum().backward()
+        grads.append([x.grad for x in logs])
+    for g_k, g_p in zip(*grads):
+        check(torch.equal(g_k, g_p),
+              "diagonal-scan backward through the kernel differs from the plain one")
+    print("diag_scan backward: gradients equal to the plain version's", flush=True)
+    return rows, max_err
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: serving
 # ---------------------------------------------------------------------------
@@ -581,34 +726,48 @@ def with_scan_variant(cfg, variant: str):
 def reset_counts():
     """Every kernel's launch count and every engine call count to 0."""
     from repro_torch.core import engine
-    from repro_torch.kernels.goom_scan import matrix_scan_cuda
+    from repro_torch.kernels.goom_scan import diagonal_scan_cuda, matrix_scan_cuda
     from repro_torch.kernels.lmme import lmme_cuda
 
     engine.reset_calls()
     lmme_cuda.launches = 0
     matrix_scan_cuda.launches = 0
     matrix_scan_cuda.launches_zero_b = 0
+    diagonal_scan_cuda.launches = 0
 
 
 def read_counts():
     """(launches by kernel, engine calls by op) since ``reset_counts``."""
     from repro_torch.core import engine
-    from repro_torch.kernels.goom_scan import matrix_scan_cuda
+    from repro_torch.kernels.goom_scan import diagonal_scan_cuda, matrix_scan_cuda
     from repro_torch.kernels.lmme import lmme_cuda
 
     return ({"lmme": lmme_cuda.launches, "matrix_scan": matrix_scan_cuda.launches,
-             "matrix_scan_zero_b": matrix_scan_cuda.launches_zero_b}, dict(engine.calls))
+             "matrix_scan_zero_b": matrix_scan_cuda.launches_zero_b,
+             "diag_scan": diagonal_scan_cuda.launches}, dict(engine.calls))
 
 
 def check_launches(launches, calls, path, used):
     """Every engine call of the path reached its kernel, and each kernel in
     ``used`` launched at least once; the others not at all."""
     for kernel, op in (("lmme", "lmme"), ("matrix_scan", "matrix_scan"),
-                       ("matrix_scan_zero_b", "cumulative_lmme")):
+                       ("matrix_scan_zero_b", "cumulative_lmme"),
+                       ("diag_scan", "diagonal_scan")):
         check(launches[kernel] == calls[op], f"{path}: {kernel} launches "
               f"{launches[kernel]} != engine {op} calls {calls[op]}")
         check((launches[kernel] > 0) == (kernel in used),
               f"{path}: {kernel} launched {launches[kernel]} times")
+
+
+def path_label(cfg) -> str:
+    """goom-rnn's scan variant, or the config's name."""
+    blk = cfg.layer_list[0]
+    return blk.goom.scan_variant if blk.mixer == "goom_ssm" else cfg.name
+
+
+#: the kernels each served path launches (the others must not launch at all)
+USED = {"shared_a": {"lmme"}, "generic": {"lmme", "matrix_scan"},
+        "jamba-v0.1": {"diag_scan"}}
 
 
 def serve_phase(cfg, model=None):
@@ -616,15 +775,18 @@ def serve_phase(cfg, model=None):
 
     from repro_torch import DecoderLM
 
-    variant = cfg.layer_list[0].goom.scan_variant
+    variant = path_label(cfg)
     t0 = time.perf_counter()
     if model is None:
         model = DecoderLM(cfg, device=DEVICE,
                           generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     print(f"serve [{variant}]: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
-          f"vocab={cfg.vocab}, {n_params / 1e6:.1f}M params, built in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"vocab={cfg.vocab}, {n_params / 1e6:.1f}M params ({n_bytes / 1e9:.2f} GB "
+          f"in {cfg.param_dtype}), built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # warm-up pass (allocator, cuBLAS); it also picks the EOS token, one a
     # request first generates mid-decode
@@ -637,8 +799,7 @@ def serve_phase(cfg, model=None):
     results, reasons, stats = serve(model, reqs, timed=True)
     launches, calls = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    used = {"lmme"} | ({"matrix_scan"} if variant == "generic" else set())
-    check_launches(launches, calls, f"serve [{variant}]", used)
+    check_launches(launches, calls, f"serve [{variant}]", USED[variant])
     check_finished(reqs, results, reasons)
     check(stats["joined_late"] >= 2, f"only {stats['joined_late']} requests "
           "waited for a slot and joined mid-batch")
@@ -652,12 +813,13 @@ def serve_phase(cfg, model=None):
     with torch.no_grad():
         reset_counts()
         logits, _ = model.decode_step(torch.zeros(4, 1, dtype=torch.long, device=DEVICE),
-                                      model.init_caches(4))
+                                      model.init_caches(4, SERVE["page_len"]),
+                                      torch.zeros(4, dtype=torch.long, device=DEVICE))
         per_decode = read_counts()[0]
         reset_counts()
         tok = torch.tensor([max((r.prompt for r in reqs), key=len)[:64]],
                            device=DEVICE)
-        chunk_logits, _ = model.prefill(tok, model.init_caches(1))
+        chunk_logits, _ = model.prefill(tok, model.init_caches(1, SERVE["page_len"]))
         per_chunk = read_counts()[0]
     check(tuple(logits.shape) == (4, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
           and bool(torch.isfinite(chunk_logits).all()), "non-finite or misshapen logits")
@@ -671,9 +833,8 @@ def serve_phase(cfg, model=None):
           f"requests joined mid-batch; peak memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
     print(f"serve [{variant}]: finish reasons {reasons}; launches {launches} == "
-          f"engine calls {calls}; LMME / matrix-scan launches per decode step "
-          f"{per_decode['lmme']} / {per_decode['matrix_scan']}, per 64-token "
-          f"prefill chunk {per_chunk['lmme']} / {per_chunk['matrix_scan']}", flush=True)
+          f"engine calls {calls}; launches per decode step (4 slots) {per_decode}, "
+          f"per 64-token prefill chunk {per_chunk}", flush=True)
     return model, reqs, dict(stats, launches=launches, peak_bytes=peak,
                              per_decode=per_decode, per_chunk=per_chunk)
 
@@ -687,7 +848,7 @@ def trace_phase(model):
 
     from repro_torch import Engine, Request
 
-    variant = model.cfg.layer_list[0].goom.scan_variant
+    variant = path_label(model.cfg)
     n_steps = 8
     eng = Engine(model, **SERVE)
     for i in range(SERVE["max_slots"]):
@@ -708,38 +869,49 @@ def trace_phase(model):
     eng.run()
     n_dev = sum(e.device_type == DeviceType.CUDA for e in prof.events())
     busy = _device_ms(prof) / n_steps
-    lmme = _device_ms(prof, "lmme") / n_steps
-    mscan = _device_ms(prof, "matrix_scan") / n_steps
+    parts = {k: _device_ms(prof, k) / n_steps for k in ("lmme", "matrix_scan", "diag_scan")}
     print(f"trace [{variant}]: decode step (4 slots) {step_ms:.3f} ms wall, device "
           f"busy {busy:.3f} ms in {n_dev / n_steps:.0f} kernels, of which LMME "
-          f"{lmme:.3f} ms and matrix scan {mscan:.3f} ms; device idle share "
+          f"{parts['lmme']:.3f} ms, matrix scan {parts['matrix_scan']:.3f} ms and "
+          f"diagonal scan {parts['diag_scan']:.3f} ms; device idle share "
           f"{1 - busy / step_ms:.3f}", flush=True)
     return dict(step_ms=step_ms, busy_ms=busy, kernels=n_dev / n_steps,
-                idle=1 - busy / step_ms)
+                idle=1 - busy / step_ms, **parts)
 
 
 def parity_phase(model, cfg, reqs, compare_variant=None):
     """f32 serving on the kernels vs under the plain versions: tokens equal
     up to the first near tie of the reference's logits.  With
     ``compare_variant``, also the f32 prefill-logit gap to that scan variant
-    on the same weights."""
+    on the same weights.  ``model`` itself runs at f32 compute on its own
+    weights (a second copy of jamba's 52 GB would not fit): each product
+    casts its weight to f32 on the fly."""
+    import torch
+
+    variant = path_label(cfg)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    m32, model.cfg = model, cfg32
+    try:
+        return _parity(m32, cfg32, reqs, variant, compare_variant)
+    finally:
+        model.cfg = cfg
+
+
+def _parity(m32, cfg32, reqs, variant, compare_variant):
     import torch
 
     from repro_torch import DecoderLM
     from repro_torch.core import engine
 
-    variant = cfg.layer_list[0].goom.scan_variant
-    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
-    m32 = DecoderLM(cfg32, device=DEVICE,
-                    generator=torch.Generator(device=DEVICE).manual_seed(SEED))
-    m32.load_state_dict(model.state_dict())
+    page_len = SERVE["page_len"]
+    torch.cuda.reset_peak_memory_stats()
     got, _, _ = serve(m32, reqs)
     seq = torch.tensor([max((list(r.prompt) for r in reqs), key=len)],
                        device=DEVICE)
     with torch.no_grad():
-        lg_kernel, _ = m32.prefill(seq, m32.init_caches(1))
+        lg_kernel, _ = m32.prefill(seq, m32.init_caches(1, page_len))
         with engine.use_backend("torch_reference"):
-            lg_plain, _ = m32.prefill(seq, m32.init_caches(1))
+            lg_plain, _ = m32.prefill(seq, m32.init_caches(1, page_len))
     print(f"parity [{variant}] (f32): prefill logits of a {seq.shape[1]}-token "
           f"prompt, kernel vs plain: max |diff| "
           f"{float((lg_kernel - lg_plain).abs().max()):.3e}, std "
@@ -747,9 +919,9 @@ def parity_phase(model, cfg, reqs, compare_variant=None):
     if compare_variant:
         other = DecoderLM(with_scan_variant(cfg32, compare_variant), device=DEVICE,
                           generator=torch.Generator(device=DEVICE).manual_seed(SEED))
-        other.load_state_dict(model.state_dict())
+        other.load_state_dict(m32.state_dict())
         with torch.no_grad():
-            lg_other, _ = other.prefill(seq, other.init_caches(1))
+            lg_other, _ = other.prefill(seq, other.init_caches(1, page_len))
         del other
         print(f"parity [{variant}] (f32): prefill logits {variant} vs "
               f"{compare_variant} on the same weights: max |diff| "
@@ -763,7 +935,7 @@ def parity_phase(model, cfg, reqs, compare_variant=None):
                 if x != y:
                     with torch.no_grad():
                         seq = torch.tensor([list(r.prompt) + w[:i]], device=DEVICE)
-                        lg, _ = m32.prefill(seq, m32.init_caches(1))
+                        lg, _ = m32.prefill(seq, m32.init_caches(1, page_len))
                     lg = lg[0, -1].float()
                     top2 = torch.topk(lg, 2).values
                     margin = float(top2[0] - top2[1])
@@ -775,8 +947,9 @@ def parity_phase(model, cfg, reqs, compare_variant=None):
                 compared += 1
             else:
                 check(len(g) == len(w), f"request {r.uid}: lengths {len(g)} != {len(w)}")
-    print(f"parity [{variant}] (f32): {compared} tokens compared equal; stopped "
-          f"at near ties {stopped or 'none'}", flush=True)
+    print(f"parity [{variant}] (f32, {cfg32.n_layers} layers): {compared} tokens "
+          f"compared equal; stopped at near ties {stopped or 'none'}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return compared
 
 
@@ -886,6 +1059,60 @@ def experiments_phase():
     return launches
 
 
+def layer_breakdown(model):
+    """Device ms per decode step (4 slots) by layer kind: one layer of each
+    kind timed alone at the decode shape (its pre-norm included), times the
+    model's count of that kind, and the lm_head; against the step's weight
+    bytes at 3.35 TB/s."""
+    import torch
+
+    cfg, cd = model.cfg, model.cfg.compute_dtype
+    b, page_len = SERVE["max_slots"], SERVE["page_len"]
+    caches = model.init_caches(b, page_len)
+    pos = torch.zeros(b, 1, dtype=torch.long, device=DEVICE)
+    x = torch.randn(b, 1, cfg.d_model, device=DEVICE).to(cd)
+    kinds = {}
+    for i, blk in enumerate(cfg.layer_list):
+        for part, kind in (("mixer", blk.mixer), ("channel", blk.channel)):
+            if kind != "none":
+                kinds.setdefault(kind, [part, i, 0])[2] += 1
+    out = {}
+    with torch.no_grad():
+        for kind, (part, i, count) in kinds.items():
+            layer = model.layers[i]
+            norm, mod = getattr(layer, f"{part}_norm"), getattr(layer, part)
+            if kind == "attention":
+                fn = lambda: mod(norm(x), positions=pos, cache=caches[i], compute_dtype=cd)  # noqa: E731
+            elif kind == "moe":
+                fn = lambda: mod(norm(x), compute_dtype=cd, dropless=True)  # noqa: E731
+            elif part == "mixer":
+                fn = lambda: mod(norm(x), state=caches[i], compute_dtype=cd)  # noqa: E731
+            else:
+                fn = lambda: mod(norm(x), compute_dtype=cd)  # noqa: E731
+            out[kind] = count * device_ms(fn, 5)
+        out["lm_head"] = device_ms(lambda: model.logits(model.final_norm(x)), 5)
+    weights_ms = 1e3 * sum(p.numel() * p.element_size() for p in model.parameters()) \
+        / HBM_BYTES_PER_S
+    print(f"layers [{path_label(cfg)}]: device ms per decode step (4 slots) by kind "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items())
+          + f"; sum {sum(out.values()):.3f}; reading every weight once takes "
+          f"{weights_ms:.3f} ms at 3.35 TB/s", flush=True)
+    return out
+
+
+def jamba_config():
+    """jamba-v0.1 at full width, cut to ``JAMBA_PERIODS`` whole 8-layer
+    periods, parameters in bf16."""
+    import torch
+
+    from repro_torch import get_config
+
+    cfg = get_config("jamba-v0.1")
+    return dataclasses.replace(
+        cfg, n_layers=8 * JAMBA_PERIODS, param_dtype=torch.bfloat16,
+        groups=tuple(dataclasses.replace(g, n_periods=JAMBA_PERIODS) for g in cfg.groups))
+
+
 def main() -> int:
     import torch
 
@@ -917,6 +1144,7 @@ def main() -> int:
 
     rows, max_err = kernel_phase()
     scan_rows, scan_errs = scan_kernel_phase()
+    diag_rows, diag_err = diag_kernel_phase()
     elapsed("kernels")
     cfg = get_config("goom-rnn-124m")
     model, reqs, stats = serve_phase(cfg)
@@ -935,15 +1163,24 @@ def main() -> int:
     elapsed("generic")
     exp_launches = experiments_phase()
     elapsed("experiments")
+    cfg_j = jamba_config()
+    model_j, reqs_j, stats_j = serve_phase(cfg_j)
+    trace_j = trace_phase(model_j)
+    layer_breakdown(model_j)
+    parity_phase(model_j, cfg_j, reqs_j)
+    del model_j
+    elapsed("jamba")
 
     # each kernel's row: the shape its main path launches most, and the
     # launches of the run of that path (the other paths' beside them)
     by_path = {k: {"serve shared_a": stats["launches"][k], "serve generic":
-                   stats_g["launches"][k], "experiments": exp_launches[k]}
-               for k in ("lmme", "matrix_scan", "matrix_scan_zero_b")}
+                   stats_g["launches"][k], "experiments": exp_launches[k],
+                   "serve jamba": stats_j["launches"][k]}
+               for k in ("lmme", "matrix_scan", "matrix_scan_zero_b", "diag_scan")}
     lmme_row = next(r for r in rows if r["shape"].startswith("decode"))
     scan_row = next(v for k, v in scan_rows.items() if k.startswith("decode"))
     zb_row = next(v for k, v in scan_rows.items() if k.startswith("zero-B d=128"))
+    diag_row = next(v for k, v in diag_rows.items() if k.startswith("decode"))
     src = "src/repro_torch/kernels"
     entries = [
         ("lmme", f"{src}/lmme/csrc/lmme.cu", "src/repro/kernels/lmme/lmme.py:36",
@@ -957,6 +1194,10 @@ def main() -> int:
          "src/repro/kernels/goom_scan/matrix_scan.py:124",
          exp_launches["matrix_scan_zero_b"], scan_errs["matrix_scan_zero_b"], zb_row,
          "zero-B d=128 chain (2001,128,128)", "experiments"),
+        ("diag_scan", f"{src}/goom_scan/csrc/diag_scan.cu",
+         "src/repro/kernels/goom_scan/goom_scan.py:62",
+         stats_j["launches"]["diag_scan"], diag_err, diag_row,
+         "decode (T=1, C=4x8192x16)", "serve jamba"),
     ]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -965,6 +1206,8 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": None, "shape": shape,
         "main_path": path, "launches_by_path": by_path[name],
     } for name, source, replaces, launches, err, row, shape, path in entries]}))
+    print(f"jamba: decode step device busy {trace_j['busy_ms']:.3f} ms, of which the "
+          f"diagonal scan {trace_j['diag_scan']:.3f} ms; {card}", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,14 @@ returns a state dict for the port's ``DecoderLM``::
 
     model.load_state_dict(params_from_jax(cfg, tree))
 
-The layouts agree leaf by leaf (``in_proj.w`` is (d, H, hd), ``out_proj.w``
-is (H·hd, d)); what differs is that a JAX group with ``n_periods > 1``
-stacks each leaf over its periods on the leading axis, while the port has
-one module per layer.
+The layouts agree leaf by leaf: goom-rnn's ``in_proj.w`` (d, H, hd) and
+``out_proj.w`` (H·hd, d); attention's ``q.w`` (d, H, hd) and ``o.w``
+(H, hd, d); the MoE's f32 ``router.w`` (d, E) and its stacked expert
+weights ``gate``/``up`` (E, d, f) and ``down`` (E, f, d); Mamba's
+``dt_proj.{w,b}``, ``a_log``, ``conv_w``/``conv_b`` and ``d_skip``.  What
+differs is that a JAX group with ``n_periods > 1`` stacks each leaf over its
+periods on the leading axis, while the port has one module per layer: the
+leaves are unstacked period by period, block by block.
 """
 
 from __future__ import annotations

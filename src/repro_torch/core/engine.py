@@ -2,6 +2,10 @@
 scan goes through.
 
   * ``lmme(a, b)``                 log-matmul-exp (paper eq. 9);
+  * ``diagonal_scan(a, b, x0)``    all states of x_t = a_t ⊙ x_{t-1} ⊕ b_t,
+                                   the diagonal-scan kernel;
+  * ``diagonal_scan_carry(a, b, x0)`` the same with the last state as a
+                                   carry, for chunked ingestion;
   * ``matrix_scan(a, b, x0)``      all states of X_t = A_t X_{t-1} ⊕ B_t
                                    (eq. 26), the fused matrix-scan kernel;
   * ``matrix_scan_carry(a, b, x0)`` the same with the last state as a carry,
@@ -23,6 +27,7 @@ scope::
 
 ``calls`` counts engine op calls, so a run can show that every one of them
 reached a kernel: ``calls["lmme"]`` against ``lmme_cuda.launches``,
+``calls["diagonal_scan"]`` against ``diagonal_scan_cuda.launches``,
 ``calls["matrix_scan"]`` against ``matrix_scan_cuda.launches`` and
 ``calls["cumulative_lmme"]`` against ``matrix_scan_cuda.launches_zero_b``.
 """
@@ -37,14 +42,15 @@ import torch
 from . import scan as _scan
 from .goom import Goom
 
-__all__ = ["use_backend", "current_backend", "lmme", "matrix_scan",
-           "matrix_scan_carry", "cumulative_lmme", "selective_reset_scan",
+__all__ = ["use_backend", "current_backend", "lmme", "diagonal_scan",
+           "diagonal_scan_carry", "matrix_scan", "matrix_scan_carry", "cumulative_lmme", "selective_reset_scan",
            "calls", "reset_calls"]
 
 _STACK: List[str] = []
 
 #: engine op calls since the last ``reset_calls()``
-calls: Dict[str, int] = {"lmme": 0, "matrix_scan": 0, "matrix_scan_carry": 0,
+calls: Dict[str, int] = {"lmme": 0, "diagonal_scan": 0, "diagonal_scan_carry": 0,
+                         "matrix_scan": 0, "matrix_scan_carry": 0,
                          "cumulative_lmme": 0, "selective_reset_scan": 0}
 
 
@@ -84,6 +90,21 @@ def _impl(op: str, a: Goom):
 def lmme(a: Goom, b: Goom) -> Goom:
     """LMME over GOOMs: (..., n, d) ∘ (..., d, m), batch dims broadcast."""
     return _impl("lmme", a)(a, b)
+
+
+def diagonal_scan(a: Goom, b: Goom, x0: Optional[Goom] = None) -> Goom:
+    """All states of x_t = a_t ⊙ x_{t-1} ⊕ b_t over the leading axis: a and
+    b (T, ...) broadcast to one shape, x0 (...) or None (zeros)."""
+    return _impl("diagonal_scan", a)(a, b, x0)
+
+
+def diagonal_scan_carry(a: Goom, b: Goom, x0: Optional[Goom] = None
+                        ) -> Tuple[Goom, Goom]:
+    """``(states, final state)``: feed a chunk with the previous chunk's
+    carry as ``x0``; the concatenated chunk states equal one full scan."""
+    calls["diagonal_scan_carry"] += 1
+    states = diagonal_scan(a, b, x0)
+    return states, states[-1]
 
 
 def matrix_scan(a: Goom, b: Goom, x0: Optional[Goom] = None) -> Goom:

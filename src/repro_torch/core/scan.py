@@ -1,13 +1,14 @@
 """Parallel prefix scans of linear recurrences over GOOMs (paper §4.2, §5).
 
 Counterpart of ``repro/core/scan.py``: the plain PyTorch scans that are both
-the CPU path and the oracle of the CUDA matrix-scan kernel.  Application
+the CPU path and the oracle of the CUDA diagonal- and matrix-scan kernels.  Application
 code calls ``repro_torch.core.engine``, which dispatches between these and
 the kernels; the ``matmul=`` keywords are the engine's plumbing.
 
 Scans run over the leading axis (time).  For ``X_t = A_t X_{t-1} ⊕ B_t`` the
 combine of an earlier compound ``(A_e, B_e)`` with a later one ``(A_l, B_l)``
-is ``(A_l ∘ A_e, A_l ∘ B_e ⊕ B_l)`` (∘ = LMME, ⊕ = signed LSE).
+is ``(A_l ∘ A_e, A_l ∘ B_e ⊕ B_l)`` (∘ = LMME for matrices, the elementwise
+GOOM product for a diagonal recurrence; ⊕ = signed LSE).
 
 :func:`associative_scan` brackets exactly as ``jax.lax.associative_scan``
 does, so every interim compound is the one JAX forms.  Selective resetting
@@ -22,10 +23,11 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import torch
 
 from .goom import Goom, from_goom, goom_zeros, to_goom
-from .ops import goom_add, goom_normalize_cols, lmme_reference
+from .ops import goom_add, goom_mul, goom_normalize_cols, lmme_reference
 
 __all__ = [
     "associative_scan",
+    "diagonal_scan",
     "matrix_scan",
     "cumulative_lmme",
     "selective_reset_scan",
@@ -74,6 +76,31 @@ def associative_scan(fn: Callable, elems: Elems):
 
     out = scan((elems,) if single else tuple(elems))
     return out[0] if single else out
+
+
+# ---------------------------------------------------------------------------
+# diagonal recurrence:  x_t = a_t ⊙ x_{t-1} ⊕ b_t   (Mamba, SSMs)
+# ---------------------------------------------------------------------------
+def _diag_combine(e, l):
+    a_e, b_e = Goom(e[0], e[1]), Goom(e[2], e[3])
+    a_l, b_l = Goom(l[0], l[1]), Goom(l[2], l[3])
+    a = goom_mul(a_l, a_e)
+    b = goom_add(goom_mul(a_l, b_e), b_l)
+    return a.log_abs, a.sign, b.log_abs, b.sign
+
+
+def diagonal_scan(a: Goom, b: Goom, x0: Optional[Goom] = None) -> Goom:
+    """All states of the diagonal GOOM recurrence, via associative scan.
+
+    a, b: GOOMs of one shape with a leading time axis (T, ...); x0: (...)
+    entering state (default zero).  Returns the (T, ...) states."""
+    al, asn, bl, bsn = associative_scan(
+        _diag_combine, (a.log_abs, a.sign, b.log_abs, b.sign))
+    b_star = Goom(bl, bsn)
+    if x0 is None:
+        return b_star
+    x0b = Goom(x0.log_abs.expand(al.shape), x0.sign.expand(al.shape))
+    return goom_add(goom_mul(Goom(al, asn), x0b), b_star)
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,10 @@ A CUDA tensor never falls back to the plain version on its own: only a
 caller's ``use_backend("torch_reference")`` puts it there.
 
 **Registry**: implementations are registered per ``(op, backend)`` with
-:func:`register_impl`: ``lmme``, ``matrix_scan`` and ``cumulative_lmme``,
-each on both backends.  On ``cuda``, ``cumulative_lmme`` is the zero-B
+:func:`register_impl`: ``lmme``, ``diagonal_scan``, ``matrix_scan`` and
+``cumulative_lmme``, each on both backends.  Both ``diagonal_scan``
+implementations broadcast ``a`` and ``b`` to a common shape, as the JAX
+package's do.  On ``cuda``, ``cumulative_lmme`` is the zero-B
 matrix-scan kernel with X_0 = I, as in the JAX package.
 
 The platform (is there a card at all?) is read once per process by
@@ -35,7 +37,12 @@ import torch
 from ..core import scan
 from ..core.goom import Goom
 from ..core.ops import lmme_reference
-from .goom_scan import matrix_scan_cuda, matrix_scan_ref
+from .goom_scan import (
+    diagonal_scan_cuda,
+    goom_diag_scan_ref,
+    matrix_scan_cuda,
+    matrix_scan_ref,
+)
 from .lmme import lmme_cuda
 
 __all__ = ["BACKENDS", "CONCRETE_BACKENDS", "current_platform", "resolve_device",
@@ -106,6 +113,8 @@ def registered_impls() -> Tuple[Tuple[str, str], ...]:
 
 register_impl("lmme", "torch_reference")(lmme_reference)
 register_impl("lmme", "cuda")(lmme_cuda)
+register_impl("diagonal_scan", "torch_reference")(goom_diag_scan_ref)
+register_impl("diagonal_scan", "cuda")(diagonal_scan_cuda)
 register_impl("matrix_scan", "torch_reference")(matrix_scan_ref)
 register_impl("matrix_scan", "cuda")(matrix_scan_cuda)
 

@@ -1,4 +1,7 @@
-"""Wrapper of the CUDA matrix-scan kernel (``csrc/matrix_scan.cu``).
+"""Wrappers of the CUDA scan kernels: the matrix scan (``csrc/matrix_scan.cu``)
+and the diagonal scan (``csrc/diag_scan.cu``).
+
+**Matrix scan.**
 
 ``matrix_scan_cuda(a, b, x0)`` takes the engine's convention: a (T, ..., d, d)
 transitions, b (T, ..., d, m) biases, x0 (..., d, m) entering state or None
@@ -15,8 +18,16 @@ they are: nothing is padded.  d above 128, non-f32 planes and mixed devices
 raise.  On CPU planes it computes the plain version, because there is no
 kernel there to launch.
 
-Backward, as in the JAX wrapper (``repro/kernels/goom_scan/ops.py``), is
-autograd of the plain version on the saved inputs; sign planes get no
+**Diagonal scan.**  ``diagonal_scan_cuda(a, b, x0)``: a and b (T, ...)
+broadcast to one shape, x0 (...) or None (exact zeros).  Returns all
+states, (T, ...).  The trailing dims go in flattened into one channel axis C
+as one stride per plane (a stride of 0 broadcasts); an operand whose dims
+do not collapse into one stride is copied (``diagonal_scan_cuda.copies``).
+T and C are taken as they are: nothing is padded.  Non-f32 planes and mixed
+devices raise; CPU planes compute the plain version.
+
+Backward of both, as in the JAX wrapper (``repro/kernels/goom_scan/ops.py``),
+is autograd of the plain version on the saved inputs; sign planes get no
 gradient.
 """
 
@@ -29,9 +40,9 @@ from typing import Optional
 import torch
 
 from ...core.goom import Goom
-from .ref import matrix_scan_ref, matrix_scan_zero_b_ref
+from .ref import goom_diag_scan_ref, matrix_scan_ref, matrix_scan_zero_b_ref
 
-__all__ = ["MAX_D", "matrix_scan_cuda"]
+__all__ = ["MAX_D", "diagonal_scan_cuda", "matrix_scan_cuda"]
 
 MAX_D = 128  # kMaxD in csrc/matrix_scan.cu
 _I64 = ctypes.c_int64
@@ -194,3 +205,118 @@ matrix_scan_cuda.launches = 0
 matrix_scan_cuda.launches_zero_b = 0
 #: operands copied because their batch dims did not collapse into one stride
 matrix_scan_cuda.copies = 0
+
+
+# ---------------------------------------------------------------------------
+# diagonal scan:  x_t = a_t ⊙ x_{t-1} ⊕ b_t
+# ---------------------------------------------------------------------------
+_DIAG_FN = None
+
+
+def _diag_kernel_fn():
+    global _DIAG_FN
+    if _DIAG_FN is None:
+        from ..build import load
+
+        fn = load("diag_scan").repro_diag_scan_forward
+        ptr = ctypes.c_void_p
+        fn.argtypes = [ptr, ptr, _I64, _I64] * 2 + [ptr, ptr, _I64, ptr, ptr,
+                                                    _I64, _I64, ptr]
+        fn.restype = ctypes.c_int
+        _DIAG_FN = fn
+    return _DIAG_FN
+
+
+def _channel_strides(log: torch.Tensor, sign: torch.Tensor, shape, timed: bool):
+    """Both planes of one operand expanded to ``shape`` ((T,) + trail when
+    ``timed``, else trail) with one set of strides, and those strides as
+    (t, c) or (c,), the trailing dims walked as one channel axis.  Copies
+    only what cannot be passed as strides."""
+    log, sign = log.expand(shape), sign.expand(shape)
+    lead = 1 if timed else 0
+    c = _collapsed_stride(shape[lead:], log.stride()[lead:])
+    if log.stride() != sign.stride() or c is None:
+        log, sign = log.contiguous(), sign.contiguous()
+        diagonal_scan_cuda.copies += 1
+        c = _collapsed_stride(shape[lead:], log.stride()[lead:])
+    return log, sign, ((log.stride(0),) if timed else ()) + (c,)
+
+
+def _diag_launch(al, asn, bl, bsn, xl, xs):
+    planes = [p for p in (al, asn, bl, bsn, xl, xs) if p is not None]
+    dev = al.device
+    for x in planes:
+        if x.device != dev:
+            raise ValueError(f"diagonal-scan operands on {x.device} and {dev}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"the CUDA diagonal-scan kernel takes float32 "
+                            f"planes, got {x.dtype}")
+    if al.ndim < 1 or bl.ndim < 1:
+        raise ValueError("a and b need a leading time axis")
+    shape = torch.broadcast_shapes(al.shape, bl.shape)
+    t, trail = shape[0], tuple(shape[1:])
+    if xl is not None and torch.broadcast_shapes(trail, xl.shape) != trail:
+        raise ValueError(f"x0 {tuple(xl.shape)} does not broadcast to {trail}")
+    out_log = torch.empty(shape, dtype=torch.float32, device=dev)
+    out_sign = torch.empty_like(out_log)
+    c = math.prod(trail)
+    if out_log.numel() == 0:
+        return out_log, out_sign
+    al, asn, (a_t, a_c) = _channel_strides(al, asn, shape, True)
+    bl, bsn, (b_t, b_c) = _channel_strides(bl, bsn, shape, True)
+    x_c = 0
+    if xl is not None:
+        xl, xs, (x_c,) = _channel_strides(xl, xs, trail, False)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _diag_kernel_fn()(
+        al.data_ptr(), asn.data_ptr(), a_t, a_c, bl.data_ptr(), bsn.data_ptr(),
+        b_t, b_c, _ptr(xl), _ptr(xs), x_c, out_log.data_ptr(),
+        out_sign.data_ptr(), t, c, stream)
+    if rc != 0:
+        raise RuntimeError(f"diagonal-scan kernel launch failed: cudaError_t {rc}")
+    diagonal_scan_cuda.launches += 1
+    return out_log, out_sign
+
+
+def _diag_plain(al, asn, bl, bsn, xl, xs) -> Goom:
+    x0 = None if xl is None else Goom(xl, xs)
+    return goom_diag_scan_ref(Goom(al, asn), Goom(bl, bsn), x0)
+
+
+class _DiagScanFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, al, asn, bl, bsn, xl, xs):
+        out_log, out_sign = _diag_launch(al, asn, bl, bsn, xl, xs)
+        ctx.save_for_backward(al, asn, bl, bsn, xl, xs)
+        ctx.mark_non_differentiable(out_sign)
+        return out_log, out_sign
+
+    @staticmethod
+    def backward(ctx, g_log, _g_sign):
+        al, asn, bl, bsn, xl, xs = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            logs = [None if x is None else x.detach().requires_grad_(need[i])
+                    for i, x in ((0, al), (2, bl), (4, xl))]
+            out = _diag_plain(logs[0], asn, logs[1], bsn, logs[2], xs).log_abs
+            wrt = [x for x in logs if x is not None and x.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, g_log))
+        d_al, d_bl, d_xl = (next(grads) if x is not None and x.requires_grad else None
+                            for x in logs)
+        return d_al, None, d_bl, None, d_xl, None
+
+
+def diagonal_scan_cuda(a: Goom, b: Goom, x0: Optional[Goom] = None) -> Goom:
+    """All states of x_t = a_t ⊙ x_{t-1} ⊕ b_t through the CUDA kernel; the
+    plain version on CPU planes."""
+    planes = (a.log_abs, a.sign, b.log_abs, b.sign,
+              None if x0 is None else x0.log_abs, None if x0 is None else x0.sign)
+    if all(x.device.type == "cpu" for x in planes if x is not None):
+        return _diag_plain(*planes)
+    return Goom(*_DiagScanFn.apply(*planes))
+
+
+#: launches since the last reset (set to 0 to reset)
+diagonal_scan_cuda.launches = 0
+#: operands copied because their trailing dims did not collapse into one stride
+diagonal_scan_cuda.copies = 0

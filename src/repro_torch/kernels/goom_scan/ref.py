@@ -1,5 +1,6 @@
-"""Plain PyTorch version of the matrix-scan kernel, at the kernel's calling
-convention: a (T, ..., d, d), b (T, ..., d, m) or None, x0 (..., d, m).
+"""Plain PyTorch versions of the scan kernels, at their calling conventions.
+
+Matrix scan: a (T, ..., d, d), b (T, ..., d, m) or None, x0 (..., d, m).
 
 ``matrix_scan_ref`` is the port of the JAX package's chunked reference
 (``repro/kernels/dispatch.py::_matrix_ref_chunked``, chunk 128): the full
@@ -7,6 +8,10 @@ associative scan inside each chunk of ``chunk`` steps, the state carried
 from chunk to chunk.  ``matrix_scan_zero_b_ref`` is its B = 0 form, the
 prefix products folded with X_0, as the JAX zero-B kernel's backward
 computes it.
+
+Diagonal scan: a and b (T, ...) broadcast to one shape, x0 (...).
+``goom_diag_scan_ref`` is ``core.scan.diagonal_scan``, the associative scan
+bracketed as ``jax.lax.associative_scan``.
 """
 
 from __future__ import annotations
@@ -17,9 +22,10 @@ import torch
 
 from ...core.goom import Goom
 from ...core.ops import lmme_reference
-from ...core.scan import cumulative_lmme, matrix_scan
+from ...core.scan import cumulative_lmme, diagonal_scan, matrix_scan
 
-__all__ = ["REF_CHUNK", "matrix_scan_ref", "matrix_scan_zero_b_ref"]
+__all__ = ["REF_CHUNK", "goom_diag_scan_ref", "matrix_scan_ref",
+           "matrix_scan_zero_b_ref"]
 
 #: the JAX reference's time chunk (``repro/kernels/blocks.py::_REF_MAT``)
 REF_CHUNK = 128
@@ -60,3 +66,12 @@ def matrix_scan_ref(a: Goom, b: Goom, x0: Optional[Goom] = None,
 def matrix_scan_zero_b_ref(a: Goom, x0: Goom) -> Goom:
     """X_t = (A_t ··· A_1) X_0: the prefix products, then one LMME with x0."""
     return lmme_reference(cumulative_lmme(a, matmul=lmme_reference), x0)
+
+
+def goom_diag_scan_ref(a: Goom, b: Goom, x0: Optional[Goom] = None) -> Goom:
+    """Plain version of the diagonal-scan kernel: ``core.scan.diagonal_scan``
+    (the JAX package's ``goom_diag_scan_ref``) on ``a`` and ``b`` broadcast
+    to a common (T, ...) shape, ``x0`` to its trailing dims."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    x0 = None if x0 is None else _expand(x0, shape[1:])
+    return diagonal_scan(_expand(a, shape), _expand(b, shape), x0)

@@ -1,9 +1,12 @@
-"""Per-layer block: a pre-normed sequence mixer with a residual add.
+"""Per-layer block: a pre-normed sequence mixer and a pre-normed channel
+mixer, each with a residual add (``repro/models/blocks.py``).
 
-This slice builds ``mixer="goom_ssm"``, ``channel="none"``, ``norm="ln"``,
-the goom-rnn layer.  Counterpart of ``repro/models/blocks.py``: the block
-applies ``mixer_norm`` and the mixer then applies its own ``ln``; both norms
-are real parameters of the model, so both stay.
+Mixers: ``goom_ssm`` (the paper's RNN layer), ``mamba`` and ``attention``;
+channels: ``none``, ``mlp`` and ``moe``; norms ``rms`` and ``ln``.  The
+goom layer applies its own ``ln`` after the block's ``mixer_norm``; both are
+real parameters of the model, so both stay.  The MoE routes dropless when
+the block runs with a cache (serving) and with capacity dropping without
+one, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,36 +17,77 @@ import torch
 from torch import nn
 
 from ..configs.base import BlockCfg
+from .attention import Attention, attention_init_cache
 from .goom_layer import GoomSSM, goom_ssm_init_state
-from .norms import LayerNorm
+from .mlp import Mlp, Moe
+from .norms import make_norm
+from .ssm import Mamba, mamba_init_state
+
+Cache = Dict[str, torch.Tensor]
+
+_MIXERS = {"goom_ssm": ("goom", GoomSSM), "mamba": ("mamba", Mamba),
+           "attention": ("attn", Attention)}
+_CHANNELS = {"mlp": ("mlp", Mlp), "moe": ("moe", Moe)}
 
 
-def _check_supported(blk: BlockCfg) -> None:
-    if (blk.mixer, blk.channel, blk.norm) != ("goom_ssm", "none", "ln"):
-        raise NotImplementedError(
-            f"block mixer={blk.mixer!r} channel={blk.channel!r} "
-            f"norm={blk.norm!r}: this slice of the port builds goom_ssm/none/ln")
+def _part(table, kind: str, blk: BlockCfg, what: str):
+    if kind not in table:
+        raise NotImplementedError(f"block {what}={kind!r}: the port builds "
+                                  f"{sorted(table)}")
+    field, cls = table[kind]
+    cfg = getattr(blk, field)
+    if cfg is None:
+        raise ValueError(f"block {what}={kind!r} needs its {field!r} config")
+    return cfg, cls
 
 
 class Block(nn.Module):
     def __init__(self, blk: BlockCfg, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_supported(blk)
         self.blk = blk
-        self.mixer_norm = LayerNorm(blk.goom.d_model, device=device, dtype=dtype)
-        self.mixer = GoomSSM(blk.goom, device=device, dtype=dtype,
-                             generator=generator)
+        kw = dict(device=device, dtype=dtype)
+        mcfg, mixer = _part(_MIXERS, blk.mixer, blk, "mixer")
+        self.mixer_norm = make_norm(blk.norm, mcfg.d_model, **kw)
+        self.mixer = mixer(mcfg, generator=generator, **kw)
+        if blk.channel != "none":
+            ccfg, channel = _part(_CHANNELS, blk.channel, blk, "channel")
+            self.channel_norm = make_norm(blk.norm, ccfg.d_model, **kw)
+            self.channel = channel(ccfg, generator=generator, **kw)
 
-    def forward(self, x: torch.Tensor, *,
-                cache: Optional[Dict[str, torch.Tensor]] = None,
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                cache: Optional[Cache] = None,
                 compute_dtype: torch.dtype = torch.bfloat16):
-        """Returns (x, new cache or None); the residual add is in x's dtype."""
+        """Returns (x, new cache or None); residual adds are in x's dtype."""
         h = self.mixer_norm(x)
-        h, c = self.mixer(h, state=cache, compute_dtype=compute_dtype)
-        return x + h.to(x.dtype), c
+        if self.blk.mixer == "attention":
+            h, c = self.mixer(h, positions=positions, cache=cache,
+                              compute_dtype=compute_dtype)
+        else:
+            h, c = self.mixer(h, state=cache, compute_dtype=compute_dtype)
+        x = x + h.to(x.dtype)
+        if self.blk.channel != "none":
+            h = self.channel_norm(x)
+            if self.blk.channel == "moe":
+                h = self.channel(h, compute_dtype=compute_dtype,
+                                 dropless=cache is not None)
+            else:
+                h = self.channel(h, compute_dtype=compute_dtype)
+            x = x + h.to(x.dtype)
+        return x, c
 
 
-def block_init_cache(blk: BlockCfg, batch: int, *, device) -> Dict[str, torch.Tensor]:
-    _check_supported(blk)
-    return goom_ssm_init_state(batch, blk.goom, device=device)
+def block_init_cache(blk: BlockCfg, batch: int, *, device,
+                     max_len: Optional[int] = None) -> Cache:
+    """One layer's decode state, every leaf leading with ``batch``: the GOOM
+    carry, Mamba's conv tail and SSM state, or attention's KV rows of
+    ``max_len`` positions with a per-row index."""
+    if blk.mixer == "goom_ssm":
+        return goom_ssm_init_state(batch, blk.goom, device=device)
+    if blk.mixer == "mamba":
+        return mamba_init_state(batch, blk.mamba, device=device)
+    if blk.mixer == "attention":
+        if max_len is None:
+            raise ValueError("an attention layer's cache needs max_len")
+        return attention_init_cache(batch, blk.attn, max_len, device=device)
+    raise NotImplementedError(f"no cache for mixer {blk.mixer!r}")

@@ -1,4 +1,5 @@
-"""Shared model helpers: the scan chunk length and the dense projection."""
+"""Shared model helpers: the scan chunk length, parameter init and the
+dense projection."""
 
 from __future__ import annotations
 
@@ -32,16 +33,26 @@ def dense_apply(w: torch.Tensor, x: torch.Tensor, *,
     return y.reshape(x.shape[:-1] + out_dims)
 
 
+def normal_param(shape, std: float, *, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None) -> nn.Parameter:
+    """A parameter drawn from N(0, std²), scaled in place (no second copy:
+    the port builds multi-GiB expert weights this way)."""
+    w = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    return nn.Parameter(w.mul_(std))
+
+
 class Dense(nn.Module):
     """Weight ``w`` of shape (in_dim, *out_dims), the JAX package's layout;
-    initialised LeCun-normal (std 1/sqrt(in_dim)) from ``generator``."""
+    initialised LeCun-normal (std 1/sqrt(in_dim), or ``std``) from
+    ``generator``."""
 
     def __init__(self, in_dim: int, out_dims, *, device=None,
-                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None,
+                 std: Optional[float] = None):
         super().__init__()
-        w = torch.randn((in_dim, *out_dims), generator=generator,
-                        device=device, dtype=dtype) / in_dim ** 0.5
-        self.w = nn.Parameter(w)
+        self.w = normal_param((in_dim, *out_dims),
+                              in_dim ** -0.5 if std is None else std,
+                              device=device, dtype=dtype, generator=generator)
 
     def forward(self, x: torch.Tensor, *,
                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:

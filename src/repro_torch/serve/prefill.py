@@ -2,11 +2,12 @@
 
 A prompt of length P runs as ``P // chunk`` full chunks through
 ``model.prefill`` (each GOOM layer one parallel scan over the chunk, its
-entering state folded in from the cache) and the ``P % chunk`` remainder
-token by token through ``model.decode_step``.  Threading the caches through
-the calls is the recurrence's exact chunking; the chunk boundaries set the
-reassociation, so this schedule is the JAX package's
-(``repro/serve/prefill.py``) to the token.
+entering state folded in from the cache, each attention layer writing its
+KV at the row's index) and the ``P % chunk`` remainder token by token
+through ``model.decode_step``.  Each call gets the tokens' absolute
+positions.  Threading the caches through the calls is the recurrence's
+exact chunking; the chunk boundaries set the reassociation, so this
+schedule is the JAX package's (``repro/serve/prefill.py``) to the token.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ class ChunkedPrefill:
     @torch.no_grad()
     def __call__(self, prompt: Sequence[int], caches: Caches
                  ) -> Tuple[torch.Tensor, Caches]:
-        """Ingest ``prompt`` (1-D tokens) into a batch-1 cache list.
+        """Ingest ``prompt`` (1-D tokens) into a fresh batch-1 cache list, its
+        first token at position 0.
 
         Returns ``(last_logits (1, vocab), caches)``."""
         dev = self.model.device
@@ -44,10 +46,12 @@ class ChunkedPrefill:
         n_full = p // c
         logits = None
         for j in range(n_full):
-            logits, caches = self.model.prefill(prompt[None, j * c:(j + 1) * c],
-                                                caches)
+            logits, caches = self.model.prefill(
+                prompt[None, j * c:(j + 1) * c], caches,
+                positions=torch.arange(j * c, (j + 1) * c, device=dev)[None])
             self.n_chunk_calls += 1
         for t in range(n_full * c, p):
-            logits, caches = self.model.decode_step(prompt[None, t:t + 1], caches)
+            logits, caches = self.model.decode_step(
+                prompt[None, t:t + 1], caches, torch.full((1,), t, device=dev))
             self.n_tail_calls += 1
         return logits[:, -1, :], caches

@@ -1,6 +1,9 @@
-"""Continuous-batching serve engine over the goom-rnn ``DecoderLM``.
+"""Continuous-batching serve engine over the port's ``DecoderLM``.
 
-Counterpart of ``repro/serve/scheduler.py``, single-step and dense.  One
+Counterpart of ``repro/serve/scheduler.py``, single-step and dense: KV sits
+in dense per-slot rows of ``page_len`` positions (JAX's
+``init_slot_caches(page_size=None)`` layout), which computes what JAX's paged
+pool computes.  Each slot's next position rides beside its next token.  One
 ``step()``:
 
   1. *admit*  — while a slot is free and requests wait: chunked-prefill the
@@ -14,9 +17,9 @@ Counterpart of ``repro/serve/scheduler.py``, single-step and dense.  One
   3. *evict*  — sequences that hit EOS or their token budget free their
      slot for the next admission.
 
-Greedy sampling.  Not in this slice: the fused multi-step horizon, the async
-token lane, streaming, deadlines, cancel, prefix reuse, paged KV and the
-HTTP front door.
+Greedy sampling.  Not ported yet: the fused multi-step horizon, the async
+token lane, streaming, deadlines, cancel, prefix reuse, the paged KV pool
+and the HTTP front door.
 """
 
 from __future__ import annotations
@@ -71,10 +74,11 @@ class Engine:
         self._prefill = ChunkedPrefill(model, chunk)
         self._alloc = SlotAllocator(max_slots)
         dev = model.device
-        self._caches = model.init_caches(max_slots)
-        # next input token per slot, and which slots advance on a step:
-        # both stay on the device, the decode feeds itself
+        self._caches = model.init_caches(max_slots, page_len)
+        # next input token and its absolute position per slot, and which
+        # slots advance on a step: all on the device, the decode feeds itself
         self._tokens = torch.zeros(max_slots, dtype=torch.long, device=dev)
+        self._pos = torch.zeros(max_slots, dtype=torch.long, device=dev)
         self._live = torch.zeros(max_slots, dtype=torch.bool, device=dev)
         self._queue: Deque[Request] = deque()
         self._active: Dict[int, _Active] = {}
@@ -154,18 +158,20 @@ class Engine:
             # the final piece is a full chunk when the length divides, the
             # last token otherwise; the head before it is chunk-prefilled
             fused_start = p - (1 if p % c else c)
-            caches = model.init_caches(1)
+            caches = model.init_caches(1, self.page_len)
             if fused_start:
                 _, caches = self._prefill(prompt[:fused_start], caches)
             last = torch.tensor([prompt[fused_start:]], dtype=torch.long,
                                 device=dev)
+            at = torch.arange(fused_start, p, device=dev)
             if p % c:
-                logits, caches = model.decode_step(last, caches)
+                logits, caches = model.decode_step(last, caches, at)
             else:
-                logits, caches = model.prefill(last, caches)
+                logits, caches = model.prefill(last, caches, positions=at[None])
             first = torch.argmax(logits[:, -1, :], dim=-1)[0]
             write_slot(self._caches, caches, slot)
             self._tokens[slot] = first
+            self._pos[slot] = p
             act = _Active(request=req, slot=slot, out=[int(first)])
             self._active[slot] = act
             reason = self._reason(act)
@@ -184,10 +190,11 @@ class Engine:
         if not self._active:
             return finished
         logits, stepped = self.model.decode_step(self._tokens[:, None],
-                                                 self._caches)
+                                                 self._caches, self._pos)
         self._caches = merge_frozen(stepped, self._caches, self._live)
         nxt = torch.argmax(logits[:, -1, :], dim=-1)
         self._tokens = torch.where(self._live, nxt, self._tokens)
+        self._pos = torch.where(self._live, self._pos + 1, self._pos)
         self.n_decode_steps += 1
         toks = self._tokens.tolist()  # the step's one host sync
         for slot, act in list(self._active.items()):

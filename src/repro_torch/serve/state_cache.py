@@ -1,11 +1,13 @@
 """Slot-managed decode state for continuous batching (dense part).
 
-The slot caches are ``DecoderLM.init_caches(max_slots)``: one dict per layer
-whose leaves lead with the slot dimension.  A *slot* is one resident
-sequence; a goom-rnn layer's state is its fixed-size (H, hd, 1) GOOM carry
-whatever the context length, so joining and leaving the batch are row
+The slot caches are ``DecoderLM.init_caches(max_slots, page_len)``: one dict
+per layer whose leaves lead with the slot dimension.  A *slot* is one
+resident sequence.  A goom-rnn layer's state is its fixed-size (H, hd, 1)
+GOOM carry, a Mamba layer's its conv tail and SSM state, whatever the
+context length; an attention layer's is its KV row of ``page_len``
+positions and the row's index.  Joining and leaving the batch are row
 copies.  Counterpart of the dense parts of ``repro/serve/state_cache.py``;
-the paged KV pool and the prefix index come with attention.
+the paged KV pool and the prefix index are not ported.
 
 Unlike their JAX counterparts, ``write_slot`` updates the slot caches in
 place (the resident state is never copied whole).

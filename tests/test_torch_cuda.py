@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (LMME, matrix scan) against their plain
-versions, on a card.
+"""The port's CUDA kernels (LMME, matrix scan, diagonal scan) against their
+plain versions, on a card.
 
 Every test here needs an NVIDIA card and ``nvcc``; elsewhere they skip.  On
 a machine with a card run them with
@@ -312,3 +312,118 @@ def test_engine_routes_scans_to_the_kernel(card):
     assert (matrix_scan_cuda.launches, matrix_scan_cuda.launches_zero_b) == \
         (before[0] + 2, before[1] + 1)
     assert dispatch.get_impl("cumulative_lmme", "cuda") is not None
+
+
+# ---------------------------------------------------------------------------
+# the diagonal-scan kernel
+# ---------------------------------------------------------------------------
+# name: (T, trailing shape, kind): Mamba's decode step over 4 slots and its
+# 64-token chunk (d_inner=8192, d_state=16), e±200 signed inputs with exact
+# zeros and cancellations, T=1, odd C, and the autotune shape (4096, 512)
+DIAG_SHAPES = {
+    "decode": (1, (4, 8192, 16), "mamba"),
+    "chunk64": (64, (1, 8192, 16), "mamba"),
+    "e200_signed": (64, (4, 33), "e200"),
+    "t1": (1, (1000,), "e200"),
+    "odd_c": (37, (3, 7, 5), "e200"),
+    "autotune": (4096, (512,), "mamba"),
+}
+
+
+def diag_operands(name, dev, seed=0):
+    """(a, b, x0) on ``dev``.  ``mamba``: decays a = Δ·A <= 0 with sign +1 and
+    inputs Δ·x·B as Mamba's segment_states makes them; ``e200``: signed
+    decays and inputs shifted by up to e±200, a tenth of the inputs exact
+    zeros, and channel 0 cancelling exactly at t=0."""
+    tlen, trail, kind = DIAG_SHAPES[name]
+    gen = torch.Generator().manual_seed(seed)
+    shape = (tlen,) + trail
+    if kind == "mamba":
+        a = Goom(-torch.rand(shape, generator=gen) * 0.2, torch.ones(shape))
+        b = _goom(torch.randn(shape, generator=gen) * 0.1)
+        x0 = _goom(torch.randn(trail, generator=gen))
+    else:
+        a = _goom(torch.randn(shape, generator=gen) * 1.5)
+        b = _goom(torch.randn(shape, generator=gen))
+        b = Goom(b.log_abs + (torch.rand(shape, generator=gen) * 400 - 200), b.sign)
+        zero = torch.rand(shape, generator=gen) < 0.1
+        b = Goom(b.log_abs.masked_fill(zero, -torch.inf), b.sign.masked_fill(zero, 1.0))
+        x0 = _goom(torch.randn(trail, generator=gen))
+        # x_0 = a_0 x0 + b_0 = 0 exactly in channel 0
+        first = (0,) * len(shape)
+        a.log_abs[first], a.sign[first] = 0.0, 1.0
+        x0.log_abs[first[1:]], x0.sign[first[1:]] = 0.0, 1.0
+        b.log_abs[first], b.sign[first] = 0.0, -1.0
+    move = lambda g: Goom(g.log_abs.to(dev), g.sign.to(dev))  # noqa: E731
+    return move(a), move(b), move(x0)
+
+
+@pytest.mark.parametrize("name", sorted(DIAG_SHAPES))
+def test_diagonal_scan_kernel_matches_plain_version(card, name):
+    from repro_torch.kernels.goom_scan import diagonal_scan_cuda, goom_diag_scan_ref
+
+    a, b, x0 = diag_operands(name, card)
+    before = (diagonal_scan_cuda.launches, diagonal_scan_cuda.copies)
+    engine.reset_calls()
+    got = engine.diagonal_scan(a, b, x0)
+    torch.cuda.synchronize()
+    assert (diagonal_scan_cuda.launches, diagonal_scan_cuda.copies) == (before[0] + 1, before[1])
+    assert engine.calls["diagonal_scan"] == 1
+    plain = goom_diag_scan_ref(a, b, x0)
+    assert got.shape == plain.shape and not torch.isnan(got.log_abs).any()
+    exact = goom_diag_scan_ref(_f64(a), _f64(b), _f64(x0))
+    scale = goom_diag_scan_ref(_abs(_f64(a)), _abs(_f64(b)), _abs(_f64(x0)))
+    assert_no_worse_than_plain(got, plain, exact, scale.log_abs)
+    assert_goom_close(got.log_abs, got.sign, plain.log_abs, plain.sign,
+                      scale_log=scale.log_abs.float(), cancel_margin=8.0)
+    if DIAG_SHAPES[name][-1] == "e200":   # the exact cancellation
+        assert float(got.log_abs.flatten()[0]) == -float("inf")
+        assert float(got.sign.flatten()[0]) == 1.0
+
+
+def test_diagonal_scan_kernel_broadcasts_by_strides(card):
+    """A time-invariant ``a`` (stride 0 over time) and no x0 go in without a
+    copy; an ``a`` broadcast over a middle dim is copied (and counted); zero
+    inputs stay exact zeros."""
+    from repro_torch.kernels.goom_scan import diagonal_scan_cuda, goom_diag_scan_ref
+
+    a, b, _ = diag_operands("odd_c", card, seed=4)
+    for a1, copied in ((a[:1], 0), (a[:, :, :1], 1)):
+        before = diagonal_scan_cuda.copies
+        got = diagonal_scan_cuda(a1, b, None)
+        assert diagonal_scan_cuda.copies == before + copied
+        want = goom_diag_scan_ref(a1, b, None)
+        scale = goom_diag_scan_ref(_abs(_f64(a1)), _abs(_f64(b)), None)
+        assert_goom_close(got.log_abs, got.sign, want.log_abs, want.sign,
+                          scale_log=scale.log_abs.float(), cancel_margin=8.0)
+    zeros_b = Goom(torch.full_like(b.log_abs, -torch.inf), torch.ones_like(b.sign))
+    got = diagonal_scan_cuda(a, zeros_b, None)
+    assert bool((got.log_abs == -torch.inf).all()) and bool((got.sign == 1).all())
+
+
+def test_diagonal_scan_kernel_backward_is_the_plain_versions(card):
+    from repro_torch.kernels.goom_scan import diagonal_scan_cuda, goom_diag_scan_ref
+
+    a, b, x0 = diag_operands("odd_c", card, seed=5)
+    b = Goom(torch.randn_like(b.log_abs), b.sign)   # no zeros: finite gradients
+    grads = []
+    for fn in (diagonal_scan_cuda, goom_diag_scan_ref):
+        logs = [g.log_abs.clone().requires_grad_() for g in (a, b, x0)]
+        out = fn(Goom(logs[0], a.sign), Goom(logs[1], b.sign), Goom(logs[2], x0.sign))
+        out.log_abs.sum().backward()
+        grads.append([x.grad for x in logs])
+    for g_kernel, g_plain in zip(*grads):
+        assert torch.equal(g_kernel, g_plain)
+
+
+def test_diagonal_scan_kernel_raises_on_what_it_does_not_take(card):
+    from repro_torch.kernels.goom_scan import diagonal_scan_cuda
+
+    a, b, x0 = diag_operands("t1", card)
+    bf = Goom(a.log_abs.bfloat16(), a.sign.bfloat16())
+    with pytest.raises(TypeError, match="float32"):
+        diagonal_scan_cuda(bf, b, x0)
+    with pytest.raises(TypeError, match="float32"):
+        engine.diagonal_scan(bf, b, x0)
+    with pytest.raises(ValueError):
+        diagonal_scan_cuda(a, Goom(b.log_abs.cpu(), b.sign.cpu()), x0)

@@ -23,7 +23,7 @@ from repro_torch.core import engine
 from repro_torch.core.goom import Goom
 from repro_torch.core.ops import lmme_naive, lmme_reference
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.goom_scan import matrix_scan_cuda
+from repro_torch.kernels.goom_scan import diagonal_scan_cuda, matrix_scan_cuda
 from repro_torch.kernels.lmme import lmme_cuda, lmme_ref
 from torch_parity import assert_goom_close, goom_planes, lmme_abs_scale, n, t
 
@@ -144,12 +144,13 @@ def test_dispatch_resolution_table():
     with pytest.raises(ValueError):
         dispatch.resolve_backend("pallas", device_type="cuda", dtype=f32)
     assert dispatch.registered_impls() == tuple(
-        (op, b) for op in ("cumulative_lmme", "lmme", "matrix_scan")
+        (op, b) for op in ("cumulative_lmme", "diagonal_scan", "lmme", "matrix_scan")
         for b in ("cuda", "torch_reference"))
     assert dispatch.get_impl("lmme", "cuda") is lmme_cuda
     assert dispatch.get_impl("matrix_scan", "cuda") is matrix_scan_cuda
-    with pytest.raises(KeyError):  # the diagonal scan is a later slice
-        dispatch.get_impl("diagonal_scan", "cuda")
+    assert dispatch.get_impl("diagonal_scan", "cuda") is diagonal_scan_cuda
+    with pytest.raises(KeyError):  # the engine builds it from lmme: no entry
+        dispatch.get_impl("selective_reset_scan", "cuda")
 
 
 def test_engine_lmme_counts_calls_and_honours_use_backend():
