@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels]
 
 from the root of a checkout, on a machine with an NVIDIA Hopper card and the
 CUDA toolkit.  Phases, in order; any failure exits non-zero:
@@ -9,11 +9,15 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
   1. build    — compile every CUDA kernel source with nvcc (sm_90a), in
                 parallel;
   2. kernels  — hold each kernel against its plain PyTorch version on the
-                card, and time both: the LMME kernel on e±200 inputs with
-                exact-zero rows and columns; the matrix-scan kernel (with B,
-                and its zero-B form from X_0 = I) at the generic layer's
-                shapes, on e±200 and odd signed shapes, and on the chains'
-                and the LLE's lengths, each also against float64; the
+                card, and time both, beside the previous design's time
+                (``PREV_MS``): the LMME kernel on e±200 inputs with
+                exact-zero rows and columns, at the serving path's shapes,
+                the chains' square d = 8, 32, 128 and the spectrum's reset
+                products; the matrix scan with B at the generic layer's
+                shapes, on e±200 and odd signed shapes, and its zero-B form
+                from X_0 = I (three passes, four kernels a call, timed as
+                their sum) on the chains' and the LLE's lengths, each also
+                against float64; the
                 diagonal-scan kernel at Mamba's decode, prefill-chunk and
                 tail shapes, on e±200 signed inputs with exact zeros and
                 cancellations, T=1, odd C and the autotune shape (4096, 512),
@@ -47,6 +51,8 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 kernel, and no other GOOM op may run; a profiler trace of
                 steady decode steps; then the parity check of phase 4 at f32
                 compute on the same weights.
+
+``--kernels`` runs phases 1 and 2 without the diagonal scan and stops.
 
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit (from nvidia-smi), and ``{"ok": true, "device": {...}}``.
@@ -175,6 +181,33 @@ def kernel_ms(fn, iters: int, kernel: str):
     return event_ms(fn, iters), f"events; the profiler kept none of {iters} launches"
 
 
+def call_ms(fn, iters: int, kernel: str, per_call: int):
+    """(ms, how) per call of ``fn``, which launches ``per_call`` kernels of
+    distinct names holding ``kernel``: the sum over them of each one's mean
+    device duration in a profiler trace (which drops some launch records,
+    long ones most), or CUDA events around the calls when it kept no record
+    of one of them.  Gaps between the kernels are left out."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in _profile(fn, iters).events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+    parts = {}
+    for e in events:
+        parts.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    means = {k: sum(v) / len(v) for k, v in parts.items()}
+    split = ", ".join(f"{_short(k)} {v:.4f}" for k, v in means.items())
+    kept = f"the profiler kept {len(events)} of {iters * per_call} launches"
+    if len(means) == per_call:  # every kernel of a call seen at least once
+        return sum(means.values()), f"sum of {per_call} kernels' mean ({kept}): {split}"
+    return event_ms(fn, iters), f"events; {kept}: {split}"
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its namespace, return type and arguments."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0]
+
+
 def _device_ms(prof, name: str = "") -> float:
     """Summed device time of the profiled events whose name holds ``name``;
     fails when the profiler saw no device work at all."""
@@ -238,6 +271,27 @@ def lmme_bound(a_shape, b_shape):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# The previous design's device ms at each kernel-phase shape (LMME: one
+# thread per output, exps recomputed per output; zero-B: one block per column
+# tile walking time in order), measured by ``--kernels`` on an NVIDIA H100
+# 80GB HBM3 at 700.00 W before the redesign; printed beside the new times.
+PREV_MS = {
+    "decode (H,16,16)x(S*B=4,H,16,1)": 0.0059,
+    "admit fold (H,16,16)x(1,H,16,1)": 0.0059,
+    "prefill chunk 64 (H,16,16)x(64,1,H,16,1)": 0.0091,
+    "A doubling (H,16,16)x(H,16,16)": 0.0064,
+    "2-D (130,70)x(70,50)": 0.0213,
+    "d=256 (4,8,256)x(4,256,16)": 0.0738,
+    "chain square d=8 (8,8)x(8,8)": 0.0036,
+    "chain square d=32 (32,32)x(32,32)": 0.0104,
+    "chain square d=128 (128,128)x(128,128)": 0.0382,
+    "spectrum reset (128,3,3)x(128,3,3)": 0.0026,
+    "zero-B (1000,16,16)": 2.4830,
+    "zero-B d=128 chain (2001,128,128)": 71.0133,
+    "zero-B LLE (4097,3,3)": 10.4632,
+}
+
+
 def kernel_phase():
     import torch
 
@@ -252,6 +306,10 @@ def kernel_phase():
         ("A doubling (H,16,16)x(H,16,16)", (48, 16, 16), (48, 16, 16)),
         ("2-D (130,70)x(70,50)", (130, 70), (70, 50)),
         ("d=256 (4,8,256)x(4,256,16)", (4, 8, 256), (4, 256, 16)),
+        ("chain square d=8 (8,8)x(8,8)", (8, 8), (8, 8)),
+        ("chain square d=32 (32,32)x(32,32)", (32, 32), (32, 32)),
+        ("chain square d=128 (128,128)x(128,128)", (128, 128), (128, 128)),
+        ("spectrum reset (128,3,3)x(128,3,3)", (128, 3, 3), (128, 3, 3)),
     ]
     rows, max_err = [], 0.0
     for name, sa, sb in cases:
@@ -272,11 +330,14 @@ def kernel_phase():
         p_ms = device_ms(lambda: lmme_ref(a.log_abs, a.sign, b.log_abs, b.sign), iters)
         k_call = host_ms(lambda: lmme_cuda(a, b), iters)
         bound, bound_by = lmme_bound(sa, sb)
+        prev = PREV_MS[name]
         rows.append(dict(shape=name, ms=k_ms, plain_ms=p_ms, call_ms=k_call,
-                         bound_ms=bound, bound_by=bound_by, max_abs_err=err))
-        print(f"lmme {name}: kernel {k_ms:.4f} ms (per call incl. host "
-              f"{k_call:.4f} ms), plain {p_ms:.4f} ms, bound {bound:.6f} ms "
-              f"({bound_by}), max normalised error {err:.2e}", flush=True)
+                         bound_ms=bound, bound_by=bound_by, max_abs_err=err,
+                         prev_ms=prev))
+        print(f"lmme {name}: kernel {k_ms:.4f} ms (previous design {prev:.4f} ms; "
+              f"per call incl. host {k_call:.4f} ms), plain {p_ms:.4f} ms, bound "
+              f"{bound:.6f} ms ({bound_by}), max normalised error {err:.2e}",
+              flush=True)
 
     # backward: autograd of the plain version, reached through the kernel
     a, b = lmme_operands((48, 16, 16), (8, 48, 16, 1), gen)
@@ -390,9 +451,10 @@ def scan_bound(t, g, d, m, *, has_b, a_fixed):
 
 
 def scan_kernel_phase():
-    """The matrix-scan kernel (both forms) against its plain version.  The
-    kernel walks time in order and the plain version brackets as a tree, so
-    besides the f32 comparison each is held to the float64 plain version:
+    """The matrix-scan kernels (with B and zero-B) against their plain
+    versions.  The kernels walk time in order (the zero-B one chunk by chunk)
+    and the plain version brackets as a tree, so besides the f32 comparison
+    each is held to the float64 plain version:
     the kernel's distance to it must be at most twice the f32 plain
     version's (floor 1e-6)."""
     import math
@@ -468,12 +530,18 @@ def scan_kernel_phase():
               f"Frobenius norm {fro_k} vs float64 {fro_x}")
         err = goom_dist(got, plain, scale)
         errs["matrix_scan_zero_b"] = max(errs["matrix_scan_zero_b"], err)
-        k_ms, k_how = kernel_ms(lambda: matrix_scan_cuda(a, None, x0), iters, "matrix_scan")
+        k0 = getattr(matrix_scan_cuda, "kernels_zero_b", None)
+        matrix_scan_cuda(a, None, x0)
+        per_call = 1 if k0 is None else matrix_scan_cuda.kernels_zero_b - k0
+        k_ms, k_how = call_ms(lambda: matrix_scan_cuda(a, None, x0), iters,
+                              "matrix_scan", per_call)
         p_ms = device_ms(lambda: matrix_scan_zero_b_ref(a, x0), iters)
         bound, bound_by = scan_bound(t, 1, d, d, has_b=False, a_fixed=False)
         rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
-                          max_abs_err=err)
-        print(f"matrix_scan {name}: kernel {k_ms:.4f} ms ({k_how}), plain "
+                          max_abs_err=err, kernels_per_call=per_call, dist=d_k,
+                          plain_dist=d_p, prev_ms=PREV_MS[name])
+        print(f"matrix_scan {name}: kernel {k_ms:.4f} ms ({k_how}; previous "
+              f"design {PREV_MS[name]:.4f} ms), plain "
               f"{p_ms:.4f} ms, "
               f"bound {bound:.6f} ms ({bound_by}); error vs plain {err:.2e}; "
               f"distance to float64: kernel {d_k:.2e}, plain {d_p:.2e}; final "
@@ -731,8 +799,10 @@ def reset_counts():
 
     engine.reset_calls()
     lmme_cuda.launches = 0
+    lmme_cuda.launches_batched = 0
     matrix_scan_cuda.launches = 0
     matrix_scan_cuda.launches_zero_b = 0
+    matrix_scan_cuda.kernels_zero_b = 0
     diagonal_scan_cuda.launches = 0
 
 
@@ -1055,7 +1125,13 @@ def experiments_phase():
               flush=True)
     launches, calls = read_counts()
     check_launches(launches, calls, "experiments", {"lmme", "matrix_scan_zero_b"})
-    print(f"experiments: launches {launches} == engine calls {calls}", flush=True)
+    from repro_torch.kernels.goom_scan import matrix_scan_cuda
+    from repro_torch.kernels.lmme import lmme_cuda
+
+    print(f"experiments: launches {launches} == engine calls {calls}; "
+          f"{matrix_scan_cuda.kernels_zero_b} zero-B kernels over "
+          f"{launches['matrix_scan_zero_b']} calls; LMME launches in the batched "
+          f"shape {lmme_cuda.launches_batched}", flush=True)
     return launches
 
 
@@ -1144,6 +1220,9 @@ def main() -> int:
 
     rows, max_err = kernel_phase()
     scan_rows, scan_errs = scan_kernel_phase()
+    if "--kernels" in sys.argv[1:]:  # the kernel phases alone
+        print(card)
+        return 0
     diag_rows, diag_err = diag_kernel_phase()
     elapsed("kernels")
     cfg = get_config("goom-rnn-124m")
@@ -1190,7 +1269,7 @@ def main() -> int:
          "src/repro/kernels/goom_scan/matrix_scan.py:75",
          stats_g["launches"]["matrix_scan"], scan_errs["matrix_scan"], scan_row,
          "decode (G=48,T=1,d=16,m=4)", "serve generic"),
-        ("matrix_scan_zero_b", f"{src}/goom_scan/csrc/matrix_scan.cu",
+        ("matrix_scan_zero_b", f"{src}/goom_scan/csrc/matrix_scan_zero_b.cu",
          "src/repro/kernels/goom_scan/matrix_scan.py:124",
          exp_launches["matrix_scan_zero_b"], scan_errs["matrix_scan_zero_b"], zb_row,
          "zero-B d=128 chain (2001,128,128)", "experiments"),
@@ -1205,6 +1284,8 @@ def main() -> int:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None, "shape": shape,
         "main_path": path, "launches_by_path": by_path[name],
+        "prev_ms": row.get("prev_ms"),
+        "kernels_per_call": row.get("kernels_per_call", 1),
     } for name, source, replaces, launches, err, row, shape, path in entries]}))
     print(f"jamba: decode step device busy {trace_j['busy_ms']:.3f} ms, of which the "
           f"diagonal scan {trace_j['diag_scan']:.3f} ms; {card}", flush=True)

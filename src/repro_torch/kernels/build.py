@@ -30,6 +30,7 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]          # src/repro_torch
 KERNEL_SOURCES: Dict[str, str] = {
     "lmme": "kernels/lmme/csrc/lmme.cu",
     "matrix_scan": "kernels/goom_scan/csrc/matrix_scan.cu",
+    "matrix_scan_zero_b": "kernels/goom_scan/csrc/matrix_scan_zero_b.cu",
     "diag_scan": "kernels/goom_scan/csrc/diag_scan.cu",
 }
 

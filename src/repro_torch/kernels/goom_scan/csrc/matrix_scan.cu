@@ -2,13 +2,13 @@
 //
 //     X_t = A_t X_{t-1} (+) B_t        (paper eq. 26, split log/sign form)
 //
-// and, with no B operand, the prefix products X_t = (A_t ... A_1) X_0.
-//
-// Replaces the TPU kernels repro/kernels/goom_scan/matrix_scan.py::
-// _matrix_scan_kernel (entry matrix_scan_kernel_call) and
-// _matrix_scan_kernel_zero_b (entry matrix_scan_kernel_call_zero_b), and the
-// functions of their Pallas-GPU siblings in matrix_scan_gpu.py.  One template,
-// switched on kHasB at compile time, gives both C entry points.
+// Replaces the TPU kernel repro/kernels/goom_scan/matrix_scan.py::
+// _matrix_scan_kernel (entry matrix_scan_kernel_call) and the functions of its
+// Pallas-GPU siblings in matrix_scan_gpu.py.  The form with no B operand
+// (X_t = (A_t ... A_1) X_0) has a three-pass kernel of its own,
+// matrix_scan_zero_b.cu; the template's kHasB=false branch is this walk's
+// zero-B form, kept for when the with-B walk is redesigned the same way, and
+// no entry point instantiates it.
 //
 // Design.  One block owns one recurrence g and one tile of tm state columns;
 // the columns of X are independent under the recurrence, so tiles never talk.
@@ -247,14 +247,4 @@ extern "C" int repro_matrix_scan_forward(
     const int64_t* x_strides, void* stream) {
   return launch<true>(a_log, a_sign, b_log, b_sign, x_log, x_sign, out_log, out_sign,
                       T, G, d, m, a_strides, b_strides, x_strides, stream);
-}
-
-// the same with B = 0: X_t = (A_t ... A_1) X_0; x0 is required
-extern "C" int repro_matrix_scan_zero_b_forward(
-    const float* a_log, const float* a_sign, const float* x_log, const float* x_sign,
-    float* out_log, float* out_sign, int T, int G, int d, int m,
-    const int64_t* a_strides, const int64_t* x_strides, void* stream) {
-  if (x_log == nullptr) return (int)cudaErrorInvalidValue;
-  return launch<false>(a_log, a_sign, nullptr, nullptr, x_log, x_sign, out_log, out_sign,
-                       T, G, d, m, a_strides, nullptr, x_strides, stream);
 }

@@ -1,5 +1,6 @@
-"""Wrappers of the CUDA scan kernels: the matrix scan (``csrc/matrix_scan.cu``)
-and the diagonal scan (``csrc/diag_scan.cu``).
+"""Wrappers of the CUDA scan kernels: the matrix scan (``csrc/matrix_scan.cu``
+with B, ``csrc/matrix_scan_zero_b.cu`` without) and the diagonal scan
+(``csrc/diag_scan.cu``).
 
 **Matrix scan.**
 
@@ -7,7 +8,11 @@ and the diagonal scan (``csrc/diag_scan.cu``).
 transitions, b (T, ..., d, m) biases, x0 (..., d, m) entering state or None
 (exact zeros); batch dims broadcast.  ``b=None`` is the zero-B form
 X_t = (A_t ··· A_1) X_0, which needs ``x0`` (it fixes m).  Returns all
-states, (T, ..., d, m).
+states, (T, ..., d, m).  With B it is one kernel walking time in order; the
+zero-B form is three passes (part, stitch, fix-up; with a scale kernel
+between the first two and, above d = 16, an exp pre-pass) over chunks of
+``zero_b_chunk_len(T, d)`` steps, with scratch the wrapper allocates: the
+chunks' products and entering states with f64 logs, and A's exps.
 
 On CUDA f32 planes it launches the kernel on the current stream.  Operands
 go in by strides: time and the collapsed batch dims each as one stride, so a
@@ -42,9 +47,9 @@ import torch
 from ...core.goom import Goom
 from .ref import goom_diag_scan_ref, matrix_scan_ref, matrix_scan_zero_b_ref
 
-__all__ = ["MAX_D", "diagonal_scan_cuda", "matrix_scan_cuda"]
+__all__ = ["MAX_D", "diagonal_scan_cuda", "matrix_scan_cuda", "zero_b_chunk_len"]
 
-MAX_D = 128  # kMaxD in csrc/matrix_scan.cu
+MAX_D = 128  # kMaxD in csrc/matrix_scan.cu and csrc/matrix_scan_zero_b.cu
 _I64 = ctypes.c_int64
 _FNS = {}
 
@@ -54,17 +59,42 @@ def _kernel_fn(has_b: bool):
     if fn is None:
         from ..build import load
 
-        lib = load("matrix_scan")
         ptr, i32, p64 = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_I64)
         if has_b:
-            fn = lib.repro_matrix_scan_forward
+            fn = load("matrix_scan").repro_matrix_scan_forward
             fn.argtypes = [ptr] * 8 + [i32] * 4 + [p64] * 3 + [ptr]
         else:
-            fn = lib.repro_matrix_scan_zero_b_forward
-            fn.argtypes = [ptr] * 6 + [i32] * 4 + [p64] * 2 + [ptr]
+            fn = load("matrix_scan_zero_b").repro_matrix_scan_zero_b_forward
+            fn.argtypes = [ptr] * 13 + [i32] * 5 + [p64] * 2 + [ptr]
         fn.restype = ctypes.c_int
         _FNS[has_b] = fn
     return fn
+
+
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def zero_b_chunk_len(t: int, d: int) -> int:
+    """L, the time chunk of the zero-B kernel's three passes: the least power
+    of two with 2 L^2 >= T and with the part pass's blocks, one per chunk
+    and column tile of d (ceil(d / 32) tiles above d = 16), fitting one wave
+    of one block per SM.  The part pass walks L - 1 dependent steps, the
+    stitch ceil(T / L) - 1 and the fix-up L: 2 L + T / L is least at
+    L = sqrt(T / 2), unless the chunks' blocks would queue behind each other
+    (d = 128 at T = 2001: 64, not 32).  A function of (T, d) alone, never of
+    G, m or the call."""
+    tiles = 1 if d <= 16 else -(-d // 32)
+    ell = 1
+    while 2 * ell * ell < t or ell * _SMS < t * tiles:
+        ell *= 2
+    return ell
+
+
+def zero_b_kernels(t: int, d: int) -> int:
+    """Kernels one zero-B call launches: part, scale, stitch and fix-up, or
+    only stitch and fix-up when T fits one chunk; and above d = 16 the exp
+    pre-pass first."""
+    return (4 if t > zero_b_chunk_len(t, d) else 2) + (d > 16)
 
 
 def _collapsed_stride(shape, strides) -> Optional[int]:
@@ -142,16 +172,32 @@ def _launch(al, asn, bl, bsn, xl, xs):
             out_log.data_ptr(), out_sign.data_ptr(), t, g, d, m,
             a_st, b_st, x_st, stream)
     else:
+        # scratch of the three passes: each chunk's product but the last's,
+        # and the state entering each chunk, both with f64 logs
+        ell = zero_b_chunk_len(t, d)
+        k = -(-t // ell)
+        p_log = torch.empty((k - 1, g, d, d), dtype=torch.float64, device=dev)
+        p_sign = torch.empty((k - 1, g, d, d), dtype=torch.float32, device=dev)
+        p_rmax = torch.empty((k - 1, g, d), dtype=torch.float64, device=dev)
+        in_log = torch.empty((k, g, d, m), dtype=torch.float64, device=dev)
+        in_sign = torch.empty((k, g, d, m), dtype=torch.float32, device=dev)
+        # above d = 16, A's exps (rows padded to a multiple of 4) and row
+        # maxima, taken once per step (once for a time-invariant A)
+        ta = 0 if d <= 16 else 1 if a_st[0] == 0 else t
+        a_exp = torch.empty((ta, g, d, -(-d // 4) * 4), dtype=torch.float32, device=dev)
+        a_rmax = torch.empty((ta, g, d), dtype=torch.float32, device=dev)
         rc = _kernel_fn(False)(
             _ptr(al), _ptr(asn), _ptr(xl), _ptr(xs),
-            out_log.data_ptr(), out_sign.data_ptr(), t, g, d, m,
-            a_st, x_st, stream)
+            out_log.data_ptr(), out_sign.data_ptr(), p_log.data_ptr(),
+            p_sign.data_ptr(), p_rmax.data_ptr(), in_log.data_ptr(), in_sign.data_ptr(),
+            a_exp.data_ptr(), a_rmax.data_ptr(), t, g, d, m, ell, a_st, x_st, stream)
     if rc != 0:
         raise RuntimeError(f"matrix-scan kernel launch failed: cudaError_t {rc}")
     if has_b:
         matrix_scan_cuda.launches += 1
     else:
         matrix_scan_cuda.launches_zero_b += 1
+        matrix_scan_cuda.kernels_zero_b += zero_b_kernels(t, d)
     return out_log, out_sign
 
 
@@ -200,9 +246,12 @@ def matrix_scan_cuda(a: Goom, b: Optional[Goom], x0: Optional[Goom] = None) -> G
     return Goom(*_MatrixScanFn.apply(*planes))
 
 
-#: launches since the last reset (set to 0 to reset): with B, and zero-B
+#: calls that launched since the last reset (set to 0 to reset): with B,
+#: and zero-B; a zero-B call launches ``zero_b_kernels(T, d)`` kernels,
+#: counted in ``kernels_zero_b``
 matrix_scan_cuda.launches = 0
 matrix_scan_cuda.launches_zero_b = 0
+matrix_scan_cuda.kernels_zero_b = 0
 #: operands copied because their batch dims did not collapse into one stride
 matrix_scan_cuda.copies = 0
 

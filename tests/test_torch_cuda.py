@@ -41,7 +41,18 @@ SHAPES = {
     "bcast_both": ((2, 1, 6, 5), (4, 5, 3)),
     "ragged": ((130, 70), (70, 50)),
     "d256": ((4, 8, 256), (4, 256, 16)),
+    "admit_fold": ((48, 16, 16), (1, 48, 16, 1)),
+    "square_d8": ((8, 8), (8, 8)),
+    "square_d32": ((32, 32), (32, 32)),
+    "square_d128": ((128, 128), (128, 128)),
+    "spectrum_reset": ((128, 3, 3), (128, 3, 3)),
+    "ragged_ndm": ((3, 37, 70), (70, 19)),
+    "long_d300": ((2, 5, 300), (300, 3)),
 }
+# the launch shape each takes (csrc/lmme.cu): batched where A is broadcast
+# over rows of B or the product is small, tiled for the rest
+BATCHED = {"decode", "prefill_chunk", "a_doubling", "bcast_both", "admit_fold",
+           "square_d8", "spectrum_reset"}
 
 
 @pytest.fixture(scope="module")
@@ -79,11 +90,56 @@ def _check(got, a, b, ga, gb):
 @pytest.mark.parametrize("shape_key", sorted(SHAPES))
 def test_kernel_matches_plain_version_e200(card, shape_key):
     a, b, (ga, gb) = _operands(shape_key, 0, card)
-    before = lmme_cuda.launches
+    before = (lmme_cuda.launches, lmme_cuda.launches_batched)
     got = lmme_cuda(ga, gb)
     torch.cuda.synchronize()
-    assert lmme_cuda.launches == before + 1
+    assert (lmme_cuda.launches, lmme_cuda.launches_batched) == \
+        (before[0] + 1, before[1] + (shape_key in BATCHED))
     _check(got, a, b, ga, gb)
+
+
+def _bits(g: Goom):
+    return g.log_abs.view(torch.int32), g.sign.view(torch.int32)
+
+
+def _same_bits(x: Goom, y: Goom):
+    for u, v in zip(_bits(x), _bits(y)):
+        assert torch.equal(u, v)
+
+
+def test_an_output_does_not_depend_on_the_call(card):
+    """One output's bits depend only on its row of A, its column of B and d:
+    the same rows and columns inside calls of other batch sizes, n and m,
+    and of the other launch shape, give bit-equal outputs."""
+    rng = np.random.default_rng(7)
+
+    def planes(shape):
+        return Goom(*(torch.tensor(x, device=card) for x in goom_planes(rng, shape, spread=50.0)))
+
+    # the serving matvec: decode (N=4), a 64-row chunk holding the same 4
+    # rows, and the tiled shape (m=17 > 256/n) holding row 0 as column 0
+    a = planes((48, 16, 16))
+    b = planes((64, 1, 48, 16, 1))
+    dec = lmme_cuda(a, b[:4, 0])
+    chunk = lmme_cuda(a, b)
+    assert lmme_cuda(a, b[:4, 0]).log_abs.shape == (4, 48, 16, 1)
+    _same_bits(dec, chunk[:4, 0])
+    wide = planes((48, 16, 17))
+    wide = Goom(torch.cat([b.log_abs[0, 0], wide.log_abs[..., 1:]], -1),
+                torch.cat([b.sign[0, 0], wide.sign[..., 1:]], -1))
+    before = lmme_cuda.launches_batched
+    tiled = lmme_cuda(a, wide)
+    assert lmme_cuda.launches_batched == before   # the tiled shape
+    _same_bits(chunk[0, 0], tiled[..., :1])
+    # long contractions (two and five 64-term chains): one row and column
+    # alone, inside a square product, and inside a batch
+    for d in (128, 300):
+        a, b = planes((40, d)), planes((d, 33))
+        full = lmme_cuda(a, b)
+        one = lmme_cuda(a[5:6], b[:, 7:8])
+        _same_bits(one, full[5:6, 7:8])
+        batch = lmme_cuda(Goom(a.log_abs.expand(3, 40, d), a.sign.expand(3, 40, d)), b[:, 30:])
+        _same_bits(batch[2], full[:, 30:])
 
 
 def test_kernel_takes_strided_operands(card):
@@ -232,10 +288,13 @@ def test_zero_b_kernel_matches_plain_version(card, name):
     gen = torch.Generator().manual_seed(1)
     a = _goom(torch.randn(tlen, d, d, generator=gen).to(card))
     engine.reset_calls()
-    before = matrix_scan_cuda.launches_zero_b
+    before = (matrix_scan_cuda.launches_zero_b, matrix_scan_cuda.kernels_zero_b)
     got = engine.cumulative_lmme(a)
     torch.cuda.synchronize()
-    assert matrix_scan_cuda.launches_zero_b == before + 1 == before + engine.calls["cumulative_lmme"]
+    assert matrix_scan_cuda.launches_zero_b == before[0] + 1 == \
+        before[0] + engine.calls["cumulative_lmme"]
+    # (exp above d = 16,) part, scale, stitch, fix-up
+    assert matrix_scan_cuda.kernels_zero_b == before[1] + 4 + (d > 16)
     with engine.use_backend("torch_reference"):
         plain = engine.cumulative_lmme(a)
         exact = engine.cumulative_lmme(_f64(a))
@@ -244,6 +303,105 @@ def test_zero_b_kernel_matches_plain_version(card, name):
     assert_no_worse_than_plain(got, plain, exact, scale)
     fro = [float(goom_log_norm(g[-1])) for g in (got, exact)]
     assert abs(fro[0] - fro[1]) <= 1e-5 * abs(fro[1])
+
+
+# name: (T, A batch, x0 batch, d, m, kind).  L = zero_b_chunk_len(T, d) is
+# the least power of two with 2 L^2 >= T (and more at d = 128), so T < L
+# never occurs and only T = 1 is one whole chunk: T = 2 is two chunks of one
+# step, T = 37 (L = 8) ends in a ragged chunk, T = 64 is a multiple of L.  ``fixed``: a time-invariant A as a stride-0 view; x0 of
+# batch (3,) broadcasts over A's (2, 3).  ``e200``: every step shifted by
+# e^±200, a tenth of A's entries exact zeros; x0's column 0 is exact zeros
+ZERO_B_EDGES = {
+    "t1": (1, (), (), 16, 16, "normal"),
+    "two_steps": (2, (), (), 16, 4, "normal"),
+    "ragged_chunks_d3": (37, (), (), 3, 3, "e200"),
+    "multiple_of_l": (64, (), (), 16, 16, "e200"),
+    "stride0_a": (300, (3,), (3,), 5, 2, "fixed"),
+    "g_bcast_x0": (50, (2, 3), (3,), 8, 3, "normal"),
+    "d37_m19": (33, (), (), 37, 19, "e200"),
+    "d128_m5": (20, (), (), 128, 5, "e200"),
+    "e200_long": (1000, (), (), 16, 16, "e200"),
+}
+
+
+def zero_b_operands(name, dev, seed=0):
+    tlen, batch, xbatch, d, m, kind = ZERO_B_EDGES[name]
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "fixed":
+        a = _goom(torch.randn(*batch, d, d, generator=gen))
+        a = Goom(a.log_abs.to(dev).expand((tlen,) + a.shape),
+                 a.sign.to(dev).expand((tlen,) + a.shape))
+    else:
+        a = _goom(torch.randn(tlen, *batch, d, d, generator=gen))
+        if kind == "e200":
+            shift = 200.0 * torch.where(torch.rand(tlen, 1, 1, generator=gen) < 0.5, -1.0, 1.0)
+            zero = torch.rand(a.shape, generator=gen) < 0.1
+            a = Goom((a.log_abs + shift).masked_fill(zero, -torch.inf),
+                     a.sign.masked_fill(zero, 1.0))
+        a = Goom(a.log_abs.to(dev), a.sign.to(dev))
+    x0 = _goom(torch.randn(*xbatch, d, m, generator=gen))
+    x0.log_abs[..., 0], x0.sign[..., 0] = -torch.inf, 1.0
+    return a, Goom(x0.log_abs.to(dev), x0.sign.to(dev))
+
+
+@pytest.mark.parametrize("name", sorted(ZERO_B_EDGES))
+def test_zero_b_kernel_edge_shapes(card, name):
+    """The three passes at T = 1 and 2, ragged chunks, a stride-0 A,
+    a broadcast x0 and e±200 signed inputs with exact zeros: held to float64
+    (at most twice the f32 plain version's distance) and to the plain
+    version; exact zeros stay (-inf, +1)."""
+    from repro_torch.kernels.goom_scan.ops import zero_b_chunk_len, zero_b_kernels
+
+    a, x0 = zero_b_operands(name, card)
+    tlen, d = a.shape[0], a.shape[-1]
+    before = (matrix_scan_cuda.launches_zero_b, matrix_scan_cuda.kernels_zero_b,
+              matrix_scan_cuda.copies)
+    got = matrix_scan_cuda(a, None, x0)
+    torch.cuda.synchronize()
+    # (exp above d = 16,) part, scale, stitch, fix-up; one chunk (T = 1)
+    # needs only stitch and fix-up.  x0 broadcast over a leading batch dim has no one
+    # batch stride: copied
+    kernels = (4 if tlen > zero_b_chunk_len(tlen, d) else 2) + (d > 16)
+    assert zero_b_kernels(tlen, d) == kernels
+    copies = 1 if name == "g_bcast_x0" else 0
+    assert (matrix_scan_cuda.launches_zero_b, matrix_scan_cuda.kernels_zero_b,
+            matrix_scan_cuda.copies) == (before[0] + 1, before[1] + kernels,
+                                         before[2] + copies)
+    plain = matrix_scan_zero_b_ref(a, x0)
+    assert got.shape == plain.shape and not torch.isnan(got.log_abs).any()
+    exact = matrix_scan_zero_b_ref(_f64(a), _f64(x0))
+    scale = matrix_scan_zero_b_ref(_abs(_f64(a)), _abs(_f64(x0))).log_abs
+    assert_no_worse_than_plain(got, plain, exact, scale)
+    assert_goom_close(got.log_abs, got.sign, plain.log_abs, plain.sign,
+                      scale_log=scale.float(), cancel_margin=8.0)
+    assert bool((got.log_abs[..., 0] == -torch.inf).all())
+    assert bool((got.sign[..., 0] == 1.0).all())
+
+
+def test_goom_rnn_chunked_prefill_equals_full_on_the_card(card):
+    """goom-rnn (smoke widths, f32 compute) through the LMME and matrix-scan
+    kernels, in both scan variants: chunked prefill gives full prefill's
+    last logits (1e-4 of their std, as on the CPU)."""
+    import dataclasses
+
+    from repro_torch import DecoderLM, get_config
+    from repro_torch.serve import ChunkedPrefill
+    from torch_parity import with_scan_variant
+
+    seq = np.random.default_rng(0).integers(0, 100, size=75).tolist()
+    for variant in ("shared_a", "generic"):
+        cfg = dataclasses.replace(
+            with_scan_variant(get_config("goom-rnn-124m", smoke=True), variant),
+            compute_dtype=torch.float32)
+        model = DecoderLM(cfg, device=card, generator=torch.Generator(device=card).manual_seed(0))
+        before = lmme_cuda.launches
+        with torch.no_grad():
+            full, _ = model.prefill(torch.tensor([seq], device=card), model.init_caches(1))
+            for chunk in (7, 64):
+                got, _ = ChunkedPrefill(model, chunk)(seq, model.init_caches(1))
+                torch.testing.assert_close(got, full[:, -1], rtol=0,
+                                           atol=1e-4 * float(full.std()))
+        assert lmme_cuda.launches > before
 
 
 def test_matrix_scan_kernel_starts_from_zeros_and_from_the_floor(card):

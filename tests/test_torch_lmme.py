@@ -181,3 +181,79 @@ def test_cuda_planes_of_other_dtypes_raise_before_any_launch(monkeypatch):
     monkeypatch.setattr(Goom, "dtype", property(lambda self: torch.bfloat16))
     with pytest.raises(TypeError, match="float32"):
         engine.lmme(g, g)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's launch shapes and K order, without a card
+# ---------------------------------------------------------------------------
+# (a shape, b shape, batched?): chip_smoke.py's kernel-phase shapes
+LAUNCH_SHAPES = [
+    ((48, 16, 16), (4, 48, 16, 1), True),       # decode
+    ((48, 16, 16), (1, 48, 16, 1), True),       # admit fold
+    ((48, 16, 16), (64, 1, 48, 16, 1), True),   # 64-token chunk
+    ((48, 16, 16), (48, 16, 16), True),         # A doubling
+    ((128, 3, 3), (128, 3, 3), True),           # spectrum reset
+    ((8, 8), (8, 8), True),                     # chain d=8
+    ((2, 1, 6, 5), (4, 5, 3), True),            # broadcast on both sides
+    ((32, 32), (32, 32), False),                # chain d=32: 1024 outputs
+    ((128, 128), (128, 128), False),            # chain d=128
+    ((130, 70), (70, 50), False),
+    ((4, 8, 256), (4, 256, 16), False),
+]
+
+
+@pytest.mark.parametrize("sa,sb,batched", LAUNCH_SHAPES)
+def test_launch_shape_is_picked_from_the_shape(sa, sb, batched):
+    """``batched_plan`` picks the batched launch for the serving path's
+    broadcast matvecs and small products, the tiled one for the rest; the
+    batched plan walks A's batch with one stride and B's rows with another."""
+    from repro_torch.kernels.lmme.ops import batched_plan
+
+    a, b = torch.empty(sa), torch.empty(sb)
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    nb = len(batch)
+    ae, be = a.expand(batch + a.shape[-2:]), b.expand(batch + b.shape[-2:])
+    plan = batched_plan(batch, ae.stride()[:nb], be.stride()[:nb], sa[-2], sa[-1], sb[-1])
+    assert (plan is not None) == batched
+    if plan is not None:
+        (nv, *_), (nq, a_q, _, _), qb = plan
+        assert nv * nq == int(np.prod(batch)) and a_q == 0
+        assert 1 <= qb <= nq and qb * sa[-2] * sb[-1] <= 256
+
+
+def _kernel_k_order(a_log, a_sign, b_log, b_sign, seg=64):
+    """The kernel's arithmetic in numpy: exact maxima, f32 exps, chains of
+    ``seg`` terms summed in k order, the chains folded left to right."""
+    with np.errstate(divide="ignore"):
+        mr = a_log.max(-1, keepdims=True)
+        mc = b_log.max(-2, keepdims=True)
+        mr, mc = np.where(np.isfinite(mr), mr, 0), np.where(np.isfinite(mc), mc, 0)
+        ea = (a_sign * np.exp(a_log - mr)).astype(np.float32)
+        eb = (b_sign * np.exp(b_log - mc)).astype(np.float32)
+        total = None
+        for k0 in range(0, a_log.shape[-1], seg):
+            acc = np.zeros(ea.shape[:-1] + eb.shape[-1:], np.float32)
+            for k in range(k0, min(k0 + seg, a_log.shape[-1])):
+                acc = (acc + ea[..., k:k + 1] * eb[..., k:k + 1, :]).astype(np.float32)
+            total = acc if total is None else (total + acc).astype(np.float32)
+        out = (np.log(np.abs(total)) + mr + mc).astype(np.float32)
+    return out, np.where(total >= 0, 1.0, -1.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [16, 70, 256, 300])
+def test_kernel_k_order_holds_the_plain_versions_tolerance(d):
+    """The segmented K order (chains of 64, folded in order) on e±200 inputs
+    with zero rows and columns agrees with the plain version and with JAX's
+    reference at ``assert_goom_close``'s tolerances."""
+    rng = np.random.default_rng(d)
+    a = goom_planes(rng, (3, 9, d), spread=200.0, zero_rows=True)
+    b = goom_planes(rng, (3, d, 5), spread=200.0, along="col")
+    b[0][..., :, 0], b[1][..., :, 0] = -np.inf, 1.0
+    got = _kernel_k_order(*a, *b)
+    want = lmme_reference(Goom(t(a[0]), t(a[1])), Goom(t(b[0]), t(b[1])))
+    jwant = j_reference(JGoom(jnp.asarray(a[0]), jnp.asarray(a[1])),
+                        JGoom(jnp.asarray(b[0]), jnp.asarray(b[1])))
+    scale = lmme_abs_scale(a[0], b[0])
+    for w in ((want.log_abs, want.sign), (jwant.log_abs, jwant.sign)):
+        assert_goom_close(*got, *w, scale_log=scale)
+    assert np.all(got[0][:, 0] == -np.inf) and np.all(got[0][..., 0] == -np.inf)
