@@ -9,19 +9,18 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
   1. build    — compile every CUDA kernel source with nvcc (sm_90a), in
                 parallel;
   2. kernels  — hold each kernel against its plain PyTorch version on the
-                card, and time both, beside the previous design's time
-                (``PREV_MS``): the LMME kernel on e±200 inputs with
+                card, and time both: the LMME kernel on e±200 inputs with
                 exact-zero rows and columns, at the serving path's shapes,
                 the chains' square d = 8, 32, 128 and the spectrum's reset
                 products; the matrix scan with B at the generic layer's
                 shapes, on e±200 and odd signed shapes, and its zero-B form
-                from X_0 = I (three passes, four kernels a call, timed as
-                their sum) on the chains' and the LLE's lengths, each also
-                against float64; the
-                diagonal-scan kernel at Mamba's decode, prefill-chunk and
-                tail shapes, on e±200 signed inputs with exact zeros and
-                cancellations, T=1, odd C and the autotune shape (4096, 512),
-                each also against float64, with its backward;
+                from X_0 = I (three passes, 4–5 kernels a call, timed as
+                their sum and by CUDA events) on the chains' and the LLE's
+                lengths, each also against float64; the diagonal-scan
+                kernel at Mamba's decode, prefill-chunk and tail shapes, on
+                e±200 signed inputs with exact zeros and cancellations, T=1,
+                odd C and the autotune shape (4096, 512), each also against
+                float64, with its backward;
   3. serve    — serve goom-rnn-124m at full width (24 layers, d=768, vocab
                 50257, seeded random weights, bf16 compute) through
                 ``Engine(max_slots=4, page_len=512, chunk=64)``: 6 requests,
@@ -52,7 +51,9 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 steady decode steps; then the parity check of phase 4 at f32
                 compute on the same weights.
 
-``--kernels`` runs phases 1 and 2 without the diagonal scan and stops.
+``--kernels`` runs phases 1 and 2 without the diagonal scan and stops: the
+loop for kernel work (``tools/kernels_ab.sh`` runs it on two checkouts in
+turns).
 
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit (from nvidia-smi), and ``{"ok": true, "device": {...}}``.
@@ -164,42 +165,30 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, iters: int, kernel: str):
-    """(ms, how) per call of ``fn``, which launches the one kernel whose
-    name holds ``kernel``: the mean device duration of its launches in a
-    profiler trace.  The profiler has been seen to drop launch records on an
-    H100 (it kept 46 of 50 short ones, and none of 3 that ran 70 ms), so the
-    mean is over the launches it kept, and CUDA events time the call when it
-    kept none."""
+def call_ms(fn, iters: int, kernel: str):
+    """(ms, kernels, how) per call of ``fn``: the sum, over the kernels of
+    distinct names holding ``kernel`` in a profiler trace of ``iters`` calls,
+    of each one's mean device duration, and the number of such kernels.  The
+    profiler has been seen to drop launch records on an H100 (it kept 46 of
+    50 short ones, and none of 3 that ran 70 ms), so each mean is over the
+    launches it kept; the gaps between a call's kernels are left out
+    (``event_ms`` counts them).  CUDA events time the call when the profiler
+    kept no record at all, and the kernel count is then not measured."""
     from torch.autograd import DeviceType
 
-    events = [e for e in _profile(fn, iters).events()
-              if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if events:
-        ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / len(events)
-        return ms, f"profiler, {len(events)} of {iters} launches"
-    return event_ms(fn, iters), f"events; the profiler kept none of {iters} launches"
-
-
-def call_ms(fn, iters: int, kernel: str, per_call: int):
-    """(ms, how) per call of ``fn``, which launches ``per_call`` kernels of
-    distinct names holding ``kernel``: the sum over them of each one's mean
-    device duration in a profiler trace (which drops some launch records,
-    long ones most), or CUDA events around the calls when it kept no record
-    of one of them.  Gaps between the kernels are left out."""
-    from torch.autograd import DeviceType
-
-    events = [e for e in _profile(fn, iters).events()
-              if e.device_type == DeviceType.CUDA and kernel in e.name]
     parts = {}
-    for e in events:
-        parts.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    for e in _profile(fn, iters).events():
+        if e.device_type == DeviceType.CUDA and kernel in e.name:
+            parts.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    if not parts:
+        return event_ms(fn, iters), None, f"events; the profiler kept none of {iters} calls"
     means = {k: sum(v) / len(v) for k, v in parts.items()}
+    kept = sum(len(v) for v in parts.values())
     split = ", ".join(f"{_short(k)} {v:.4f}" for k, v in means.items())
-    kept = f"the profiler kept {len(events)} of {iters * per_call} launches"
-    if len(means) == per_call:  # every kernel of a call seen at least once
-        return sum(means.values()), f"sum of {per_call} kernels' mean ({kept}): {split}"
-    return event_ms(fn, iters), f"events; {kept}: {split}"
+    how = f"profiler, {kept} launches over {iters} calls"
+    if len(means) > 1:
+        how = f"sum of {len(means)} kernels' mean ({how}): {split}"
+    return sum(means.values()), len(means), how
 
 
 def _short(name: str) -> str:
@@ -271,27 +260,6 @@ def lmme_bound(a_shape, b_shape):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-# The previous design's device ms at each kernel-phase shape (LMME: one
-# thread per output, exps recomputed per output; zero-B: one block per column
-# tile walking time in order), measured by ``--kernels`` on an NVIDIA H100
-# 80GB HBM3 at 700.00 W before the redesign; printed beside the new times.
-PREV_MS = {
-    "decode (H,16,16)x(S*B=4,H,16,1)": 0.0059,
-    "admit fold (H,16,16)x(1,H,16,1)": 0.0059,
-    "prefill chunk 64 (H,16,16)x(64,1,H,16,1)": 0.0091,
-    "A doubling (H,16,16)x(H,16,16)": 0.0064,
-    "2-D (130,70)x(70,50)": 0.0213,
-    "d=256 (4,8,256)x(4,256,16)": 0.0738,
-    "chain square d=8 (8,8)x(8,8)": 0.0036,
-    "chain square d=32 (32,32)x(32,32)": 0.0104,
-    "chain square d=128 (128,128)x(128,128)": 0.0382,
-    "spectrum reset (128,3,3)x(128,3,3)": 0.0026,
-    "zero-B (1000,16,16)": 2.4830,
-    "zero-B d=128 chain (2001,128,128)": 71.0133,
-    "zero-B LLE (4097,3,3)": 10.4632,
-}
-
-
 def kernel_phase():
     import torch
 
@@ -326,15 +294,14 @@ def kernel_phase():
                   f"max normalised error {err:.3e}")
         max_err = max(max_err, err)
         iters = 200
-        k_ms = device_ms(lambda: lmme_cuda(a, b), iters)
+        k_ms, per_call, _ = call_ms(lambda: lmme_cuda(a, b), iters, "lmme")
         p_ms = device_ms(lambda: lmme_ref(a.log_abs, a.sign, b.log_abs, b.sign), iters)
         k_call = host_ms(lambda: lmme_cuda(a, b), iters)
         bound, bound_by = lmme_bound(sa, sb)
-        prev = PREV_MS[name]
         rows.append(dict(shape=name, ms=k_ms, plain_ms=p_ms, call_ms=k_call,
                          bound_ms=bound, bound_by=bound_by, max_abs_err=err,
-                         prev_ms=prev))
-        print(f"lmme {name}: kernel {k_ms:.4f} ms (previous design {prev:.4f} ms; "
+                         kernels_per_call=per_call))
+        print(f"lmme {name}: kernel {k_ms:.4f} ms ({per_call} kernel a call; "
               f"per call incl. host {k_call:.4f} ms), plain {p_ms:.4f} ms, bound "
               f"{bound:.6f} ms ({bound_by}), max normalised error {err:.2e}",
               flush=True)
@@ -499,7 +466,7 @@ def scan_kernel_phase():
         errs["matrix_scan"] = max(errs["matrix_scan"], err)
         g = math.prod(batch)
         iters = 50 if t <= 64 else 10
-        k_ms, k_how = kernel_ms(lambda: matrix_scan_cuda(a, b, x0), iters, "matrix_scan")
+        k_ms, _, k_how = call_ms(lambda: matrix_scan_cuda(a, b, x0), iters, "matrix_scan")
         p_ms = device_ms(lambda: matrix_scan_ref(a, b, x0), iters)
         bound, bound_by = scan_bound(t, g, d, m, has_b=True, a_fixed=kind == "shared_a")
         rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
@@ -530,19 +497,16 @@ def scan_kernel_phase():
               f"Frobenius norm {fro_k} vs float64 {fro_x}")
         err = goom_dist(got, plain, scale)
         errs["matrix_scan_zero_b"] = max(errs["matrix_scan_zero_b"], err)
-        k0 = getattr(matrix_scan_cuda, "kernels_zero_b", None)
-        matrix_scan_cuda(a, None, x0)
-        per_call = 1 if k0 is None else matrix_scan_cuda.kernels_zero_b - k0
-        k_ms, k_how = call_ms(lambda: matrix_scan_cuda(a, None, x0), iters,
-                              "matrix_scan", per_call)
+        k_ms, per_call, k_how = call_ms(lambda: matrix_scan_cuda(a, None, x0), iters,
+                                        "matrix_scan")
+        k_ev = event_ms(lambda: matrix_scan_cuda(a, None, x0), iters)
         p_ms = device_ms(lambda: matrix_scan_zero_b_ref(a, x0), iters)
         bound, bound_by = scan_bound(t, 1, d, d, has_b=False, a_fixed=False)
         rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
-                          max_abs_err=err, kernels_per_call=per_call, dist=d_k,
-                          plain_dist=d_p, prev_ms=PREV_MS[name])
-        print(f"matrix_scan {name}: kernel {k_ms:.4f} ms ({k_how}; previous "
-              f"design {PREV_MS[name]:.4f} ms), plain "
-              f"{p_ms:.4f} ms, "
+                          max_abs_err=err, kernels_per_call=per_call, event_ms=k_ev,
+                          dist=d_k, plain_dist=d_p)
+        print(f"matrix_scan {name}: kernel {k_ms:.4f} ms ({k_how}), by CUDA events "
+              f"{k_ev:.4f} ms a call; plain {p_ms:.4f} ms, "
               f"bound {bound:.6f} ms ({bound_by}); error vs plain {err:.2e}; "
               f"distance to float64: kernel {d_k:.2e}, plain {d_p:.2e}; final "
               f"log Frobenius norm {fro_k:.4f} (float64 {fro_x:.4f})", flush=True)
@@ -672,7 +636,7 @@ def diag_kernel_phase():
         max_err = max(max_err, err)
         c = math.prod(trail)
         iters = 50 if t <= 64 else 10
-        k_ms, k_how = kernel_ms(lambda: diagonal_scan_cuda(a, b, x0), iters, "diag_scan")
+        k_ms, _, k_how = call_ms(lambda: diagonal_scan_cuda(a, b, x0), iters, "diag_scan")
         p_ms = device_ms(lambda: goom_diag_scan_ref(a, b, x0), iters)
         bound, bound_by = diag_bound(t, c)
         rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
@@ -1284,8 +1248,7 @@ def main() -> int:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None, "shape": shape,
         "main_path": path, "launches_by_path": by_path[name],
-        "prev_ms": row.get("prev_ms"),
-        "kernels_per_call": row.get("kernels_per_call", 1),
+        "kernels_per_call": row.get("kernels_per_call"), "event_ms": row.get("event_ms"),
     } for name, source, replaces, launches, err, row, shape, path in entries]}))
     print(f"jamba: decode step device busy {trace_j['busy_ms']:.3f} ms, of which the "
           f"diagonal scan {trace_j['diag_scan']:.3f} ms; {card}", flush=True)
