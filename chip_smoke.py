@@ -12,15 +12,17 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 card, and time both: the LMME kernel on e±200 inputs with
                 exact-zero rows and columns, at the serving path's shapes,
                 the chains' square d = 8, 32, 128 and the spectrum's reset
-                products; the matrix scan with B at the generic layer's
-                shapes, on e±200 and odd signed shapes, and its zero-B form
-                from X_0 = I (three passes, 4–5 kernels a call, timed as
-                their sum and by CUDA events) on the chains' and the LLE's
-                lengths, each also against float64; the diagonal-scan
-                kernel at Mamba's decode, prefill-chunk and tail shapes, on
-                e±200 signed inputs with exact zeros and cancellations, T=1,
-                odd C and the autotune shape (4096, 512), each also against
-                float64, with its backward;
+                products; the matrix scan with B (one kernel a call, timed
+                also by CUDA events, and at the 64-token chunk also as the
+                one-chunk walk) at the generic layer's shapes, a
+                time-varying A, d = 128, on e±200 and odd signed shapes, and
+                its zero-B form from X_0 = I (three passes, 4–5 kernels a
+                call, timed as their sum and by CUDA events) on the chains'
+                and the LLE's lengths, each also against float64; the
+                diagonal-scan kernel at Mamba's decode, prefill-chunk and
+                tail shapes, on e±200 signed inputs with exact zeros and
+                cancellations, T=1, odd C and the autotune shape (4096,
+                512), each also against float64, with its backward;
   3. serve    — serve goom-rnn-124m at full width (24 layers, d=768, vocab
                 50257, seeded random weights, bf16 compute) through
                 ``Engine(max_slots=4, page_len=512, chunk=64)``: 6 requests,
@@ -324,11 +326,14 @@ def kernel_phase():
 
 
 # name, T, batch, d, m, kind: the generic layer's decode and 64-token chunk
-# (48 heads of 16; A time-invariant, passed as a stride-0 view), the JAX
-# tests' e±200 and odd signed shapes
+# (48 heads of 16; A time-invariant, passed as a stride-0 view), a
+# time-varying A over 256 steps at the layer's widths, the block kernel's d =
+# 128, the JAX tests' e±200 and odd signed shapes
 SCAN_CASES = [
     ("decode (G=48,T=1,d=16,m=4)", 1, (48,), 16, 4, "shared_a"),
     ("64-token chunk (G=48,T=64,d=16,m=1)", 64, (48,), 16, 1, "shared_a"),
+    ("time-varying A (G=48,T=256,d=16,m=4)", 256, (48,), 16, 4, "signed"),
+    ("d=128 (T=33,d=128,m=3)", 33, (), 128, 3, "signed"),
     ("positive e±200 (T=150,d=4,m=1)", 150, (), 4, 1, "positive"),
     ("signed (T=13,d=4,m=1)", 13, (), 4, 1, "signed"),
     ("signed (T=9,G=2,d=5,m=3)", 9, (2,), 5, 3, "signed"),
@@ -435,6 +440,7 @@ def scan_kernel_phase():
         matrix_scan_ref,
         matrix_scan_zero_b_ref,
     )
+    from repro_torch.kernels.goom_scan import ops as scan_ops
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     rows, errs = {}, {"matrix_scan": 0.0, "matrix_scan_zero_b": 0.0}
@@ -466,15 +472,36 @@ def scan_kernel_phase():
         errs["matrix_scan"] = max(errs["matrix_scan"], err)
         g = math.prod(batch)
         iters = 50 if t <= 64 else 10
-        k_ms, _, k_how = call_ms(lambda: matrix_scan_cuda(a, b, x0), iters, "matrix_scan")
+        k_ms, per_call, k_how = call_ms(lambda: matrix_scan_cuda(a, b, x0), iters,
+                                        "matrix_scan")
+        k_ev = event_ms(lambda: matrix_scan_cuda(a, b, x0), iters)
         p_ms = device_ms(lambda: matrix_scan_ref(a, b, x0), iters)
         bound, bound_by = scan_bound(t, g, d, m, has_b=True, a_fixed=kind == "shared_a")
         rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
-                          max_abs_err=err)
-        print(f"matrix_scan {name}: kernel {k_ms:.4f} ms ({k_how}), plain "
-              f"{p_ms:.4f} ms, "
+                          max_abs_err=err, kernels_per_call=per_call, event_ms=k_ev,
+                          dist=d_k, plain_dist=d_p)
+        print(f"matrix_scan {name}: kernel {k_ms:.4f} ms ({k_how}), by CUDA events "
+              f"{k_ev:.4f} ms a call; plain {p_ms:.4f} ms, "
               f"bound {bound:.6f} ms ({bound_by}); error vs plain {err:.2e}; "
               f"distance to float64: kernel {d_k:.2e}, plain {d_p:.2e}", flush=True)
+        if kind == "shared_a" and t > 1 and hasattr(scan_ops, "with_b_chunk_len"):
+            # the design the chunked time axis is measured against: the same
+            # kernel walking all T steps in one chunk (a checkout from before
+            # the chunked axis, tools/kernels_ab.sh's base, has only the walk)
+            def walk():
+                return Goom(*scan_ops._launch(a.log_abs, a.sign, b.log_abs, b.sign,
+                                              x0.log_abs, x0.sign, ell=t))
+            w_got = walk()
+            d_w = goom_dist(w_got, exact, scale)
+            check(d_w <= 2.0 * d_p + 1e-6, f"walk design at {name}: distance to "
+                  f"float64 {d_w:.3e} > twice the plain version's {d_p:.3e}")
+            w_ms, _, w_how = call_ms(walk, iters, "matrix_scan")
+            w_ev = event_ms(walk, iters)
+            rows[name].update(walk_ms=w_ms, walk_event_ms=w_ev)
+            print(f"matrix_scan {name}, walk design (L = T = {t}; chunked L = "
+                  f"{scan_ops.with_b_chunk_len(t, d)}): kernel {w_ms:.4f} ms ({w_how}), "
+                  f"by CUDA events {w_ev:.4f} ms a call; distance to float64 "
+                  f"{d_w:.2e}", flush=True)
 
     for name, t, d, iters in ZERO_B_CASES:
         a = _goom(torch.randn(t, d, d, generator=gen, device=DEVICE))

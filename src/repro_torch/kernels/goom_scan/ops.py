@@ -8,11 +8,14 @@ with B, ``csrc/matrix_scan_zero_b.cu`` without) and the diagonal scan
 transitions, b (T, ..., d, m) biases, x0 (..., d, m) entering state or None
 (exact zeros); batch dims broadcast.  ``b=None`` is the zero-B form
 X_t = (A_t ··· A_1) X_0, which needs ``x0`` (it fixes m).  Returns all
-states, (T, ..., d, m).  With B it is one kernel walking time in order; the
-zero-B form is three passes (part, stitch, fix-up; with a scale kernel
-between the first two and, above d = 16, an exp pre-pass) over chunks of
-``zero_b_chunk_len(T, d)`` steps, with scratch the wrapper allocates: the
-chunks' products and entering states with f64 logs, and A's exps.
+states, (T, ..., d, m).  With B it is one kernel a call: at d <= 32 a warp
+walks each chunk of ``with_b_chunk_len(T, d)`` steps (part, stitch and
+fix-up inside the one block; one chunk is the plain walk), above d = 32 a
+block walks time in order.  The zero-B form is three passes (part,
+stitch, fix-up; with a scale kernel between the first two and, above
+d = 16, an exp pre-pass) over chunks of ``zero_b_chunk_len(T, d)`` steps,
+with scratch the wrapper allocates: the chunks' products and entering
+states with f64 logs, and A's exps.
 
 On CUDA f32 planes it launches the kernel on the current stream.  Operands
 go in by strides: time and the collapsed batch dims each as one stride, so a
@@ -47,7 +50,8 @@ import torch
 from ...core.goom import Goom
 from .ref import goom_diag_scan_ref, matrix_scan_ref, matrix_scan_zero_b_ref
 
-__all__ = ["MAX_D", "diagonal_scan_cuda", "matrix_scan_cuda", "zero_b_chunk_len"]
+__all__ = ["MAX_D", "diagonal_scan_cuda", "matrix_scan_cuda", "with_b_chunk_len",
+           "zero_b_chunk_len"]
 
 MAX_D = 128  # kMaxD in csrc/matrix_scan.cu and csrc/matrix_scan_zero_b.cu
 _I64 = ctypes.c_int64
@@ -62,7 +66,7 @@ def _kernel_fn(has_b: bool):
         ptr, i32, p64 = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_I64)
         if has_b:
             fn = load("matrix_scan").repro_matrix_scan_forward
-            fn.argtypes = [ptr] * 8 + [i32] * 4 + [p64] * 3 + [ptr]
+            fn.argtypes = [ptr] * 8 + [i32] * 5 + [p64] * 3 + [ptr]
         else:
             fn = load("matrix_scan_zero_b").repro_matrix_scan_zero_b_forward
             fn.argtypes = [ptr] * 13 + [i32] * 5 + [p64] * 2 + [ptr]
@@ -86,6 +90,29 @@ def zero_b_chunk_len(t: int, d: int) -> int:
     tiles = 1 if d <= 16 else -(-d // 32)
     ell = 1
     while 2 * ell * ell < t or ell * _SMS < t * tiles:
+        ell *= 2
+    return ell
+
+
+# with B, T up to this walks in one chunk: on the card the one-chunk walk
+# is faster at T = 17 and as fast at T = 24 with a time-invariant A
+WALK_MAX_T = 24
+
+
+def with_b_chunk_len(t: int, d: int) -> int:
+    """L, the time chunk of the with-B kernel at d <= 32: T itself (one
+    chunk, the plain walk) at T <= WALK_MAX_T and above d = 32; else the
+    least power of two with L^2 >= T whose K = ceil(T / L) chunks, one warp
+    each, fit the block (16 chunks at d <= 16, 4 at d <= 32, where A_t's
+    copies and the chunks' products take four times the shared memory).
+    The part walks L - 1 steps, the stitch K - 1 and the fix-up L: about
+    2 sqrt(T) instead of T.  A function of (T, d) alone, never of G, m or
+    the call."""
+    if d > 32 or t <= WALK_MAX_T:
+        return max(t, 1)
+    kmax = 16 if d <= 16 else 4
+    ell = 1
+    while ell * ell < t or ell * kmax < t:
         ell *= 2
     return ell
 
@@ -128,7 +155,9 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
-def _launch(al, asn, bl, bsn, xl, xs):
+def _launch(al, asn, bl, bsn, xl, xs, ell=None):
+    """The kernel on CUDA planes; ``ell`` overrides the with-B chunk length
+    (``ell=T`` times the plain walk)."""
     has_b = bl is not None
     planes = [p for p in (al, asn, bl, bsn, xl, xs) if p is not None]
     dev = al.device
@@ -170,7 +199,7 @@ def _launch(al, asn, bl, bsn, xl, xs):
         rc = _kernel_fn(True)(
             _ptr(al), _ptr(asn), _ptr(bl), _ptr(bsn), _ptr(xl), _ptr(xs),
             out_log.data_ptr(), out_sign.data_ptr(), t, g, d, m,
-            a_st, b_st, x_st, stream)
+            ell or with_b_chunk_len(t, d), a_st, b_st, x_st, stream)
     else:
         # scratch of the three passes: each chunk's product but the last's,
         # and the state entering each chunk, both with f64 logs

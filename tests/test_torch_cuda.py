@@ -189,10 +189,25 @@ def test_engine_auto_launches_the_kernel_and_refuses_bf16(card):
 # ---------------------------------------------------------------------------
 # name: (T, batch, d, m, kind).  decode and chunk64 are the generic layer's
 # shapes (G = 48 heads, d = 16; m = 4 slots, or one 64-token prompt chunk)
-# with a time-invariant A passed as a stride-0 view
+# with a time-invariant A passed as a stride-0 view.  The with-B kernel cuts
+# time into chunks of L = ops.with_b_chunk_len(T, d) steps: T = 1 and T = 16
+# are one chunk (L = T, up to T = 24), 63, 65 and 100 end in a ragged chunk
+# (L = 8, 16, 16), the time-varying A walks its chunks' products beside B;
+# d = 24 and 32 take the warp kernel's one-lane-per-row layout, d = 128 the
+# block kernel; ``no_x0`` starts from exact zeros
 SCAN_SHAPES = {
     "decode": (1, (48,), 16, 4, "shared_a"),
     "chunk64": (64, (48,), 16, 1, "shared_a"),
+    "t1_signed": (1, (2,), 16, 3, "signed"),
+    "t16_one_chunk": (16, (3,), 16, 2, "shared_a"),
+    "t63_ragged": (63, (2,), 16, 2, "signed"),
+    "t65_ragged": (65, (48,), 16, 1, "shared_a"),
+    "t100_ragged": (100, (2,), 5, 3, "signed"),
+    "time_varying_256": (256, (48,), 16, 4, "signed"),
+    "d24_time_varying": (70, (), 24, 3, "signed"),
+    "d32_shared_a": (100, (3,), 32, 2, "shared_a"),
+    "d128": (33, (), 128, 3, "signed"),
+    "no_x0": (40, (2,), 16, 2, "no_x0"),
     "e200_positive": (150, (), 4, 1, "positive"),
     "odd_13_4_1": (13, (), 4, 1, "signed"),
     "odd_9_2_5_3": (9, (2,), 5, 3, "signed"),
@@ -239,7 +254,7 @@ def scan_operands(name, dev, seed=0):
             shift = 200.0 * torch.where(torch.rand(tlen, 1, 1, generator=gen) < 0.5, -1.0, 1.0)
             a = Goom(a.log_abs + shift, a.sign)
         b = _goom(normal(tlen, *batch, d, m) * (1.0 if kind == "e200_signed" else 0.6))
-        x0 = _goom(normal(*batch, d, m))
+        x0 = None if kind == "no_x0" else _goom(normal(*batch, d, m))
     move = lambda g: None if g is None else Goom(g.log_abs.to(dev), g.sign.to(dev))  # noqa: E731
     return move(a), move(b), move(x0)
 
@@ -275,6 +290,30 @@ def test_matrix_scan_kernel_matches_plain_version(card, name):
     elif kind != "e200_signed":  # test_engine.py's bar away from cancellation
         assert_goom_close(got.log_abs, got.sign, plain.log_abs, plain.sign,
                           scale_log=scale.log_abs.float(), cancel_margin=8.0)
+
+
+@pytest.mark.parametrize("name", ["decode", "chunk64", "time_varying_256", "d128"])
+def test_with_b_call_is_one_kernel(card, name):
+    """A with-B call puts exactly one kernel on the card: the chunks' part,
+    stitch and fix-up run inside one block.  The profiler drops some kernel
+    records on this card (chip_smoke.call_ms), so over ten calls the trace
+    must hold one kernel name, a matrix-scan kernel, at most once a call."""
+    from torch.autograd import DeviceType
+
+    a, b, x0 = scan_operands(name, card)
+    matrix_scan_cuda(a, b, x0)
+    torch.cuda.synchronize()
+    calls = 10
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            matrix_scan_cuda(a, b, x0)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "memset" not in e.name.lower()
+               and "memcpy" not in e.name.lower()]
+    assert 1 <= len(kernels) <= calls and len(set(kernels)) == 1, kernels
+    assert "matrix_scan" in kernels[0], kernels
 
 
 @pytest.mark.parametrize("name", sorted(ZERO_B_SHAPES))

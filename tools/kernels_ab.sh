@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Time the LMME and zero-B matrix-scan kernels of two checkouts in one run on
+# Time the LMME and matrix-scan kernels of two checkouts in one run on
 # one card, in turns (base, this, this, base), with this checkout's
 # chip_smoke.py --kernels.  Usage, from the root of this checkout:
 #
@@ -18,5 +18,5 @@ for who in base this this base; do
   if [ "$who" = base ]; then dir=$base; script=chip_smoke_ab.py; else dir=$here; script=chip_smoke.py; fi
   echo "=== turn $n: $who"
   (cd "$dir" && python3 "$script" --kernels 2>&1) \
-    | grep -E "^(lmme|matrix_scan zero-B|card)" | tee "$out/kernels_ab_${who}_$n.log"
+    | grep -E "^(lmme|matrix_scan|card)" | tee "$out/kernels_ab_${who}_$n.log"
 done
