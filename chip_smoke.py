@@ -37,12 +37,24 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 except after a near tie (top-2 margin below 1e-4·std(logits)).
                 For ``generic`` also the prefill-logit gap to ``shared_a`` on
                 the same weights;
-  5. experiments — the paper's experiments 1 and 2 on the card: float
+  5. train    — train goom-rnn-124m at full width (f32 weights, bf16
+                compute) in ``shared_a`` and ``generic`` through
+                ``make_train_step``: Copy-Memory, B=16, S=128, AdamW at a
+                cosine lr of 3e-3 with 20 warm-up steps, 20 steps with finite
+                losses, launches equal to the forward's engine calls (the
+                backward, autograd of the plain versions, launches no
+                kernel); forward, backward and optimizer ms by CUDA events,
+                one step profiled (device busy, idle share, the backward's
+                device ms in the plain versions' autograd), and one f32 step
+                on the kernels held to the same step under the plain
+                versions; then ``python -m repro_torch.launch.train`` at full
+                width: a step, a checkpoint, a restart that resumes;
+  6. experiments — the paper's experiments 1 and 2 on the card: float
                 chains fail, GOOM chains complete, the parallel chain (zero-B
                 kernel) equals a loop of LMME launches; Lyapunov spectra and
                 LLE of the four in-repo systems at 4096 steps, parallel
                 against sequential and λ1 against the literature;
-  6. jamba    — serve jamba-v0.1 at full width (d=4096, vocab 65536, GQA
+  7. jamba    — serve jamba-v0.1 at full width (d=4096, vocab 65536, GQA
                 32/8 heads, 16-expert top-2 MoE) cut to two of its four
                 8-layer periods (16 layers, 26.1B parameters, 52 GB in bf16:
                 the most whole periods one 80 GB card holds), seeded random
@@ -66,6 +78,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -1015,7 +1028,7 @@ def _parity(m32, cfg32, reqs, variant, compare_variant):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the paper's experiments 1 and 2
+# phase 6: the paper's experiments 1 and 2
 # ---------------------------------------------------------------------------
 def _wall_ms(fn):
     import torch
@@ -1126,6 +1139,303 @@ def experiments_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+# examples/train_goom_rnn_torch.py --full: Copy-Memory, B=16, S=128, AdamW
+# at a cosine lr of peak 3e-3 over the example's 200 steps with 20 warm-up
+# steps; of which this phase runs TRAIN_STEPS
+TRAIN = dict(batch=16, seq_len=128, lr=3e-3, warmup=20, total=200)
+TRAIN_STEPS = 20
+# f32 step on the kernels against the same step under the plain versions,
+# from the seed weights: the loss within TRAIN_LOSS_RTOL; each leaf's
+# max-normalised gradient gap max |g_kernel - g_plain| / max |g_plain|, at
+# its worst leaf, within TRAIN_SPREAD_FACTOR times the larger of the two
+# paths' own spread: the worst gap between a path's gradients at the seed
+# weights and at weights moved one f32 ulp.  At full width the gradients of
+# the first layers' A and B are that ill-conditioned: the plain version
+# against itself one ulp apart differs by up to 1.3e-2 (a wrong backward is
+# off by O(1)).
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_SPREAD_FACTOR = 2.0
+
+
+def _train_setup(model):
+    from repro_torch.train import AdamW, cosine_schedule, init_train_state
+
+    opt = AdamW(cosine_schedule(TRAIN["lr"], TRAIN["warmup"], TRAIN["total"]))
+    return opt, init_train_state(model, opt)
+
+
+def _train_batches(cfg, n):
+    import itertools
+
+    from repro_torch.train import DataConfig, Prefetcher, SyntheticStream
+
+    stream = SyntheticStream(DataConfig(task="copy", vocab=cfg.vocab,
+                                        seq_len=TRAIN["seq_len"],
+                                        global_batch=TRAIN["batch"], seed=SEED))
+    return Prefetcher(itertools.islice(stream, n), DEVICE)
+
+
+def _grads(model, batch):
+    """(loss, gradients by parameter name) of one forward and backward."""
+    import torch
+
+    loss, _ = model.loss(batch["tokens"], batch["labels"])
+    params = dict(model.named_parameters())
+    return loss, dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+
+def _split_steps(model, state, opt, decay, batches, variant):
+    """Train steps over ``batches``, each part timed by CUDA events: (ms
+    lists by part, the forward's launches).  The backward and the update
+    must launch no kernel."""
+    import torch
+
+    from repro_torch.train import clip_by_global_norm
+
+    parts = {"forward": [], "backward": [], "optimizer": [], "wall": []}
+    for b in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        reset_counts()
+        t_wall = time.perf_counter()
+        ev[0].record()
+        loss, _ = model.loss(b["tokens"], b["labels"])
+        ev[1].record()
+        fwd_launches = read_counts()[0]
+        grads = dict(zip(state.params, torch.autograd.grad(loss, list(state.params.values()))))
+        ev[2].record()
+        bwd_launches = read_counts()[0]
+        grads, _ = clip_by_global_norm(grads, 1.0)
+        opt.update(grads, state.opt_state, state.params, decay)
+        ev[3].record()
+        torch.cuda.synchronize()
+        parts["wall"].append((time.perf_counter() - t_wall) * 1e3)
+        for k, (a, z) in zip(("forward", "backward", "optimizer"), zip(ev, ev[1:])):
+            parts[k].append(a.elapsed_time(z))
+        check(bwd_launches == fwd_launches == read_counts()[0],
+              f"train [{variant}]: launches after the forward {fwd_launches}, the "
+              f"backward {bwd_launches}, the update {read_counts()[0]}")
+    return parts, fwd_launches
+
+
+def _profiled_device(fn):
+    """(result, device ms, kernels, profiler) of one call of ``fn``."""
+    import torch
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n_dev = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    return out, _device_ms(prof), n_dev, prof
+
+
+def plain_backward_ms(prof) -> float:
+    """Device ms under the autograd engine's evaluation of the LMME and
+    matrix-scan wrappers' nodes, whose backward is autograd of the plain
+    versions (each node's own record sits inside its evaluation: only the
+    evaluation is counted)."""
+    keys = tuple(f"autograd::engine::evaluate_function: {n}"
+                 for n in ("_LmmeFnBackward", "_MatrixScanFnBackward"))
+    return sum(e.device_time_total for e in prof.key_averages() if e.key in keys) / 1e3
+
+
+def train_phase(cfg, model):
+    """goom-rnn-124m trained at full width through ``make_train_step``:
+    TRAIN_STEPS steps of the 124M model (loss finite, launches == the
+    forward's engine calls), then each part of a step timed by CUDA events
+    (median of 5), one step profiled part by part, and one step at f32 on
+    the kernels against the same step under the plain versions."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.train import clip_by_global_norm, make_train_step
+
+    variant = path_label(cfg)
+    t_phase = time.perf_counter()
+    gap = _train_parity(model, cfg, next(iter(_train_batches(cfg, 1))))
+    parity_s = time.perf_counter() - t_phase
+    opt, state = _train_setup(model)
+    step_fn = make_train_step(model, opt)
+    decay = opt.decay_mask(cfg, list(state.params))
+    warm, n_split = 2, 5
+    batches = list(_train_batches(cfg, warm + TRAIN_STEPS + 2 * n_split + 1))
+    t0 = time.perf_counter()
+    for b in batches[:warm]:   # allocator, cuBLAS, the kernels' first calls
+        state, _ = step_fn(state, b)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for b in batches[warm:warm + TRAIN_STEPS]:
+        state, metrics = step_fn(state, b)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    launches, calls = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(launches, calls, f"train [{variant}]", USED[variant])
+    losses = [float(v) for v in losses]
+    check(all(map(math.isfinite, losses)), f"train [{variant}]: a loss is not finite: {losses}")
+
+    # each part of a step by CUDA events; launches of the forward alone, and
+    # none in the backward or the update
+    split = batches[warm + TRAIN_STEPS:]
+    parts, fwd_launches = _split_steps(model, state, opt, decay, split[:n_split], variant)
+    # the same under the plain versions: forward and backward both plain
+    # autograd, the kernels' forward not recomputed in the backward
+    with engine.use_backend("torch_reference"):
+        plain_parts, _ = _split_steps(model, state, opt, decay, split[n_split:2 * n_split],
+                                      variant)
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    plain_med = {k: statistics.median(v) for k, v in plain_parts.items()}
+    per_step = {k: v // TRAIN_STEPS for k, v in launches.items()}
+    check(per_step == fwd_launches and all(v % TRAIN_STEPS == 0 for v in launches.values()),
+          f"train [{variant}]: {launches} over {TRAIN_STEPS} steps != {TRAIN_STEPS} x the "
+          f"forward's {fwd_launches}")
+
+    # one step profiled part by part: device busy, kernels, and the device
+    # time the backward spends in the plain versions' autograd
+    b = batches[-1]
+    (loss, _), f_ms, f_n, _ = _profiled_device(lambda: model.loss(b["tokens"], b["labels"]))
+    params = list(state.params.values())
+    grads, b_ms, b_n, b_prof = _profiled_device(lambda: torch.autograd.grad(loss, params))
+    plain_ms = plain_backward_ms(b_prof)
+    grads = dict(zip(state.params, grads))
+
+    def update():
+        g, _ = clip_by_global_norm(grads, 1.0)
+        return opt.update(g, state.opt_state, state.params, decay)
+
+    _, o_ms, o_n, _ = _profiled_device(update)
+    busy = f_ms + b_ms + o_ms
+    idle = 1 - busy / med["wall"]
+    print(f"train [{variant}]: {cfg.name} B={TRAIN['batch']} S={TRAIN['seq_len']}, "
+          f"{TRAIN_STEPS} steps at {step_ms:.1f} ms a step (wall; warm-up "
+          f"{warm} steps {warm_s:.1f} s); loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"all finite; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    for label, m in (("kernels", med), ("plain versions", plain_med)):
+        print(f"train [{variant}]: median of {n_split} steps by CUDA events, {label}: "
+              f"step {m['wall']:.1f} ms wall, forward {m['forward']:.1f} ms, backward "
+              f"{m['backward']:.1f} ms, optimizer {m['optimizer']:.1f} ms", flush=True)
+    print(f"train [{variant}]: one step profiled: device busy {busy:.3f} ms (forward "
+          f"{f_ms:.3f} in {f_n} kernels, backward {b_ms:.3f} in {b_n}, optimizer "
+          f"{o_ms:.3f} in {o_n}), idle share {idle:.3f}; backward in the plain "
+          f"versions' autograd (LMME, matrix scan) {plain_ms:.3f} ms", flush=True)
+    print(f"train [{variant}]: launches {launches} == engine calls {calls}; per "
+          f"step {per_step} (the forward's; backward and update launch none); "
+          f"phase {time.perf_counter() - t_phase:.1f} s, of which the parity "
+          f"steps {parity_s:.1f} s", flush=True)
+
+    return dict(launches=launches, per_step=per_step, step_ms=step_ms, parts=med,
+                plain_parts=plain_med,
+                busy_ms=busy, idle=idle, plain_bwd_ms=plain_ms, peak_bytes=peak,
+                losses=losses, **gap)
+
+
+def _grad_gaps(got, want):
+    """Each leaf's max |got - want| / max |want|."""
+    return {n: float((got[n] - want[n]).abs().max() / want[n].abs().max().clamp_min(1e-30))
+            for n in want}
+
+
+def _worst(gaps):
+    return max(gaps.items(), key=lambda kv: kv[1])
+
+
+def _train_parity(model, cfg, batch):
+    """One f32 step's loss and gradients on the kernels against the same
+    under ``use_backend("torch_reference")``, same weights and batch, held to
+    each path's own spread (module constants above)."""
+    import torch
+
+    from repro_torch.core import engine
+
+    variant = path_label(cfg)
+    params = dict(model.named_parameters())
+    seed_weights = {n: p.detach().clone() for n, p in params.items()}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+
+    def both():
+        out = {}
+        for path, backend in (("kernels", "auto"), ("plain", "torch_reference")):
+            with engine.use_backend(backend):
+                loss, grads = _grads(model, batch)
+            out[path] = (float(loss.detach()), grads)
+        return out
+
+    model.cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    try:
+        at_seed = both()
+        with torch.no_grad():   # every weight one f32 ulp up or down
+            for p in params.values():
+                up = torch.rand(p.shape, generator=gen, device=DEVICE) < 0.5
+                p.copy_(torch.nextafter(p, torch.where(up, torch.inf, -torch.inf)))
+        moved = both()
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(seed_weights[n])
+    finally:
+        model.cfg = cfg
+    (loss_k, g_k), (loss_p, g_p) = at_seed["kernels"], at_seed["plain"]
+    loss_gap = abs(loss_k - loss_p) / abs(loss_p)
+    worst = _worst(_grad_gaps(g_k, g_p))
+    spread = {path: _worst(_grad_gaps(moved[path][1], at_seed[path][1]))
+              for path in at_seed}
+    bound = TRAIN_SPREAD_FACTOR * max(v for _, v in spread.values())
+    print(f"train [{variant}] parity (f32, seed weights, kernels vs plain versions on "
+          f"the card): loss {loss_k:.6f} vs {loss_p:.6f} (relative gap {loss_gap:.2e}, "
+          f"bound {TRAIN_LOSS_RTOL:.0e}); worst max-normalised grad gap {worst[1]:.2e} "
+          f"at {worst[0]}; each path's spread, weights one ulp apart: plain "
+          f"{spread['plain'][1]:.2e} at {spread['plain'][0]}, kernels "
+          f"{spread['kernels'][1]:.2e} at {spread['kernels'][0]}; bound {bound:.2e}",
+          flush=True)
+    check(all(bool(torch.isfinite(g).all()) for g in g_k.values()),
+          f"train [{variant}]: a kernel gradient is not finite")
+    check(loss_gap <= TRAIN_LOSS_RTOL, f"train [{variant}]: f32 loss on the kernels "
+          f"{loss_k} vs plain {loss_p}")
+    check(worst[1] <= bound, f"train [{variant}]: grad of {worst[0]} on the kernels off "
+          f"the plain version's by {worst[1]:.3e} > {bound:.3e}")
+    return dict(loss_gap=loss_gap, grad_err=worst[1], grad_err_at=worst[0],
+                plain_spread=spread["plain"][1], kernel_spread=spread["kernels"][1])
+
+
+def launcher_phase():
+    """The user's command, ``python -m repro_torch.launch.train``, at full
+    width: a step and a checkpoint, then a restart that resumes from it and
+    takes a second; the checkpoint is deleted after."""
+    import shutil
+
+    from repro_torch.launch import train as launch_train
+
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", "goom-rnn-124m", "--task", "copy", "--seq-len",
+            str(TRAIN["seq_len"]), "--batch", str(TRAIN["batch"]), "--lr",
+            str(TRAIN["lr"]), "--log-every", "1", "--ckpt-dir", str(ckpt)]
+    t0 = time.perf_counter()
+    try:
+        _, s1, _ = launch_train.main(argv + ["--steps", "1"])
+        t1 = time.perf_counter()
+        _, s2, m2 = launch_train.main(argv + ["--steps", "2"])
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(s1.step == 1 and s2.step == 2 and math.isfinite(float(m2["loss"])),
+          f"launcher: steps {s1.step}, {s2.step}, loss {float(m2['loss'])}")
+    print(f"launcher: a step and a checkpoint in {t1 - t0:.1f} s; resumed and took "
+          f"step 2 in {t2 - t1:.1f} s (model build and checkpoint I/O included)",
+          flush=True)
+
+
 def layer_breakdown(model):
     """Device ms per decode step (4 slots) by layer kind: one layer of each
     kind timed alone at the decode shape (its pre-norm included), times the
@@ -1231,6 +1541,15 @@ def main() -> int:
     parity_phase(model_g, cfg_g, reqs, compare_variant="shared_a")
     del model_g
     elapsed("generic")
+    train = {}
+    for variant in ("shared_a", "generic"):
+        cfg_t = with_scan_variant(cfg, variant)
+        model_t = DecoderLM(cfg_t, device=DEVICE,
+                            generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+        train[variant] = train_phase(cfg_t, model_t)
+        del model_t
+    launcher_phase()
+    elapsed("train")
     exp_launches = experiments_phase()
     elapsed("experiments")
     cfg_j = jamba_config()
@@ -1244,8 +1563,9 @@ def main() -> int:
     # each kernel's row: the shape its main path launches most, and the
     # launches of the run of that path (the other paths' beside them)
     by_path = {k: {"serve shared_a": stats["launches"][k], "serve generic":
-                   stats_g["launches"][k], "experiments": exp_launches[k],
-                   "serve jamba": stats_j["launches"][k]}
+                   stats_g["launches"][k], "train shared_a": train["shared_a"]["launches"][k],
+                   "train generic": train["generic"]["launches"][k],
+                   "experiments": exp_launches[k], "serve jamba": stats_j["launches"][k]}
                for k in ("lmme", "matrix_scan", "matrix_scan_zero_b", "diag_scan")}
     lmme_row = next(r for r in rows if r["shape"].startswith("decode"))
     scan_row = next(v for k, v in scan_rows.items() if k.startswith("decode"))

@@ -78,6 +78,7 @@ class MoeCfg:
     n_experts: int
     top_k: int = 2
     capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3     # weight of the router z-loss (training aux)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +113,7 @@ class LMConfig:
     sub_quadratic: bool = False
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    logit_chunk: int = 512         # the loss's CE is computed in pieces of this many tokens
 
     @property
     def layer_list(self):

@@ -6,7 +6,8 @@ channels: ``none``, ``mlp`` and ``moe``; norms ``rms`` and ``ln``.  The
 goom layer applies its own ``ln`` after the block's ``mixer_norm``; both are
 real parameters of the model, so both stay.  The MoE routes dropless when
 the block runs with a cache (serving) and with capacity dropping without
-one, as in the JAX package.
+one, as in the JAX package, and its aux losses come back beside the block's
+output (empty for the other channels and when serving).
 """
 
 from __future__ import annotations
@@ -58,7 +59,8 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 cache: Optional[Cache] = None,
                 compute_dtype: torch.dtype = torch.bfloat16):
-        """Returns (x, new cache or None); residual adds are in x's dtype."""
+        """Returns (x, new cache or None, aux losses); residual adds are in
+        x's dtype."""
         h = self.mixer_norm(x)
         if self.blk.mixer == "attention":
             h, c = self.mixer(h, positions=positions, cache=cache,
@@ -66,15 +68,16 @@ class Block(nn.Module):
         else:
             h, c = self.mixer(h, state=cache, compute_dtype=compute_dtype)
         x = x + h.to(x.dtype)
+        aux: Dict[str, torch.Tensor] = {}
         if self.blk.channel != "none":
             h = self.channel_norm(x)
             if self.blk.channel == "moe":
-                h = self.channel(h, compute_dtype=compute_dtype,
-                                 dropless=cache is not None)
+                h, aux = self.channel(h, compute_dtype=compute_dtype,
+                                      dropless=cache is not None)
             else:
                 h = self.channel(h, compute_dtype=compute_dtype)
             x = x + h.to(x.dtype)
-        return x, c
+        return x, c, aux
 
 
 def block_init_cache(blk: BlockCfg, batch: int, *, device,

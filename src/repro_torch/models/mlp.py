@@ -13,13 +13,18 @@ the caller as in the JAX package (``blocks.py``):
 
 The router runs in f32 (its weight is f32 whatever the model's dtype); ties
 in the top-k break to the lower expert index, as ``jax.lax.top_k`` does.
-Plain tensor ops: the JAX package leaves the MoE to XLA, no Pallas kernel.
+The capacity routing also returns the training aux losses from the f32
+router logits: the Switch load balance and the router z-loss.  The dropless
+routing (serving) returns none: nothing reads them there, and in eager
+PyTorch they would cost some twenty launches a layer a decode step (JAX
+computes them in both and XLA drops the unused).  Plain tensor ops: the JAX
+package leaves the MoE to XLA, no Pallas kernel.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,15 +76,28 @@ class Moe(nn.Module):
         self.down = normal_param((e, f, d), f ** -0.5, **kw)
 
     def forward(self, x: torch.Tensor, *, compute_dtype: torch.dtype = torch.bfloat16,
-                dropless: bool = False) -> torch.Tensor:
+                dropless: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Returns (output, aux).  With capacity routing aux =
+        {load_balance_loss, router_z_loss}: E·Σ_e mean(probs_e)·mean(top-k
+        hits_e) and router_z_loss · mean(logsumexp(logits)²), as
+        ``repro/models/mlp.py`` computes them; dropless, aux is empty."""
         cfg, cd = self.cfg, compute_dtype
         b, s, d = x.shape
         e, k = cfg.n_experts, cfg.top_k
         cap = s if dropless else max(1, int(math.ceil(k * s * cfg.capacity_factor / e)))
 
         logits = dense_apply(self.router.w, x.float())             # (B, S, E) f32
-        gate_vals, expert_idx = top_k_lowest_index(torch.softmax(logits, dim=-1), k)
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, expert_idx = top_k_lowest_index(probs, k)
         gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+
+        aux: Dict[str, torch.Tensor] = {}
+        if not dropless:
+            hits = F.one_hot(expert_idx, e).float().sum(dim=2)     # (B, S, E)
+            aux = {"load_balance_loss": e * (probs.mean(dim=(0, 1))
+                                             * hits.mean(dim=(0, 1))).sum(),
+                   "router_z_loss": cfg.router_z_loss
+                   * torch.logsumexp(logits, dim=-1).square().mean()}
 
         # per-row dispatch: the j-th entry (token-major) routed to expert x
         # takes slot (entries of x before it); slot >= cap is dropped into
@@ -103,4 +121,4 @@ class Moe(nn.Module):
         gathered = out_buf.gather(1, dst.clamp(max=e * cap - 1)[..., None].expand(-1, -1, d))
         gathered = torch.where(keep[..., None], gathered.float(), 0.0)
         out = (gathered * flat_gate[..., None]).reshape(b, s, k, d).sum(dim=2)
-        return out.to(cd)
+        return out.to(cd), aux

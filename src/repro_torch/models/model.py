@@ -6,6 +6,9 @@ default); the parameters are ``cfg.param_dtype`` (f32 by default).  The
 lm_head product stays a plain ``torch.matmul``, as the JAX package leaves it
 to XLA outside any kernel.
 
+Training: ``loss(tokens, labels)``, the JAX package's next-token CE with
+the MoE's aux losses added (``repro/models/model.py::DecoderLM.loss``).
+
 Serving API (what ``serve.Engine`` drives): ``init_caches``, ``prefill`` and
 ``decode_step``.  Caches are a list with one dict per layer: the layer's
 GOOM carry, Mamba state, or attention KV rows with a per-row index.
@@ -18,7 +21,9 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
 from ..kernels.dispatch import resolve_device
@@ -56,27 +61,68 @@ class DecoderLM(nn.Module):
                       caches: Optional[Caches] = None,
                       positions: Optional[torch.Tensor] = None):
         """tokens (B, S) at ``positions`` (B, S; default 0..S-1) → (final-normed
-        hidden (B, S, d), new caches or None)."""
+        hidden (B, S, d), new caches or None, aux losses summed over layers)."""
         cd = self.cfg.compute_dtype
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
-        x = self.embed[tokens].to(cd)
+        # F.embedding, not indexing: its backward gives the same bits every
+        # run (indexing's accumulating backward does not on the CPU)
+        x = F.embedding(tokens, self.embed).to(cd)
         new_caches = []
+        aux_tot: Dict[str, torch.Tensor] = {}
         for i, layer in enumerate(self.layers):
-            x, c = layer(x, positions=positions,
-                         cache=None if caches is None else caches[i],
-                         compute_dtype=cd)
+            x, c, aux = layer(x, positions=positions,
+                              cache=None if caches is None else caches[i],
+                              compute_dtype=cd)
             new_caches.append(c)
-        return self.final_norm(x), (new_caches if caches is not None else None)
+            for k, v in aux.items():
+                aux_tot[k] = aux_tot.get(k, 0.0) + v
+        return (self.final_norm(x), (new_caches if caches is not None else None),
+                aux_tot)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return hidden @ self.lm_head.w.to(self.cfg.compute_dtype)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Full forward to logits (B, S, vocab)."""
-        h, _ = self.hidden_states(tokens)
+        h, _, _ = self.hidden_states(tokens)
         return self.logits(h)
+
+    # -- training ------------------------------------------------------------
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token CE of tokens (B, S) against labels (B, S; -1 masked),
+        plus 0.01·load_balance_loss + router_z_loss when the model has an
+        MoE.  Returns (loss, metrics: ce_loss, tokens, loss and the aux terms).
+
+        The CE runs over pieces of ``min(logit_chunk, S)`` tokens, each
+        recomputed in the backward (``jax.checkpoint`` in JAX), so no more
+        than one piece's f32 logits are alive at a time; logits are the
+        compute-dtype product cast to f32, as in JAX."""
+        h, _, aux = self.hidden_states(tokens)
+        w = self.lm_head.w.to(self.cfg.compute_dtype)
+        s = h.shape[1]
+        ck = min(self.cfg.logit_chunk, s)
+        if s % ck:
+            raise ValueError(f"sequence length {s} is not a multiple of "
+                             f"logit_chunk {ck}")
+        tot = cnt = 0.0
+        for i in range(0, s, ck):
+            nll, n = checkpoint(_piece_nll, h[:, i:i + ck], labels[:, i:i + ck], w,
+                                use_reentrant=False)
+            tot, cnt = tot + nll, cnt + n
+        ce = tot / cnt.clamp_min(1.0)
+        loss = ce
+        metrics = {"ce_loss": ce, "tokens": cnt}
+        if "load_balance_loss" in aux:
+            loss = loss + 0.01 * aux["load_balance_loss"]
+            metrics["load_balance_loss"] = aux["load_balance_loss"]
+        if "router_z_loss" in aux:
+            loss = loss + aux["router_z_loss"]
+            metrics["router_z_loss"] = aux["router_z_loss"]
+        metrics["loss"] = loss
+        return loss, metrics
 
     # -- serving -------------------------------------------------------------
     def init_caches(self, batch: int, max_len: Optional[int] = None) -> Caches:
@@ -92,7 +138,7 @@ class DecoderLM(nn.Module):
         """Ingest a prompt chunk (B, S) from the caches' state at absolute
         ``positions`` (B, S; default 0..S-1: a fresh cache); returns the last
         position's logits (B, 1, vocab) and the advanced caches."""
-        h, caches = self.hidden_states(tokens, caches, positions)
+        h, caches, _ = self.hidden_states(tokens, caches, positions)
         return self.logits(h[:, -1:]), caches
 
     def decode_step(self, token: torch.Tensor, caches: Caches,
@@ -100,5 +146,15 @@ class DecoderLM(nn.Module):
         """One decode step: token (B, 1) at absolute position ``index`` (B,)
         → (logits (B, 1, vocab), caches)."""
         positions = torch.as_tensor(index, device=token.device).reshape(-1, 1)
-        h, caches = self.hidden_states(token, caches, positions)
+        h, caches, _ = self.hidden_states(token, caches, positions)
         return self.logits(h), caches
+
+
+def _piece_nll(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor):
+    """(summed NLL, count) of one piece: hidden (B, k, d) in the compute
+    dtype, labels (B, k) with -1 masked, head weight (d, V)."""
+    logits = (h @ w).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((logz - gold) * mask).sum(), mask.sum()

@@ -624,3 +624,132 @@ def test_diagonal_scan_kernel_raises_on_what_it_does_not_take(card):
         engine.diagonal_scan(bf, b, x0)
     with pytest.raises(ValueError):
         diagonal_scan_cuda(a, Goom(b.log_abs.cpu(), b.sign.cpu()), x0)
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+def _train_model(card, variant, smoke, compute_dtype=None):
+    import dataclasses
+
+    from repro_torch import DecoderLM, get_config
+    from torch_parity import with_scan_variant
+
+    cfg = with_scan_variant(get_config("goom-rnn-124m", smoke=smoke), variant)
+    if compute_dtype is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    return cfg, DecoderLM(cfg, device=card,
+                          generator=torch.Generator(device=card).manual_seed(0))
+
+
+def _copy_batch(card, vocab, seq, batch, step=0):
+    from repro_torch.train import DataConfig, SyntheticStream
+    from repro_torch.train.data import to_device
+
+    stream = SyntheticStream(DataConfig(task="copy", vocab=vocab, seq_len=seq,
+                                        global_batch=batch))
+    return to_device(stream.generate(step), card)
+
+
+def _launch_counts():
+    return (lmme_cuda.launches, matrix_scan_cuda.launches, matrix_scan_cuda.launches_zero_b)
+
+
+# kernels a forward launches at full width (24 layers, S=128, chunk 128):
+# shared_a 15 LMME a layer (B·u, the carry fold, 7 doubling levels, 6
+# squarings of A); generic 1 LMME (B·u) and 1 with-B matrix scan a layer
+FULL_WIDTH_LAUNCHES = {"shared_a": (360, 0, 0), "generic": (24, 24, 0)}
+
+
+@pytest.mark.parametrize("variant", sorted(FULL_WIDTH_LAUNCHES))
+def test_full_width_train_step_launches_the_forwards_kernels(card, variant):
+    """One train step of goom-rnn-124m at full width (B=16, S=128, bf16
+    compute): a finite loss and gradient norm, and the step launches
+    exactly the forward's kernels (the backward is autograd of the plain
+    versions and launches none)."""
+    from repro_torch.train import AdamW, cosine_schedule, init_train_state, make_train_step
+
+    cfg, model = _train_model(card, variant, smoke=False)
+    opt = AdamW(cosine_schedule(3e-3, 20, 200))
+    step = make_train_step(model, opt)
+    batch = _copy_batch(card, cfg.vocab, 128, 16)
+    state = init_train_state(model, opt)
+    engine.reset_calls()
+    before = _launch_counts()
+    with torch.no_grad():
+        model.loss(batch["tokens"], batch["labels"])
+    forward = tuple(x - y for x, y in zip(_launch_counts(), before))
+    assert forward == FULL_WIDTH_LAUNCHES[variant]
+    assert engine.calls["lmme"] == forward[0] and engine.calls["matrix_scan"] == forward[1]
+    before = _launch_counts()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert tuple(x - y for x, y in zip(_launch_counts(), before)) == forward
+    assert state.step == 1
+    assert np.isfinite(float(metrics["loss"])) and np.isfinite(float(metrics["grad_norm"]))
+    assert float(metrics["tokens"]) == 16 * 16
+
+
+@pytest.mark.parametrize("variant", ["shared_a", "generic"])
+def test_train_grads_on_the_kernels_match_the_plain_versions(card, variant):
+    """Smoke widths at f32 compute, B=4, S=64: loss and per-leaf
+    max-normalised gradients on the kernels against the same under
+    ``torch_reference`` on the card: loss rtol 1e-5, gradients 5e-4 (the
+    CPU tests' bound for the plain path against JAX)."""
+    cfg, model = _train_model(card, variant, smoke=True, compute_dtype=torch.float32)
+    batch = _copy_batch(card, cfg.vocab, 64, 4)
+    params = dict(model.named_parameters())
+    out = []
+    for backend in ("auto", "torch_reference"):
+        before = lmme_cuda.launches
+        with engine.use_backend(backend):
+            loss, _ = model.loss(batch["tokens"], batch["labels"])
+            grads = torch.autograd.grad(loss, list(params.values()))
+        assert (lmme_cuda.launches > before) == (backend == "auto")
+        out.append((float(loss.detach()), dict(zip(params, grads))))
+    (loss_k, g_k), (loss_p, g_p) = out
+    np.testing.assert_allclose(loss_k, loss_p, rtol=1e-5)
+    for n in g_p:
+        assert bool(torch.isfinite(g_k[n]).all()), n
+        err = float((g_k[n] - g_p[n]).abs().max() / g_p[n].abs().max())
+        assert err <= 5e-4, f"{n}: {err:.3e}"
+
+
+def test_checkpoint_round_trip_from_the_card(card, tmp_path):
+    """A train state on the card written, restored into a model built from
+    other weights, equal bit for bit; the next step from both gives the
+    same loss."""
+    from repro_torch.train import (
+        AdamW,
+        CheckpointManager,
+        constant_schedule,
+        init_train_state,
+        load_state_tree,
+        make_train_step,
+        state_tree,
+    )
+
+    cfg, model = _train_model(card, "shared_a", smoke=True)
+    opt = AdamW(constant_schedule(1e-3))
+    state = init_train_state(model, opt)
+    state, _ = make_train_step(model, opt)(state, _copy_batch(card, cfg.vocab, 64, 4))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(state.step, state_tree(cfg, state), extra={"data": {"step": state.step}})
+
+    from repro_torch import DecoderLM
+
+    other = DecoderLM(cfg, device=card, generator=torch.Generator(device=card).manual_seed(1))
+    restored = init_train_state(other, opt)
+    step, tree, extra = mgr.restore_latest(state_tree(cfg, restored))
+    restored = load_state_tree(cfg, restored, tree)
+    assert step == restored.step == 1 and extra == {"data": {"step": 1}}
+    for key in ("mu", "nu"):
+        for n, v in state.opt_state[key].items():
+            assert restored.opt_state[key][n].device.type == "cuda"
+            assert torch.equal(restored.opt_state[key][n], v), (key, n)
+    for n, p in state.params.items():
+        assert torch.equal(restored.params[n], p), n
+    batch = _copy_batch(card, cfg.vocab, 64, 4, step=1)
+    _, m1 = make_train_step(model, opt)(state, batch)
+    _, m2 = make_train_step(other, opt)(restored, batch)
+    np.testing.assert_allclose(float(m1["loss"]), float(m2["loss"]), rtol=1e-6)

@@ -218,17 +218,24 @@ def test_moe_both_routings_match_jax(dropless):
     layer.load_state_dict(_state(p))
     assert layer.router.w.dtype == torch.float32
     x = _x((2, 9, 16), 10)
-    want, _ = jax.jit(lambda p, x: jmlp.moe_apply(p, x, jcfg, dropless=dropless, **F32))(p, x)
+    want, want_aux = jax.jit(
+        lambda p, x: jmlp.moe_apply(p, x, jcfg, dropless=dropless, **F32))(p, x)
     with torch.no_grad():
-        got = layer(t(x), compute_dtype=torch.float32, dropless=dropless)
+        got, got_aux = layer(t(x), compute_dtype=torch.float32, dropless=dropless)
     _close(got, want)
+    if dropless:   # serving: the port computes no aux losses
+        assert got_aux == {}
+    else:
+        assert set(got_aux) == set(want_aux)
+        for k in want_aux:   # f32 means over 18 tokens: a few ulps
+            np.testing.assert_allclose(n(got_aux[k]), np.asarray(want_aux[k]), rtol=1e-6)
     # a zero router ties every expert: both pick the lowest indices, and the
     # capacity routing then drops the same tokens
     p0 = dict(p, router={"w": np.zeros_like(p["router"]["w"])})
     layer.router.w.data.zero_()
     want0, _ = jax.jit(lambda p, x: jmlp.moe_apply(p, x, jcfg, dropless=dropless, **F32))(p0, x)
     with torch.no_grad():
-        _close(layer(t(x), compute_dtype=torch.float32, dropless=dropless), want0)
+        _close(layer(t(x), compute_dtype=torch.float32, dropless=dropless)[0], want0)
 
 
 def test_rmsnorm_and_rope_match_jax():
