@@ -25,15 +25,32 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 512), each also against float64, with its backward;
   3. serve    — serve goom-rnn-124m at full width (24 layers, d=768, vocab
                 50257, seeded random weights, bf16 compute) through
-                ``Engine(max_slots=4, page_len=512, chunk=64)``: 6 requests,
-                two of which wait for a slot and join mid-batch.  Every
-                engine LMME and matrix-scan call must have launched its CUDA
-                kernel.  Once with ``scan_variant="shared_a"`` (every GOOM op
-                an LMME) and once with the paper-literal ``"generic"`` (B·u on
-                the LMME kernel, the recurrence one matrix-scan launch per
-                layer), each with a profiler trace of steady decode steps;
+                ``Engine(max_slots=4, page_len=512, chunk=64)``, its steps
+                CUDA graphs captured at first use and replayed: 6 requests,
+                two of which wait for a slot and join mid-batch, one stopping
+                at an EOS.  A warm-up pass on the same Engine captures the
+                graphs; the timed pass runs on replays.  Every engine LMME
+                and matrix-scan call, counted over captures and replays,
+                must have launched its CUDA kernel, and each replayed k-step
+                decode must stand for k eager steps' launches.  The same
+                requests at horizon 1 must give the same tokens.  Once with
+                ``scan_variant="shared_a"`` (every GOOM op an LMME) and once
+                with the paper-literal ``"generic"`` (B·u on the LMME kernel,
+                the recurrence one matrix-scan launch per layer).  Then:
+                trace — steady decode over 4 busy slots, graphed (horizon 8)
+                and eager (``decode_step`` and ``merge_frozen`` called as the
+                Engine before graphs did), each timed and profiled, and the
+                profiler's count of LMME, with-B and diagonal-scan kernels in
+                a replayed k=1 decode held to the eager step's launches;
+                prefix — 6 requests sharing a 256-token prefix (4 pages of
+                64), with and without prefix reuse: equal tokens, the hit
+                rate and the TTFT of hits and miss; for ``shared_a`` also
+                control — cancel, a deadline, streaming — and http — a
+                ``BackgroundServer`` with 4 concurrent clients (2 streaming
+                what the other 2 ask), ``/status``, and a client that hangs
+                up mid-stream;
   4. parity   — serve the same requests at f32 compute on the kernels and
-                under ``use_backend("torch_reference")``; tokens must agree
+                under ``backend="torch_reference"``; tokens must agree
                 except after a near tie (top-2 margin below 1e-4·std(logits)).
                 For ``generic`` also the prefill-logit gap to ``shared_a`` on
                 the same weights;
@@ -61,16 +78,20 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 bf16 weights built on the card, bf16 compute, f32 recurrent
                 state, through the same Engine and requests.  Every engine
                 diagonal_scan call must have launched the diagonal-scan
-                kernel, and no other GOOM op may run; a profiler trace of
-                steady decode steps; then the parity check of phase 4 at f32
-                compute on the same weights.
+                kernel, and no other GOOM op may run; the horizon, trace and
+                prefix checks of phase 3, a decode step's device time by
+                layer kind, then the parity check of phase 4 at f32 compute
+                on the same weights.
 
 ``--kernels`` runs phases 1 and 2 without the diagonal scan and stops: the
 loop for kernel work (``tools/kernels_ab.sh`` runs it on two checkouts in
 turns).
 
-The last lines are a JSON object of per-kernel numbers, the card's name and
-power limit (from nvidia-smi), and ``{"ok": true, "device": {...}}``.
+Before the last lines, one summary line a served path (graphed and eager
+decode step, tokens/s at horizons 8 and 1, tokens a dispatch, host syncs a
+token, prefix hit rate and TTFT).  The last lines are a JSON object of
+per-kernel numbers, the card's name and power limit (from nvidia-smi), and
+``{"ok": true, "device": {...}}``.
 TF32 is off for every float32 product (the default, set here explicitly).
 """
 
@@ -729,21 +750,26 @@ def pick_eos(outputs):
     raise RuntimeError("no request generated a fresh token to stop at")
 
 
-def serve(model, reqs, timed=False):
-    """Run ``reqs`` through a fresh Engine; returns (results, finish
-    reasons, stats).  All requests arrive at once; with 4 slots the last
-    ones wait and join mid-batch."""
+def serve(model, reqs, timed=False, eng=None, **engine_kw):
+    """Run ``reqs`` through ``eng`` (default: a fresh Engine with ``SERVE``
+    and ``engine_kw``); returns (results, finish reasons, stats).  All
+    requests arrive at once; with 4 slots the last ones wait and join
+    mid-batch.  ``decode_step_ms`` is the median, over dispatches that
+    admitted nobody, of a dispatch's wall time over its horizon."""
     import torch
 
     from repro_torch import Engine
 
-    eng = Engine(model, **SERVE)
+    if eng is None:
+        free_memory()
+        eng = Engine(model, **dict(SERVE, **engine_kw))
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ttft, decode_ms, results, reasons = {}, [], {}, {}
     joined_late, n_steps = 0, 0
+    steps0, d0 = eng.n_decode_steps, eng.decode_stats()
     while eng.has_work:
         admitted_before = len(reqs) - eng.n_waiting
         t_step = time.perf_counter()
@@ -757,19 +783,28 @@ def serve(model, reqs, timed=False):
             joined_late += admitted - admitted_before
         for r in reqs[:admitted]:
             ttft.setdefault(r.uid, now - t0)
-        if admitted == admitted_before and eng.n_decode_steps:
-            decode_ms.append((now - t_step) * 1e3)
+        if admitted == admitted_before and eng.n_decode_steps > steps0:
+            decode_ms.append((now - t_step) * 1e3 / eng.decode_stats()["last_horizon"])
         for uid in done:
-            results[uid] = eng.result(uid)
             reasons[uid] = eng.finish_reason(uid)
+            results[uid] = eng.pop_result(uid)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_tok = sum(len(v) for v in results.values())
     stats = dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
                  ttft_ms={u: 1e3 * s for u, s in ttft.items()},
                  decode_step_ms=statistics.median(decode_ms) if decode_ms else None,
-                 decode_steps=eng.n_decode_steps, joined_late=joined_late)
+                 decode_steps=eng.n_decode_steps - steps0, joined_late=joined_late,
+                 decode=_decode_delta(d0, eng.decode_stats()),
+                 prefix=eng.prefix_stats(), graphs=eng.graphs.n_graphs)
     return results, reasons, stats
+
+
+def _decode_delta(before, after):
+    """``Engine.decode_stats()`` of the requests served between two reads."""
+    d = {k: after[k] - before[k] for k in ("dispatches", "decode_steps", "host_syncs")}
+    return dict(d, tokens_per_dispatch=d["decode_steps"] / max(d["dispatches"], 1),
+                syncs_per_token=d["host_syncs"] / max(d["decode_steps"], 1))
 
 
 def check_finished(reqs, results, reasons):
@@ -796,12 +831,15 @@ def with_scan_variant(cfg, variant: str):
 
 
 def reset_counts():
-    """Every kernel's launch count and every engine call count to 0."""
+    """Every kernel's launch count, every engine call count and the graph
+    replays' tallies to 0."""
     from repro_torch.core import engine
     from repro_torch.kernels.goom_scan import diagonal_scan_cuda, matrix_scan_cuda
     from repro_torch.kernels.lmme import lmme_cuda
+    from repro_torch.serve import graphs
 
     engine.reset_calls()
+    graphs.reset_replays()
     lmme_cuda.launches = 0
     lmme_cuda.launches_batched = 0
     matrix_scan_cuda.launches = 0
@@ -811,14 +849,16 @@ def reset_counts():
 
 
 def read_counts():
-    """(launches by kernel, engine calls by op) since ``reset_counts``."""
+    """(launches by kernel, engine calls by op) since ``reset_counts``, over
+    eager calls, graph captures and graph replays: a replay moves no wrapper
+    count, so each adds its graph's captured launches and calls."""
     from repro_torch.core import engine
-    from repro_torch.kernels.goom_scan import diagonal_scan_cuda, matrix_scan_cuda
-    from repro_torch.kernels.lmme import lmme_cuda
+    from repro_torch.serve import graphs
 
-    return ({"lmme": lmme_cuda.launches, "matrix_scan": matrix_scan_cuda.launches,
-             "matrix_scan_zero_b": matrix_scan_cuda.launches_zero_b,
-             "diag_scan": diagonal_scan_cuda.launches}, dict(engine.calls))
+    launches = {k: v + graphs.replayed["launches"].get(k, 0)
+                for k, v in graphs.kernel_launches().items()}
+    calls = {k: v + graphs.replayed["calls"].get(k, 0) for k, v in engine.calls.items()}
+    return launches, calls
 
 
 def check_launches(launches, calls, path, used):
@@ -845,9 +885,14 @@ USED = {"shared_a": {"lmme"}, "generic": {"lmme", "matrix_scan"},
 
 
 def serve_phase(cfg, model=None):
+    """Serve the 6 requests through the graphed Engine at its default
+    horizon (8): a warm-up pass on the same Engine captures its graphs and
+    picks an EOS token, the prefix index is cleared, and the timed pass
+    runs on replays alone.  Then the same requests through a k=1 Engine:
+    tokens must be equal."""
     import torch
 
-    from repro_torch import DecoderLM
+    from repro_torch import DecoderLM, Engine
 
     variant = path_label(cfg)
     t0 = time.perf_counter()
@@ -862,15 +907,20 @@ def serve_phase(cfg, model=None):
           f"in {cfg.param_dtype}), built in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # warm-up pass (allocator, cuBLAS); it also picks the EOS token, one a
-    # request first generates mid-decode
-    warm, _, _ = serve(model, requests(cfg.vocab))
+    # warm-up pass: captures every graph (allocator, cuBLAS, the kernels'
+    # libraries at their first warm-up run); it also picks the EOS token,
+    # one a request first generates mid-decode
+    eng = Engine(model, **SERVE)
+    t0 = time.perf_counter()
+    warm, _, _ = serve(model, requests(cfg.vocab), eng=eng)
+    t_warm = time.perf_counter() - t0
     eos = pick_eos(warm)
     reqs = requests(cfg.vocab, eos=eos)
+    eng._index.clear()   # the timed pass runs cold, as the warm-up did
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    results, reasons, stats = serve(model, reqs, timed=True)
+    results, reasons, stats = serve(model, reqs, timed=True, eng=eng)
     launches, calls = read_counts()
     peak = torch.cuda.max_memory_allocated()
     check_launches(launches, calls, f"serve [{variant}]", USED[variant])
@@ -881,9 +931,16 @@ def serve_phase(cfg, model=None):
         :len(results[eos[0]])], f"request {eos[0]} did not stop at EOS {eos[1]}")
     check(all(0 <= t < cfg.vocab for v in results.values() for t in v),
           "token id out of vocabulary")
+    captured = eng.graphs.captured()
+    del eng
 
-    # what one decode step and one prefill chunk cost in launches, and a
-    # look at the logits themselves
+    # the same requests at horizon 1: equal tokens
+    res1, reasons1, stats1 = serve(model, requests(cfg.vocab, eos=eos), eos_scan_every=1)
+    check(res1 == results and reasons1 == reasons,
+          f"serve [{variant}]: horizon 1 and horizon 8 tokens differ")
+
+    # what one eager decode step and one prefill chunk cost in launches,
+    # and a look at the logits themselves
     with torch.no_grad():
         reset_counts()
         logits, _ = model.decode_step(torch.zeros(4, 1, dtype=torch.long, device=DEVICE),
@@ -897,60 +954,161 @@ def serve_phase(cfg, model=None):
         per_chunk = read_counts()[0]
     check(tuple(logits.shape) == (4, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
           and bool(torch.isfinite(chunk_logits).all()), "non-finite or misshapen logits")
+    # a replayed k-step decode stands for k eager steps' launches (the CPU
+    # of a rehearsal captures nothing)
+    check(DEVICE == "cpu" or {"prefill_chunk", "prefill_tail", "admit_chunk",
+                              "admit_tail", "decode_k1", "decode_k8"} <= set(captured),
+          f"serve [{variant}]: graphs captured {sorted(captured)}")
+    for k in (1, 8) if captured else ():
+        got = captured[f"decode_k{k}"]["launches"]
+        check(all(got.get(n, 0) == k * v for n, v in per_decode.items()),
+              f"serve [{variant}]: decode_k{k} graph launches {got}, eager step {per_decode}")
 
     ttft = stats["ttft_ms"]
+    d8, d1 = stats["decode"], stats1["decode"]
     print(f"serve [{variant}]: {stats['tokens']} tokens in {stats['wall_s']:.3f} s = "
-          f"{stats['tokens_per_s']:.1f} tokens/s; TTFT ms by request "
+          f"{stats['tokens_per_s']:.1f} tokens/s (graphed, horizon 8; warm-up pass with "
+          f"{len(captured)} captures {t_warm:.1f} s); TTFT ms by request "
           + ", ".join(f"{u}:{ttft[u]:.1f}" for u in sorted(ttft))
-          + f"; decode step {stats['decode_step_ms']:.2f} ms (median, 4 slots); "
-          f"{stats['decode_steps']} decode steps; {stats['joined_late']} "
-          f"requests joined mid-batch; peak memory "
-          f"{peak / 2**30:.2f} GiB", flush=True)
+          + f"; decode step {stats['decode_step_ms']:.3f} ms (median a token step, "
+          f"4 slots); {stats['decode_steps']} decode steps; {stats['joined_late']} "
+          f"requests joined mid-batch; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"serve [{variant}]: horizon 8: {d8['dispatches']} dispatches, "
+          f"{d8['tokens_per_dispatch']:.2f} tokens a dispatch, {d8['host_syncs']} host "
+          f"syncs = {d8['syncs_per_token']:.3f} a token; horizon 1: {d1['dispatches']} "
+          f"dispatches, {d1['host_syncs']} host syncs = {d1['syncs_per_token']:.3f} a "
+          f"token, {stats1['tokens_per_s']:.1f} tokens/s (capture included); tokens "
+          f"equal", flush=True)
     print(f"serve [{variant}]: finish reasons {reasons}; launches {launches} == "
-          f"engine calls {calls}; launches per decode step (4 slots) {per_decode}, "
-          f"per 64-token prefill chunk {per_chunk}", flush=True)
+          f"engine calls {calls} (captures and replays); launches per eager decode "
+          f"step (4 slots) {per_decode}, per 64-token prefill chunk {per_chunk}; per "
+          f"graph replay " + ", ".join(f"{n} {c['launches']}" for n, c in captured.items()),
+          flush=True)
     return model, reqs, dict(stats, launches=launches, peak_bytes=peak,
-                             per_decode=per_decode, per_chunk=per_chunk)
+                             per_decode=per_decode, per_chunk=per_chunk,
+                             decode_k1=d1, tokens_per_s_k1=stats1["tokens_per_s"])
 
 
-def trace_phase(model):
-    """A profiler trace of steady decode steps over 4 busy slots: device
-    busy ms per step, each kernel's part of it, kernels per step, and the
-    card's idle share against the step's unprofiled wall time."""
-    import torch
+def _kernel_kinds(prof):
+    """Kernels by kind in a profiler trace: the LMME, with-B matrix scan and
+    diagonal scan kernels (by their names in csrc/), and all."""
     from torch.autograd import DeviceType
 
-    from repro_torch import Engine, Request
+    kinds = {"lmme": 0, "matrix_scan": 0, "diag_scan": 0, "all": 0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kinds["all"] += 1
+        if "lmme_" in e.name and "kernel" in e.name:
+            kinds["lmme"] += 1
+        elif "matrix_scan_" in e.name and "zero_b" not in e.name:
+            kinds["matrix_scan"] += 1
+        elif "diag_scan_kernel" in e.name:
+            kinds["diag_scan"] += 1
+    return kinds
 
-    variant = path_label(model.cfg)
-    n_steps = 8
-    eng = Engine(model, **SERVE)
-    for i in range(SERVE["max_slots"]):
-        eng.submit(Request(uid=i, prompt=[i + 1], max_new_tokens=3 * n_steps + 4))
-    for _ in range(4):  # admission, then warm decode steps
-        eng.step()
+
+def _profiled(fn, iters):
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def _timed(fn, iters):
+    import torch
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(n_steps):
-        eng.step()
+    for _ in range(iters):
+        fn()
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n_steps):
-            eng.step()
-        torch.cuda.synchronize()
-    eng.run()
-    n_dev = sum(e.device_type == DeviceType.CUDA for e in prof.events())
-    busy = _device_ms(prof) / n_steps
-    parts = {k: _device_ms(prof, k) / n_steps for k in ("lmme", "matrix_scan", "diag_scan")}
-    print(f"trace [{variant}]: decode step (4 slots) {step_ms:.3f} ms wall, device "
-          f"busy {busy:.3f} ms in {n_dev / n_steps:.0f} kernels, of which LMME "
-          f"{parts['lmme']:.3f} ms, matrix scan {parts['matrix_scan']:.3f} ms and "
-          f"diagonal scan {parts['diag_scan']:.3f} ms; device idle share "
-          f"{1 - busy / step_ms:.3f}", flush=True)
-    return dict(step_ms=step_ms, busy_ms=busy, kernels=n_dev / n_steps,
-                idle=1 - busy / step_ms, **parts)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def trace_phase(model, per_decode):
+    """Steady decode over 4 busy slots, graphed and eager, in one run.
+
+    Graphed: the Engine's horizon-8 dispatches (a replayed graph each),
+    timed by wall clock and profiled: per token step the wall, the device
+    busy ms, kernels and idle share.  The profiler's count of LMME, with-B
+    scan and diagonal-scan kernels in one replayed k=1 decode must equal the
+    eager step's launches.  Eager: ``model.decode_step`` plus
+    ``merge_frozen`` called directly, as the Engine before graphs ran it
+    (with its per-step token read)."""
+    import torch
+
+    from repro_torch import Engine, Request
+    from repro_torch.serve import merge_frozen
+
+    variant = path_label(model.cfg)
+    n_disp, k = 6, 8
+    eng = Engine(model, **SERVE)
+    for i in range(SERVE["max_slots"]):
+        eng.submit(Request(uid=i, prompt=[i + 1], max_new_tokens=SERVE["page_len"] - 8))
+    for _ in range(3):  # admission and the captures, then a warm dispatch
+        eng.step()
+    check(eng.decode_stats()["last_horizon"] == k, "trace: the horizon is not 8")
+    wall = _timed(eng.step, n_disp) / k
+    prof = _profiled(eng.step, n_disp)
+    busy = _device_ms(prof) / (n_disp * k)
+    kinds = _kernel_kinds(prof)
+    parts = {n: _device_ms(prof, n) / (n_disp * k) for n in ("lmme", "matrix_scan", "diag_scan")}
+    graphed = dict(step_ms=wall, busy_ms=busy, kernels=kinds["all"] / (n_disp * k),
+                   idle=1 - busy / wall, **parts)
+    for i in range(SERVE["max_slots"]):
+        eng.cancel(i)
+
+    # one replayed k=1 decode: its kernels, counted by the profiler
+    fn = eng._decode_fn(1)
+    args = (eng._tokens, eng._caches, eng._pos, eng._term, eng._blocks[1])
+    eng.graphs.run("decode_k1", fn, *args)
+    reps = 4
+    kinds1 = _kernel_kinds(_profiled(lambda: eng.graphs.run("decode_k1", fn, *args), reps))
+    for name in ("lmme", "matrix_scan", "diag_scan"):
+        check(kinds1[name] == reps * per_decode[name],
+              f"trace [{variant}]: the profiler saw {kinds1[name]} {name} kernels in "
+              f"{reps} replayed decode steps; an eager step launches {per_decode[name]}")
+    del eng
+
+    # the eager step, as the Engine ran it before graphs
+    b = SERVE["max_slots"]
+    state = dict(caches=model.init_caches(b, SERVE["page_len"]),
+                 tok=torch.arange(1, b + 1, device=DEVICE), pos=torch.zeros(
+                     b, dtype=torch.long, device=DEVICE))
+    live = torch.ones(b, dtype=torch.bool, device=DEVICE)
+
+    @torch.no_grad()
+    def eager_step():
+        logits, stepped = model.decode_step(state["tok"][:, None], state["caches"],
+                                            state["pos"])
+        state["caches"] = merge_frozen(stepped, state["caches"], live)
+        state["tok"] = torch.where(live, torch.argmax(logits[:, -1, :], dim=-1), state["tok"])
+        state["pos"] = torch.where(live, state["pos"] + 1, state["pos"])
+        state["tok"].tolist()
+
+    eager_step()
+    n_eager = 8
+    e_wall = _timed(eager_step, n_eager)
+    e_prof = _profiled(eager_step, n_eager)
+    e_busy = _device_ms(e_prof) / n_eager
+    eager = dict(step_ms=e_wall, busy_ms=e_busy,
+                 kernels=_kernel_kinds(e_prof)["all"] / n_eager, idle=1 - e_busy / e_wall)
+    for name, r in (("graphed (horizon 8)", graphed), ("eager", eager)):
+        print(f"trace [{variant}]: {name} decode step (4 slots) {r['step_ms']:.3f} ms "
+              f"wall, device busy {r['busy_ms']:.3f} ms in {r['kernels']:.0f} kernels; "
+              f"device idle share {r['idle']:.3f}", flush=True)
+    print(f"trace [{variant}]: graphed step's LMME {parts['lmme']:.3f} ms, matrix scan "
+          f"{parts['matrix_scan']:.3f} ms, diagonal scan {parts['diag_scan']:.3f} ms; "
+          f"a replayed k=1 decode holds {kinds1['lmme'] // reps} LMME, "
+          f"{kinds1['matrix_scan'] // reps} with-B scan and {kinds1['diag_scan'] // reps} "
+          f"diagonal-scan kernels (the eager step's launches)", flush=True)
+    return dict(graphed, eager=eager)
 
 
 def parity_phase(model, cfg, reqs, compare_variant=None):
@@ -1001,7 +1159,7 @@ def _parity(m32, cfg32, reqs, variant, compare_variant):
               f"{compare_variant} on the same weights: max |diff| "
               f"{float((lg_kernel - lg_other).abs().max()):.3e}", flush=True)
     with engine.use_backend("torch_reference"):
-        want, _, _ = serve(m32, reqs)
+        want, _, _ = serve(m32, reqs, backend="torch_reference")
         compared, stopped = 0, []
         for r in reqs:
             g, w = got[r.uid], want[r.uid]
@@ -1025,6 +1183,207 @@ def _parity(m32, cfg32, reqs, variant, compare_variant):
           f"compared equal; stopped at near ties {stopped or 'none'}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return compared
+
+
+# ---------------------------------------------------------------------------
+# serving: prefix reuse, request control, the HTTP front door
+# ---------------------------------------------------------------------------
+PREFIX_LEN = 256            # 4 pages of 64, shared by the prefix requests
+PREFIX_SUFFIXES = [17, 40, 64, 5, 33, 1]
+
+
+def _streamed_ttft(eng, reqs):
+    """Serve ``reqs`` one at a time through ``eng``, each streamed: TTFT ms
+    (submit to the first token's event) and the tokens, by uid."""
+    import torch
+
+    from repro_torch import Request
+
+    first, toks = {}, {}
+
+    def on_event(uid, new, reason):
+        first.setdefault(uid, time.perf_counter())
+        toks.setdefault(uid, []).extend(new)
+
+    eng.stream_callback = on_event
+    ttft = {}
+    for r in reqs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.submit(Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+                           stream=True))
+        while eng.has_work:
+            eng.step()
+        ttft[r.uid] = (first[r.uid] - t0) * 1e3
+        check(eng.pop_result(r.uid) == toks[r.uid], f"request {r.uid}: streamed tokens "
+              "differ from the result")
+    eng.stream_callback = None
+    return ttft, toks
+
+
+def prefix_phase(model):
+    """Requests sharing a 256-token prefix (4 pages of 64), served one at a
+    time through an Engine with prefix reuse and one without, both graphed
+    and warmed on other prompts first: tokens equal, a hit rate above 0,
+    and the TTFT of the hits against the miss."""
+    import numpy as np
+
+    from repro_torch import Engine, Request
+
+    variant = path_label(model.cfg)
+    rng = np.random.default_rng(SEED + 7)
+    vocab = model.cfg.vocab
+    shared = rng.integers(0, vocab, size=PREFIX_LEN).tolist()
+    reqs = [Request(uid=i, prompt=shared + rng.integers(0, vocab, size=n).tolist(),
+                    max_new_tokens=8) for i, n in enumerate(PREFIX_SUFFIXES)]
+    warm = [Request(uid=f"w{n}", prompt=rng.integers(0, vocab, size=n).tolist(),
+                    max_new_tokens=4) for n in (64, 65)]
+    out = {}
+    for reuse in (True, False):
+        eng = Engine(model, prefix_reuse=reuse, **SERVE)
+        _streamed_ttft(eng, warm)
+        eng._index.clear()
+        base = eng.prefix_stats()
+        ttft, toks = _streamed_ttft(eng, reqs)
+        st = eng.prefix_stats()
+        out[reuse] = dict(ttft=ttft, toks=toks, hits=st["hits"] - base["hits"],
+                          lookups=st["lookups"] - base["lookups"],
+                          saved=st["prefill_tokens_saved"] - base["prefill_tokens_saved"])
+        del eng
+    on, off = out[True], out[False]
+    check(on["toks"] == off["toks"], f"prefix [{variant}]: tokens with prefix reuse "
+          "differ from those without")
+    check(on["hits"] == len(reqs) - 1 and on["saved"] > 0 and off["hits"] == 0,
+          f"prefix [{variant}]: hits {on['hits']}, tokens saved {on['saved']}")
+    hits = range(1, len(reqs))
+    hit_ttft = statistics.median(on["ttft"][i] for i in hits)
+    res = dict(hit_rate=on["hits"] / on["lookups"], saved=on["saved"],
+               ttft_miss_ms=on["ttft"][0], ttft_hit_ms=hit_ttft,
+               ttft_no_reuse_ms=statistics.median(off["ttft"][i] for i in hits))
+    print(f"prefix [{variant}]: {len(reqs)} requests sharing a {PREFIX_LEN}-token "
+          f"prefix: hit rate {res['hit_rate']:.3f}, prefill tokens saved {on['saved']}; "
+          f"TTFT ms: the miss {res['ttft_miss_ms']:.2f} ({off['ttft'][0]:.2f} without "
+          f"reuse), the hits (median) {hit_ttft:.2f} ({res['ttft_no_reuse_ms']:.2f} for "
+          f"the same requests without reuse); by request with / without reuse "
+          + ", ".join(f"{i}:{on['ttft'][i]:.1f}/{off['ttft'][i]:.1f}" for i in on["ttft"])
+          + "; tokens equal to the no-reuse engine's", flush=True)
+    return res
+
+
+def control_phase(model):
+    """Cancel, deadline and streaming on the graphed Engine at full width."""
+    from repro_torch import CANCELLED, Engine, Request
+
+    vocab = model.cfg.vocab
+    reqs = requests(vocab)
+    eng = Engine(model, **SERVE)
+    base = eng.run([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=32)
+                    for r in reqs[:3]])
+    # cancel an active request: its slot frees at once
+    for r in reqs[:3]:
+        eng.submit(Request(uid=r.uid, prompt=r.prompt, max_new_tokens=32))
+    eng.step()
+    eng.step()
+    check(eng.n_active == 3, f"control: {eng.n_active} active")
+    check(eng.cancel(1) and eng.n_active == 2 and eng._alloc.n_used == 2,
+          "control: cancel did not free the slot")
+    while eng.has_work:
+        eng.step()
+    check(eng.result(1) is CANCELLED and eng.finish_reason(1) == "cancelled",
+          "control: the cancelled request's result")
+    check(eng.result(0) == base[0] and eng.result(2) == base[2],
+          "control: the others' tokens changed when one was cancelled")
+    for uid in range(3):
+        eng.pop_result(uid)
+    # a deadline passes mid-decode: "timeout" with partial output
+    budget = SERVE["page_len"] - len(reqs[3].prompt)
+    eng.submit(Request(uid="t", prompt=reqs[3].prompt, max_new_tokens=budget,
+                       deadline_ms=40.0))
+    while eng.has_work:
+        eng.step()
+    part, why = eng.result("t"), eng.finish_reason("t")
+    eng.pop_result("t")
+    full = eng.run([Request(uid="f", prompt=reqs[3].prompt, max_new_tokens=budget)])["f"]
+    check(why == "timeout" and 0 < len(part) < budget and part == full[:len(part)],
+          f"control: deadline gave {why} with {len(part)} tokens")
+    # streamed tokens equal non-streamed ones
+    _, toks = _streamed_ttft(eng, reqs[:3])
+    check(all(toks[r.uid] == base[r.uid][:r.max_new_tokens] for r in reqs[:3]),
+          "control: streamed tokens differ")
+    print(f"control: cancel freed its slot (result CANCELLED), the others' tokens "
+          f"unchanged; a 40 ms deadline gave \"timeout\" after {len(part)} of {budget} "
+          f"tokens, a prefix of the full run; streamed tokens equal", flush=True)
+
+
+def http_phase(model):
+    """``BackgroundServer`` over the model on the card: 4 concurrent clients,
+    2 streaming the prompts the other 2 ask without streaming; then one
+    client hangs up mid-stream."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch import Engine
+    from repro_torch.serve.api import BackgroundServer, Gateway
+    from repro_torch.serve.api import client as api_client
+
+    eng = Engine(model, **SERVE)
+    srv = BackgroundServer(Gateway(eng, max_queue=16)).start()
+    host, port = srv.host, srv.port
+    try:
+        rng = np.random.default_rng(SEED + 3)
+        prompts = [rng.integers(0, model.cfg.vocab, size=min(n, SERVE["page_len"] // 4)).tolist()
+                   for n in (70, 130)]
+        api_client.completion(host, port, {"prompt": prompts[0][:65], "max_tokens": 4})
+        out = [None] * 4
+
+        def client(i):
+            payload = {"prompt": prompts[i % 2], "max_tokens": 24}
+            try:
+                if i < 2:
+                    out[i] = [e["choices"][0]["token"]
+                              for e in api_client.stream_completion(host, port, payload)]
+                else:
+                    out[i] = api_client.completion(host, port, payload)["choices"][0]["tokens"]
+            except Exception as e:  # reported by the check below
+                out[i] = e
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        check(all(isinstance(o, list) and len(o) == 24 for o in out),
+              f"http: client results {out}")
+        check(out[0] == out[2] and out[1] == out[3],
+              "http: streamed tokens differ from non-streamed ones")
+        status = api_client.get_status(host, port)
+        check("decode" in status and "prefix_cache" in status
+              and status["decode"]["dispatches"] > 0, "http: /status sections")
+        gen = api_client.stream_completion(host, port, {
+            "prompt": prompts[1], "max_tokens": SERVE["page_len"] - len(prompts[1])})
+        next(gen)
+        gen.close()
+        t_end = time.monotonic() + 30
+        while time.monotonic() < t_end and (eng.has_work or srv.gateway.queue_depth()):
+            time.sleep(0.01)
+        status = api_client.get_status(host, port)
+        cancelled = status["requests"]["by_finish_reason"].get("cancelled", 0)
+        check(cancelled >= 1 and status["engine"]["n_active"] == 0,
+              f"http: after a disconnect cancelled={cancelled}, "
+              f"n_active={status['engine']['n_active']}")
+    finally:
+        srv.stop()
+    dec = status["decode"]
+    print(f"http: 4 concurrent clients (2 streaming) in {wall:.3f} s, streamed == "
+          f"non-streamed; /status decode {dec['dispatches']} dispatches, "
+          f"{dec['tokens_per_dispatch']:.2f} tokens a dispatch, prefix hits "
+          f"{status['prefix_cache']['hits']}; a disconnect mid-stream: cancelled "
+          f"{cancelled}, n_active 0; TTFT p50 {status['latency_ms']['ttft']['p50']:.2f} "
+          f"ms", flush=True)
+    return dict(wall_s=wall, status=status)
 
 
 # ---------------------------------------------------------------------------
@@ -1477,6 +1836,16 @@ def layer_breakdown(model):
     return out
 
 
+def free_memory():
+    """Return dead Engines' graph pools and caches to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def jamba_config():
     """jamba-v0.1 at full width, cut to ``JAMBA_PERIODS`` whole 8-layer
     periods, parameters in bf16."""
@@ -1528,7 +1897,10 @@ def main() -> int:
     elapsed("kernels")
     cfg = get_config("goom-rnn-124m")
     model, reqs, stats = serve_phase(cfg)
-    trace_phase(model)
+    traces = {"shared_a": trace_phase(model, stats["per_decode"])}
+    prefix = {"shared_a": prefix_phase(model)}
+    control_phase(model)
+    http = http_phase(model)
     parity_phase(model, cfg, reqs)
     elapsed("shared_a")
     cfg_g = with_scan_variant(cfg, "generic")
@@ -1537,7 +1909,8 @@ def main() -> int:
     model_g.load_state_dict(model.state_dict())
     del model
     model_g, _, stats_g = serve_phase(cfg_g, model_g)
-    trace_phase(model_g)
+    traces["generic"] = trace_phase(model_g, stats_g["per_decode"])
+    prefix["generic"] = prefix_phase(model_g)
     parity_phase(model_g, cfg_g, reqs, compare_variant="shared_a")
     del model_g
     elapsed("generic")
@@ -1554,11 +1927,25 @@ def main() -> int:
     elapsed("experiments")
     cfg_j = jamba_config()
     model_j, reqs_j, stats_j = serve_phase(cfg_j)
-    trace_j = trace_phase(model_j)
+    trace_j = traces["jamba-v0.1"] = trace_phase(model_j, stats_j["per_decode"])
+    prefix["jamba-v0.1"] = prefix_phase(model_j)
     layer_breakdown(model_j)
+    free_memory()
     parity_phase(model_j, cfg_j, reqs_j)
     del model_j
     elapsed("jamba")
+    for (path, st), tr in zip((("shared_a", stats), ("generic", stats_g),
+                               ("jamba-v0.1", stats_j)), traces.values()):
+        pf = prefix[path]
+        print(f"summary [{path}]: decode step (4 slots) graphed {tr['step_ms']:.3f} ms "
+              f"wall / {tr['busy_ms']:.3f} ms busy / idle {tr['idle']:.3f}, eager "
+              f"{tr['eager']['step_ms']:.3f} / {tr['eager']['busy_ms']:.3f} / "
+              f"{tr['eager']['idle']:.3f}; {st['tokens_per_s']:.1f} tokens/s at horizon "
+              f"8, {st['tokens_per_s_k1']:.1f} at 1; {st['decode']['tokens_per_dispatch']:.2f}"
+              f" tokens a dispatch, {st['decode']['syncs_per_token']:.3f} host syncs a "
+              f"token; prefix hit rate {pf['hit_rate']:.3f}, TTFT hit "
+              f"{pf['ttft_hit_ms']:.2f} ms vs miss {pf['ttft_miss_ms']:.2f} ms; peak "
+              f"{st['peak_bytes'] / 2**30:.2f} GiB; {card}", flush=True)
 
     # each kernel's row: the shape its main path launches most, and the
     # launches of the run of that path (the other paths' beside them)

@@ -9,7 +9,7 @@ from .configs import get_config
 from .convert import params_from_jax
 from .core import Goom, engine, from_goom, to_goom
 from .models import DecoderLM
-from .serve import ChunkedPrefill, Engine, Request
+from .serve import CANCELLED, ChunkedPrefill, Engine, Request
 
 __all__ = ["get_config", "params_from_jax", "Goom", "engine", "from_goom",
-           "to_goom", "DecoderLM", "ChunkedPrefill", "Engine", "Request"]
+           "to_goom", "DecoderLM", "CANCELLED", "ChunkedPrefill", "Engine", "Request"]

@@ -1,7 +1,7 @@
-"""Attention: causal GQA with RoPE and a dense per-slot KV cache.
+"""Attention: causal GQA with RoPE over a dense or a paged KV cache.
 
 Counterpart of ``repro/models/attention.py`` for global attention (no
-sliding window, biases, q/k norms or M-RoPE).  Three paths, each the JAX
+sliding window, biases, q/k norms or M-RoPE).  Four paths, each the JAX
 package's arithmetic:
 
   * no cache: causal self-attention over the sequence (``flash_attention``,
@@ -10,7 +10,10 @@ package's arithmetic:
     K/V are written into the cache at the row's ``index`` and the chunk
     attends over everything cached so far;
   * a cache and S == 1: decode (``_decode_attention``): each row writes at
-    its own ``index`` and attends over its cache row.
+    its own ``index`` and attends over its cache row;
+  * a paged cache (one with ``pages``) and S == 1: decode against the
+    shared page pool (``_paged_decode_attention``, see
+    :func:`init_paged_cache`).
 
 Scores and the softmax are f32; ``p`` is cast to the value dtype before
 the product and the sum is divided out after the f32 accumulation.  The KV
@@ -93,6 +96,10 @@ class Attention(nn.Module):
             pos = positions[0]
             causal = (pos[None, :] <= pos[:, None])[None]
             out = _attend(q, k, v, causal, scale, fill=-torch.inf, p_dtype=cd)
+        elif "pages" in cache:
+            if s != 1:
+                raise ValueError("a paged KV cache takes one token per row")
+            out, new_cache = self._paged_decode(q, k, v, cache, scale)
         elif s > 1:
             out, new_cache = self._prefill(q, k, v, cache, positions, scale)
         else:
@@ -138,6 +145,37 @@ class Attention(nn.Module):
         return out, {"k": k, "v": v, "index": index + 1}
 
 
+    @staticmethod
+    def _paged_decode(q, k_new, v_new, cache: Cache, scale):
+        """One token per row against the page pool: write the new K/V at
+        ``(pages[row, index // ps], index % ps)``, then gather each row's
+        pages into a dense (B, L, KVH, D) view and attend over positions
+        up to ``index``.
+
+        Unlike the JAX package's functional update, the write lands in the
+        pool in place (the returned ``k``/``v`` are the pool itself).  A
+        row whose table holds the trash page id (a cleared or frozen slot)
+        writes into the trash page and reads it back; the validity mask
+        gives every position past ``index`` exactly zero probability, so a
+        live row's output is the dense path's."""
+        b = q.shape[0]
+        pool_k, pool_v, pages = cache["k"], cache["v"], cache["pages"]
+        ps, mb = pool_k.shape[1], pages.shape[1]
+        length = mb * ps
+        index = cache["index"]
+        rows = torch.arange(b, device=q.device)
+        page = pages[rows, (index // ps).clamp(max=mb - 1)]
+        at = (page, index % ps)
+        pool_k.index_put_(at, k_new[:, 0].to(pool_k.dtype))
+        pool_v.index_put_(at, v_new[:, 0].to(pool_v.dtype))
+        kg = pool_k[pages].reshape((b, length) + pool_k.shape[2:])
+        vg = pool_v[pages].reshape((b, length) + pool_v.shape[2:])
+        slots = torch.arange(length, device=q.device)
+        valid = (slots[None, :] <= index[:, None])[:, None, :]
+        out = _attend(q, kg, vg, valid, scale, fill=NEG_INF, p_dtype=vg.dtype)
+        return out, {"k": pool_k, "v": pool_v, "pages": pages, "index": index + 1}
+
+
 def attention_init_cache(batch: int, cfg: AttentionCfg, max_len: int, *,
                          device) -> Cache:
     """Dense bf16 KV rows of ``max_len`` positions and a per-row ``index``
@@ -145,4 +183,26 @@ def attention_init_cache(batch: int, cfg: AttentionCfg, max_len: int, *,
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "index": torch.zeros(batch, dtype=torch.long, device=device)}
+
+
+def init_paged_cache(batch: int, cfg: AttentionCfg, page_size: int, n_pages: int,
+                     max_blocks: int, *, device) -> Cache:
+    """Block-granular paged decode cache (serve slot caches).
+
+    K/V live in a pool of ``n_pages`` pages of ``page_size`` tokens shared by
+    the ``batch`` slots; each slot's ``(max_blocks,)`` page table maps its
+    block b to the page holding positions [b*ps, (b+1)*ps).  Page id
+    ``n_pages`` is the sentinel, as in the JAX package, but the pool holds
+    one page more: the sentinel is a real trash page.  JAX drops writes
+    through the sentinel and clamps reads to some pool page; in PyTorch an
+    out-of-range index is a device-side assert, so sentinel writes land in
+    the trash page and sentinel reads come from it, masked to zero
+    probability.  Tables start at the sentinel: no slot owns a page until
+    admission assigns it."""
+    shape = (n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "pages": torch.full((batch, max_blocks), n_pages, dtype=torch.long,
+                                device=device),
             "index": torch.zeros(batch, dtype=torch.long, device=device)}

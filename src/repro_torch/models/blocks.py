@@ -12,13 +12,13 @@ output (empty for the other channels and when serving).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..configs.base import BlockCfg
-from .attention import Attention, attention_init_cache
+from .attention import Attention, attention_init_cache, init_paged_cache
 from .goom_layer import GoomSSM, goom_ssm_init_state
 from .mlp import Mlp, Moe
 from .norms import make_norm
@@ -81,15 +81,22 @@ class Block(nn.Module):
 
 
 def block_init_cache(blk: BlockCfg, batch: int, *, device,
-                     max_len: Optional[int] = None) -> Cache:
+                     max_len: Optional[int] = None,
+                     kv_pages: Optional[Tuple[int, int, int]] = None) -> Cache:
     """One layer's decode state, every leaf leading with ``batch``: the GOOM
     carry, Mamba's conv tail and SSM state, or attention's KV rows of
-    ``max_len`` positions with a per-row index."""
+    ``max_len`` positions with a per-row index.  ``kv_pages=(page_size,
+    n_pages, max_blocks)`` puts attention's KV in a paged pool instead
+    (``attention.init_paged_cache``)."""
     if blk.mixer == "goom_ssm":
         return goom_ssm_init_state(batch, blk.goom, device=device)
     if blk.mixer == "mamba":
         return mamba_init_state(batch, blk.mamba, device=device)
     if blk.mixer == "attention":
+        if kv_pages is not None:
+            ps, n_pages, max_blocks = kv_pages
+            return init_paged_cache(batch, blk.attn, ps, n_pages, max_blocks,
+                                    device=device)
         if max_len is None:
             raise ValueError("an attention layer's cache needs max_len")
         return attention_init_cache(batch, blk.attn, max_len, device=device)

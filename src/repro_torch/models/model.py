@@ -9,9 +9,10 @@ to XLA outside any kernel.
 Training: ``loss(tokens, labels)``, the JAX package's next-token CE with
 the MoE's aux losses added (``repro/models/model.py::DecoderLM.loss``).
 
-Serving API (what ``serve.Engine`` drives): ``init_caches``, ``prefill`` and
-``decode_step``.  Caches are a list with one dict per layer: the layer's
-GOOM carry, Mamba state, or attention KV rows with a per-row index.
+Serving API (what ``serve.Engine`` drives): ``init_caches``,
+``init_slot_caches`` (the paged KV pool), ``prefill`` and ``decode_step``.
+Caches are a list with one dict per layer: the layer's GOOM carry, Mamba
+state, or attention KV rows (or page pool and tables) with a per-row index.
 ``positions`` are absolute, per row; attention layers rotate by them and
 the recurrent layers ignore them.
 """
@@ -125,12 +126,40 @@ class DecoderLM(nn.Module):
         return loss, metrics
 
     # -- serving -------------------------------------------------------------
-    def init_caches(self, batch: int, max_len: Optional[int] = None) -> Caches:
+    def init_caches(self, batch: int, max_len: Optional[int] = None, *,
+                    kv_pages: Optional[Tuple[int, int, int]] = None,
+                    device=None) -> Caches:
         """Each layer's decode state, every leaf leading with ``batch``;
         attention layers hold ``max_len`` positions of KV per row (required
-        when the model has one)."""
-        return [block_init_cache(blk, batch, device=self.device, max_len=max_len)
+        when the model has one), or, with ``kv_pages=(page_size, n_pages,
+        max_blocks)``, a shared page pool with per-row page tables.
+        ``device`` defaults to the model's (``"meta"`` sizes a cache
+        without allocating it)."""
+        dev = self.device if device is None else torch.device(device)
+        return [block_init_cache(blk, batch, device=dev, max_len=max_len,
+                                 kv_pages=kv_pages)
                 for blk in self.cfg.layer_list]
+
+    def init_slot_caches(self, max_slots: int, page_len: int, *,
+                         page_size: Optional[int] = None, cache_pages: int = 0,
+                         device=None) -> Caches:
+        """Slot-managed decode state for continuous batching (``serve.Engine``).
+
+        With ``page_size=None`` attention layers get dense ``(max_slots,
+        page_len, ...)`` rows.  With ``page_size=ps`` they keep KV in a
+        pool of ``max_slots * ceil(page_len / ps) + cache_pages`` pages (and
+        the trash page) with per-slot page tables: pages can be shared
+        across slots (prefix reuse), and ``cache_pages`` extra pages let
+        finished prefixes outlive their slot.  As ``repro/models/model.py``."""
+        if page_size is None:
+            return self.init_caches(max_slots, page_len, device=device)
+        ps = int(page_size)
+        if ps < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        max_blocks = -(-page_len // ps)
+        n_pages = max_slots * max_blocks + int(cache_pages)
+        return self.init_caches(max_slots, max_blocks * ps,
+                                kv_pages=(ps, n_pages, max_blocks), device=device)
 
     def prefill(self, tokens: torch.Tensor, caches: Caches,
                 positions: Optional[torch.Tensor] = None

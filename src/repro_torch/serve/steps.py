@@ -1,0 +1,99 @@
+"""Serve steps as plain functions of tensors.
+
+Counterpart of ``repro/serve/steps.py``.  ``make_prefill_step`` and
+``make_decode_step`` wrap the model's serving API in a backend scope;
+``generate`` is the lockstep whole-batch greedy driver for tests and
+examples.  ``make_decode_multi`` is the engine's fused decode: ``horizon``
+greedy steps over every slot with on-device termination, the body of JAX's
+``lax.scan`` (``steps.py:138-148``) written as a Python loop.  Where JAX
+returns new arrays (and donates the old), the fused decode updates its
+tensors in place, so one CUDA graph of it replays over fixed addresses.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from ..core import engine
+from ..models.model import Caches, DecoderLM
+from .state_cache import assign_caches, mask_frozen_pages, merge_frozen
+
+
+def make_prefill_step(model: DecoderLM, *, backend: str = "auto") -> Callable:
+    """``prefill_step(tokens (B, S), caches, positions=None) -> (last
+    logits (B, 1, vocab), caches)`` under ``engine.use_backend(backend)``."""
+
+    @torch.no_grad()
+    def prefill_step(tokens, caches, **kw):
+        with engine.use_backend(backend):
+            return model.prefill(tokens, caches, **kw)
+
+    return prefill_step
+
+
+def make_decode_step(model: DecoderLM, *, backend: str = "auto") -> Callable:
+    """``decode_step(token (B, 1), caches, index (B,)) -> (next (B, 1),
+    caches)``: one greedy step, ``index`` the incoming tokens' positions."""
+
+    @torch.no_grad()
+    def decode_step(token, caches, index):
+        with engine.use_backend(backend):
+            logits, caches = model.decode_step(token, caches, index)
+        return torch.argmax(logits[:, -1, :], dim=-1)[:, None], caches
+
+    return decode_step
+
+
+def make_decode_multi(model: DecoderLM, horizon: int) -> Callable:
+    """Fused multi-step slot decode: ``horizon`` greedy steps.
+
+    ``decode_multi(tokens (S,), caches, pos (S,), term, block (horizon,
+    S))`` advances every slot in place and writes each step's tokens into
+    ``block``.  ``term`` is ``state_cache.init_term_state``'s dict.  Each
+    step masks frozen slots' page tables (their KV writes go to the trash
+    page), runs the batched ``model.decode_step`` and merges: frozen rows
+    keep their token, position and cache bits, so a slot that hits EOS or
+    its budget mid-horizon freezes on the device.  Frozen rows of ``block``
+    repeat the slot's last token; the host trims at the first EOS or the
+    budget edge as it does at horizon 1, which keeps outputs bit-identical
+    across horizons.  The caller picks the backend scope."""
+    if horizon < 1:
+        raise ValueError(f"horizon must be >= 1, got {horizon}")
+
+    @torch.no_grad()
+    def decode_multi(tokens: torch.Tensor, caches: Caches, pos: torch.Tensor,
+                     term: Dict[str, torch.Tensor], block: torch.Tensor) -> None:
+        active, remaining = term["active"], term["remaining"]
+        for i in range(horizon):
+            masked = mask_frozen_pages(caches, active)
+            logits, stepped = model.decode_step(tokens[:, None], masked, pos)
+            assign_caches(caches, merge_frozen(stepped, caches, active))
+            nxt = torch.argmax(logits[:, -1, :], dim=-1)
+            tok = torch.where(active, nxt, tokens)
+            left = torch.where(active, remaining - 1, remaining)
+            pos.copy_(torch.where(active, pos + 1, pos))
+            tokens.copy_(tok)
+            remaining.copy_(left)
+            active.copy_(active & (left > 0) & (tok != term["eos"]))
+            block[i].copy_(tok)
+
+    return decode_multi
+
+
+@torch.no_grad()
+def generate(model: DecoderLM, prompt: torch.Tensor, n_tokens: int, max_len: int,
+             backend: str = "auto") -> torch.Tensor:
+    """Greedy lockstep-batch generation: prompt (B, P) -> (B, n_tokens).
+    For request-level batching use ``serve.Engine``."""
+    b, p = prompt.shape
+    prefill = make_prefill_step(model, backend=backend)
+    step = make_decode_step(model, backend=backend)
+    logits, caches = prefill(prompt, model.init_caches(b, max_len))
+    tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+    out = [tok]
+    for i in range(n_tokens - 1):
+        tok, caches = step(tok, caches, torch.full((b,), p + i, device=prompt.device))
+        out.append(tok)
+    return torch.cat(out, dim=1)

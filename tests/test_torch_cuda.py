@@ -437,7 +437,7 @@ def test_goom_rnn_chunked_prefill_equals_full_on_the_card(card):
         with torch.no_grad():
             full, _ = model.prefill(torch.tensor([seq], device=card), model.init_caches(1))
             for chunk in (7, 64):
-                got, _ = ChunkedPrefill(model, chunk)(seq, model.init_caches(1))
+                got, _, _ = ChunkedPrefill(model, chunk)(seq, model.init_caches(1))
                 torch.testing.assert_close(got, full[:, -1], rtol=0,
                                            atol=1e-4 * float(full.std()))
         assert lmme_cuda.launches > before
@@ -753,3 +753,95 @@ def test_checkpoint_round_trip_from_the_card(card, tmp_path):
     _, m1 = make_train_step(model, opt)(state, batch)
     _, m2 = make_train_step(other, opt)(restored, batch)
     np.testing.assert_allclose(float(m1["loss"]), float(m2["loss"]), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the serving steps as CUDA graphs
+# ---------------------------------------------------------------------------
+def _serve_model(card, arch, variant=None):
+    import dataclasses
+
+    from repro_torch import DecoderLM, get_config
+    from torch_parity import with_scan_variant
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), compute_dtype=torch.float32)
+    if variant is not None:
+        cfg = with_scan_variant(cfg, variant)
+    return DecoderLM(cfg, device=card, generator=torch.Generator(device=card).manual_seed(0))
+
+
+def _serve_run(model, eager):
+    from repro_torch import Engine, Request
+
+    eng = Engine(model, max_slots=2, page_len=96, chunk=7)
+    if eager:  # every step called directly, none captured
+        def run(name, fn, *args):
+            with engine.use_backend(eng.graphs.backend):
+                fn(*args)
+        eng.graphs.run = run
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, model.cfg.vocab, size=p).tolist(),
+                    max_new_tokens=b)
+            for i, (p, b) in enumerate(zip([1, 7, 19, 64, 70], [9, 4, 12, 6, 3]))]
+    return eng, eng.run(reqs)
+
+
+@pytest.mark.parametrize("arch,variant", [("goom-rnn-124m", "shared_a"),
+                                          ("goom-rnn-124m", "generic"),
+                                          ("jamba-v0.1", None)])
+def test_graphed_and_eager_steps_give_equal_tokens_and_caches(card, arch, variant):
+    from torch_parity import cache_leaves
+
+    model = _serve_model(card, arch, variant)
+    eager, want = _serve_run(model, eager=True)
+    graphed, got = _serve_run(model, eager=False)
+    assert got == want
+    assert graphed.graphs.n_graphs >= 4      # chunk, tail, an admission, decode
+    for (name, a), (_, b) in zip(cache_leaves(graphed._caches), cache_leaves(eager._caches)):
+        assert torch.equal(a, b), name
+    assert torch.equal(graphed._tokens, eager._tokens)
+    assert torch.equal(graphed._pos, eager._pos)
+
+
+@pytest.mark.parametrize("variant", ["shared_a", "generic"])
+def test_replays_move_the_replay_aware_counters(card, variant):
+    """The wrappers' counts move only at warm-up and capture; each replay adds
+    its graph's captured launches and calls, and launches equal calls."""
+    from repro_torch.serve import graphs
+
+    model = _serve_model(card, "goom-rnn-124m", variant)
+    engine.reset_calls()
+    graphs.reset_replays()
+    before = graphs.kernel_launches()
+    eng, _ = _serve_run(model, eager=False)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] + graphs.replayed["launches"].get(k, 0)
+                for k, v in graphs.kernel_launches().items()}
+    calls = {k: v + graphs.replayed["calls"].get(k, 0) for k, v in engine.calls.items()}
+    assert launches["lmme"] == calls["lmme"] > 0
+    assert launches["matrix_scan"] == calls["matrix_scan"]
+    assert (launches["matrix_scan"] > 0) == (variant == "generic")
+    cap = eng.graphs.captured()
+    assert cap["decode_k8"]["replays"] >= 1 and cap["decode_k1"]["replays"] >= 1
+    # one replayed k-step decode stands for k eager steps' calls
+    assert cap["decode_k8"]["calls"]["lmme"] == 8 * cap["decode_k1"]["calls"]["lmme"]
+
+
+def test_a_capture_failure_raises_and_does_not_fall_back(card):
+    """A step that reads the card back to the host cannot be captured: the
+    run raises, and so does the next (no eager fallback is kept)."""
+    from repro_torch.serve import StepGraphs
+
+    g = StepGraphs()
+    x = torch.zeros(4, device=card)
+
+    def step(t):
+        t.add_(1.0)
+        if float(t.sum()) > 1e9:   # a host sync: not capturable
+            t.zero_()
+
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            g.run("bad", step, x)
+    assert g.n_graphs == 0
+    torch.cuda.synchronize()

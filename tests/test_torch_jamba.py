@@ -11,7 +11,7 @@ module's own state dict) and the same numpy inputs, at f32 compute:
     lower expert), ``RMSNorm`` and ``apply_rope``;
   * the smoke config's logits (one period, and two periods, which JAX
     stacks), prefill through the caches, and ``Engine`` tokens against JAX's
-    ``Engine`` (which pages its KV; the port's rows are dense);
+    ``Engine`` (both page their KV);
   * a frozen slot stays bit-identical over a decode step;
   * a config that names no norm gets RMS norms in both packages.
 
@@ -356,7 +356,8 @@ def test_chunked_prefill_matches_jax_dense_caches(pair, chunk):
     want = _jax_chunked(jmodel, jparams, seq, chunk, 32)
     engine.reset_calls()
     cp = ChunkedPrefill(model, chunk)
-    got, _ = cp(seq, model.init_caches(1, 32))
+    got, _, next_pos = cp(seq, model.init_caches(1, 32))
+    assert next_pos == len(seq)
     assert (cp.n_chunk_calls, cp.n_tail_calls) == divmod(len(seq), chunk)
     # one diagonal scan per Mamba layer and scan chunk of each call
     mamba_chunks = (len(seq) // chunk) * -(-chunk // 8) + len(seq) % chunk
@@ -391,7 +392,7 @@ def _check_tokens(jmodel, jparams, prompt, got, want):
 
 def test_engine_tokens_match_jax_engine(pair):
     """Four requests through two slots, joining and leaving mid-batch; JAX's
-    Engine pages its KV (page size = chunk), the port's rows are dense.
+    Engine and the port's page their KV (page size = chunk).
     Chunk 7 cuts across Mamba's scan chunk of 8; chunk 8 (one period only,
     for time) meets it."""
     jmodel, jparams, model = pair
@@ -419,7 +420,7 @@ def test_frozen_slot_stays_bit_identical(pair):
     seqs = _prompts(model.cfg.vocab)[1:3]
     slots = model.init_caches(2, 32)
     for s, seq in enumerate(seqs):
-        _, c = ChunkedPrefill(model, 4)(seq, model.init_caches(1, 32))
+        _, c, _ = ChunkedPrefill(model, 4)(seq, model.init_caches(1, 32))
         write_slot(slots, c, s)
         assert all(torch.equal(x, c[i][k]) for i, layer in enumerate(read_slot(slots, s))
                    for k, x in layer.items())

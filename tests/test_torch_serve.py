@@ -105,7 +105,8 @@ def test_chunked_prefill_matches_full(pair, chunk):
     with torch.no_grad():
         full, _ = model.prefill(torch.tensor([seq]), model.init_caches(1))
     cp = ChunkedPrefill(model, chunk)
-    got, _ = cp(seq, model.init_caches(1))
+    got, _, next_pos = cp(seq, model.init_caches(1))
+    assert next_pos == len(seq)
     assert (cp.n_chunk_calls, cp.n_tail_calls) == divmod(len(seq), chunk)
     scale = float(full.std())
     np.testing.assert_allclose(got.numpy(), full[:, -1].numpy(), rtol=0,
@@ -257,15 +258,16 @@ def test_serving_on_cpu_routes_every_lmme_through_the_engine(pair):
     Engine(model, max_slots=1, page_len=32, chunk=4).run(
         [Request(uid=0, prompt=[1, 2, 3, 4, 5], max_new_tokens=3)])
     n_layers = model.cfg.n_layers
-    # one 4-token chunk, then single tokens: tail token 5 and the decode
-    # steps for tokens 2 and 3
+    # one 4-token chunk, then single tokens: tail token 5 and one fused
+    # decode dispatch of the default horizon, 8 steps (the slot freezes on
+    # the device after tokens 2 and 3; the batch decodes the whole horizon)
     if model.cfg.layer_list[0].goom.scan_variant == "shared_a":
         # the chunk: B·u, fold, 2 doublings, 1 power; a token: B·u, fold
-        assert engine.calls["lmme"] == n_layers * (5 + 2 * 3)
+        assert engine.calls["lmme"] == n_layers * (5 + 2 * (1 + 8))
         assert engine.calls["matrix_scan"] == 0
     else:  # B·u and one matrix scan per layer per call
-        assert engine.calls["lmme"] == n_layers * 4
-        assert engine.calls["matrix_scan"] == engine.calls["matrix_scan_carry"] == n_layers * 4
+        assert engine.calls["lmme"] == n_layers * (2 + 8)
+        assert engine.calls["matrix_scan"] == engine.calls["matrix_scan_carry"] == n_layers * 10
     # the CPU never launches a kernel
     assert (lmme_cuda.launches, matrix_scan_cuda.launches) == before
 

@@ -103,3 +103,78 @@ def goom_dist(x, exact, scale_log) -> float:
     xl, el, sc = f64(x.log_abs), f64(exact.log_abs), f64(scale_log)
     sc = np.where(np.isfinite(sc), sc, 0.0)
     return float(np.abs(f64(x.sign) * np.exp(xl - sc) - f64(exact.sign) * np.exp(el - sc)).max())
+
+
+# ---------------------------------------------------------------------------
+# serving: model pairs on the same weights, and token checks
+# ---------------------------------------------------------------------------
+def serve_pair(arch: str, variant: str = None, periods: int = None):
+    """(JAX model, JAX params, port model) of ``arch``'s smoke config at f32
+    compute on the same seeded weights (``params_from_jax``); goom-rnn in
+    scan ``variant``, Jamba cut to ``periods`` 8-layer periods."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jax_get_config
+    from repro.models.common import unzip
+    from repro.models.model import DecoderLM as JaxLM
+    from repro_torch import DecoderLM, get_config, params_from_jax
+
+    def shape(cfg, f32):
+        cfg = dataclasses.replace(cfg, compute_dtype=f32)
+        if variant is not None:
+            cfg = with_scan_variant(cfg, variant)
+        if periods is not None:
+            cfg = dataclasses.replace(cfg, n_layers=8 * periods, groups=tuple(
+                dataclasses.replace(g, n_periods=periods) for g in cfg.groups))
+        return cfg
+
+    jmodel = JaxLM(shape(jax_get_config(arch, smoke=True), jnp.float32))
+    jparams, _ = unzip(jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
+    cfg = shape(get_config(arch, smoke=True), torch.float32)
+    model = DecoderLM(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray, jparams)))
+    return jmodel, jparams, model
+
+
+def jax_last_logits(jmodel, jparams, seq) -> np.ndarray:
+    """JAX's last-position logits of ``seq`` under its reference backend."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import engine as jax_engine
+
+    def prefill(params, tokens, caches):
+        with jax_engine.use_backend("reference"):
+            return jmodel.prefill(params, tokens, caches)[0]
+
+    lg = jax.jit(prefill)(jparams, jnp.asarray(seq, jnp.int32)[None],
+                          jmodel.init_caches(1, len(seq)))
+    return np.asarray(lg[0, -1], np.float32)
+
+
+def check_tokens(jmodel, jparams, prompt, got, want) -> None:
+    """Port tokens ``got`` against JAX's ``want``: equal, or diverging only
+    where JAX's top-2 logit margin is below 1e-4·std(logits) (a near tie),
+    after which the request is compared no further."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            lg = jax_last_logits(jmodel, jparams, list(prompt) + list(want[:i]))
+            top2 = np.sort(lg)[-2:]
+            margin = float(top2[1] - top2[0])
+            assert margin < 1e-4 * float(np.std(lg)), (
+                f"token {i}: port {g} vs JAX {w} at margin {margin}")
+            return
+    assert len(got) == len(want)
+
+
+def cache_leaves(caches):
+    """Every slot-cache leaf as (name, tensor), the pools without their trash
+    page (whose bits depend on how many dead steps ran)."""
+    out = []
+    for i, layer in enumerate(caches):
+        for k, v in layer.items():
+            if "pages" in layer and k in ("k", "v"):
+                v = v[:-1]
+            out.append((f"{i}.{k}", v))
+    return out
