@@ -12,10 +12,16 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 card, and time both: the LMME kernel on e±200 inputs with
                 exact-zero rows and columns, at the serving path's shapes,
                 the chains' square d = 8, 32, 128 and the spectrum's reset
-                products; the matrix scan with B (one kernel a call, timed
-                also by CUDA events, and at the 64-token chunk also as the
-                one-chunk walk) at the generic layer's shapes, a
-                time-varying A, d = 128, on e±200 and odd signed shapes, and
+                products, and at RWKV6's WKV score shapes (decode
+                (4,64,1,64)x(4,64,64,1), the 64-token chunk (1,64,64,64)²
+                and the tail (1,64,1,64)x(1,64,64,1), the second operand a
+                transposed view) on e±200 operands, at a decay of e^-60 a
+                step and at e^-60·u a step, u ~ U[0.25, 1] per channel, each
+                with the launch shape ``batched_plan`` picked; the matrix
+                scan with B (one kernel a call, timed also by CUDA events,
+                and at the 64-token chunk also as the one-chunk walk) at the
+                generic layer's shapes, a time-varying A, d = 128, on e±200
+                and odd signed shapes, and
                 its zero-B form from X_0 = I (three passes, 4–5 kernels a
                 call, timed as their sum and by CUDA events) on the chains'
                 and the LLE's lengths, each also against float64; the
@@ -81,7 +87,28 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 kernel, and no other GOOM op may run; the horizon, trace and
                 prefix checks of phase 3, a decode step's device time by
                 layer kind, then the parity check of phase 4 at f32 compute
-                on the same weights.
+                on the same weights;
+  8. rwkv6    — serve rwkv6-7b at full width and depth (32 layers, d=4096,
+                64 heads of 64, d_ff 14336, vocab 65536, 7.6B parameters,
+                15.2 GB in bf16) with the phases of 7: every engine LMME
+                call (one a layer and WKV chunk, at decode too) must have
+                launched the LMME kernel, and no other GOOM op may run;
+                prefix reuse goes through carry checkpoints alone (no layer
+                is paged); the decode step's LMME share of busy time;
+  9. families — olmo-1b, codeqwen1.5-7b, phi3.5-moe, mixtral-8x7b,
+                glm4-9b and gemma3-1b at full width, bf16 weights, each at
+                full depth where its weights fit in 40 GB, else the most
+                whole layers that do (phi3.5-moe 15 of 32, mixtral-8x7b 13
+                of 32), one at a time: the closed batch through the graphed
+                Engine at horizons 8 and 1 (tokens equal), the graphed
+                decode step traced, and at f32 compute with f32 KV the
+                Engine's tokens against the argmax of a no-cache forward at
+                every generated position (paged, dense and rolling caches
+                against the cache-free path), and for the windowed models
+                (gemma3-1b, mixtral-8x7b) a prompt of window + 600 tokens
+                prefilled in two chunks and decoded through rings of window
+                rows that wrap, held to the no-cache forward; gemma3-1b
+                (paged global layers beside dense rings) also prefix reuse.
 
 ``--kernels`` runs phases 1 and 2 without the diagonal scan and stops: the
 loop for kernel work (``tools/kernels_ab.sh`` runs it on two checkouts in
@@ -97,6 +124,7 @@ TF32 is off for every float32 product (the default, set here explicitly).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -167,12 +195,7 @@ def _profile(fn, iters: int):
 
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return prof
+    return _profiled(fn, iters)
 
 
 def device_ms(fn, iters: int) -> float:
@@ -357,6 +380,115 @@ def kernel_phase():
               "LMME backward through the kernel differs from the plain one")
     print("lmme backward: gradients equal to the plain version's", flush=True)
     return rows, max_err
+
+
+# RWKV6's WKV score products (models/ssm.py::rwkv6_scan): 64 heads of 64,
+# (B, H, L, D) ∘ (B, H, D, L) with the second operand k's transposed view;
+# name, B, L
+RWKV6_LMME_CASES = [
+    ("rwkv6 decode (4,64,1,64)x(4,64,64,1)", 4, 1),
+    ("rwkv6 chunk (1,64,64,64)x(1,64,64,64)", 1, 64),
+    ("rwkv6 tail (1,64,1,64)x(1,64,64,1)", 1, 1),
+]
+RWKV6_STRONG_DECAY = -60.0   # log a every step and dim: e^-60
+#: the operand kinds each RWKV6 shape runs on (``rwkv6_lmme_operands``)
+RWKV6_LMME_KINDS = ("e200", "decay", "decay_spread")
+
+
+def rwkv6_lmme_operands(b, length, kind, gen):
+    """The WKV's score operands as ``rwkv6_scan`` builds them from r, k ~
+    N(0, 1): log r~ = log|r| + cum_prev and log k~ = log|k| - cum, the second
+    passed as the (B, H, D, L) transposed view.  ``kind="e200"``: no decay,
+    each row of r~ and of k~ shifted by up to ±200 in log space, with an
+    exact-zero row of r; ``kind="decay"``: log a = -60 every step and
+    channel, so that a 64-token chunk's logs reach ±3780 (a shift constant
+    along each row of r~ and column of k~); ``kind="decay_spread"``: log a =
+    -60·u_d per channel d of each head, u_d ~ U[0.25, 1], as RWKV6's
+    per-channel decay spreads it, so that the terms of one contraction over
+    d lie thousands of e-folds apart."""
+    import torch
+
+    from repro_torch.core.goom import Goom, nonzero_sign
+
+    shape = (b, 64, length, 64)
+    r = torch.randn(shape, generator=gen, device="cuda")
+    k = torch.randn(shape, generator=gen, device="cuda")
+    if kind in ("decay", "decay_spread"):
+        la = torch.full(shape, RWKV6_STRONG_DECAY, device="cuda")
+        if kind == "decay_spread":
+            la = la * (0.25 + 0.75 * torch.rand((b, 64, 1, 64), generator=gen,
+                                                device="cuda"))
+        cum = torch.cumsum(la, dim=-2)
+        rl, kl = r.abs().log() + (cum - la), k.abs().log() - cum
+    else:
+        def shift():
+            return torch.rand(shape[:-1] + (1,), generator=gen, device="cuda") * 400 - 200
+
+        rl, kl = r.abs().log() + shift(), k.abs().log() + shift()
+        rl[0, 0, 0] = -float("inf")
+    return Goom(rl, nonzero_sign(r)), Goom(kl.mT, nonzero_sign(k).mT)
+
+
+def rwkv6_lmme_phase():
+    """The LMME kernel at RWKV6's decode, chunk and tail shapes, on e±200 and
+    on strong-decay operands (uniform and spread over channels), against its
+    plain version on the same card: the error by ``goom_close``, the
+    kernel's and the plain version's device times, the bound, and the
+    launch shape ``batched_plan`` picked.  Both compute the paper's
+    compromise LMME (exact row max of A, column max of B): where a spread
+    decay puts a row's and a column's maxima on different channels, every
+    term of an entry can underflow and the entry comes out zero (log -inf)
+    in both.  Such entries are counted against a float64 log-sum-exp of the
+    magnitudes, and only NaN or +inf logs fail the case."""
+    import torch
+
+    from repro_torch.core.goom import Goom
+    from repro_torch.kernels.lmme import lmme_cuda, lmme_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    rows = {}
+    for name, b, length in RWKV6_LMME_CASES:
+        for kind in RWKV6_LMME_KINDS:
+            a, bk = rwkv6_lmme_operands(b, length, kind, gen)
+            batched = lmme_cuda.launches_batched
+            got = lmme_cuda(a, bk)
+            torch.cuda.synchronize()
+            plan = "batched" if lmme_cuda.launches_batched > batched else "tiled"
+            want = Goom(*lmme_ref(a.log_abs, a.sign, bk.log_abs, bk.sign))
+            scale = lmme_ref(a.log_abs, torch.ones_like(a.sign),
+                             bk.log_abs, torch.ones_like(bk.sign))[0]
+            ok, err = goom_close(got, want, scale)
+            check(ok, f"LMME kernel disagrees with its plain version at {name}, "
+                      f"{kind}: max normalised error {err:.3e}")
+            finite = torch.isfinite(got.log_abs)
+            lost = None
+            if kind == "e200":
+                finite[0, 0, 0] = True   # the zero row of r: log 0 = -inf
+            elif kind == "decay_spread":
+                finite |= got.log_abs == -math.inf
+                exact = torch.logsumexp(a.log_abs.double()[..., :, None, :]
+                                        + bk.log_abs.double().mT[..., None, :, :], -1)
+                kept = exact > -80
+                if length > 1:   # the strictly causal entries, the ones the scan keeps
+                    kept &= torch.ones(length, length, dtype=torch.bool,
+                                       device="cuda").tril(-1)
+                lost = tuple(float(((x.log_abs == -math.inf) & kept).sum() / kept.sum())
+                             for x in (got, want))
+            check(bool(finite.all()), f"LMME at {name}, {kind}: NaN or non-finite logs")
+            k_ms, _, _ = call_ms(lambda: lmme_cuda(a, bk), 100, "lmme")
+            p_ms = device_ms(lambda: lmme_ref(a.log_abs, a.sign, bk.log_abs, bk.sign), 100)
+            bound, bound_by = lmme_bound(tuple(a.shape), tuple(bk.shape))
+            rows[f"{name} {kind}"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                                          bound_by=bound_by, max_abs_err=err, plan=plan)
+            zeros = ("" if lost is None else f"; of the {'causal ' * (length > 1)}entries "
+                     f"above e^-80 in float64, zero in the kernel {lost[0]:.4f}, in the "
+                     f"plain version {lost[1]:.4f}")
+            print(f"lmme {name} {kind}: {plan} launch shape, kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}), max normalised "
+                  f"error {err:.2e}{zeros}", flush=True)
+    check(all(r["plan"] == ("tiled" if "chunk" in n else "batched") for n, r in rows.items()),
+          f"LMME launch shapes at RWKV6's shapes: {[(n, r['plan']) for n, r in rows.items()]}")
+    return rows
 
 
 # name, T, batch, d, m, kind: the generic layer's decode and 64-token chunk
@@ -879,9 +1011,13 @@ def path_label(cfg) -> str:
     return blk.goom.scan_variant if blk.mixer == "goom_ssm" else cfg.name
 
 
+#: the attention families served at full width (no GOOM kernel on their path)
+FAMILIES = ["olmo-1b", "codeqwen1.5-7b", "phi3.5-moe", "mixtral-8x7b", "glm4-9b",
+            "gemma3-1b"]
 #: the kernels each served path launches (the others must not launch at all)
 USED = {"shared_a": {"lmme"}, "generic": {"lmme", "matrix_scan"},
-        "jamba-v0.1": {"diag_scan"}}
+        "jamba-v0.1": {"diag_scan"}, "rwkv6-7b": {"lmme"},
+        **{arch: set() for arch in FAMILIES}}
 
 
 def serve_phase(cfg, model=None):
@@ -1008,15 +1144,32 @@ def _kernel_kinds(prof):
     return kinds
 
 
+#: profiler traces taken of a call before one that kept no device event stands
+PROFILE_TRIES = 4
+
+
 def _profiled(fn, iters):
+    """A profiler trace of ``iters`` calls of ``fn``.  The profiler has been
+    seen on an H100 to keep no device event at all in a trace (late in a
+    long run: an eager step of some 5000 kernels, five calls of one
+    product), so such a trace is taken again with a new profiler, up to
+    ``PROFILE_TRIES`` in all; a trace still empty then is returned as it is,
+    and every reader of device time fails on it (``_device_ms``,
+    ``trace_phase``)."""
     import torch
+    from torch.autograd import DeviceType
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(PROFILE_TRIES):
         torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            break
+        print(f"profiler: no device event kept in {iters} calls (try {attempt + 1} of "
+              f"{PROFILE_TRIES})", flush=True)
     return prof
 
 
@@ -1031,8 +1184,9 @@ def _timed(fn, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def trace_phase(model, per_decode):
-    """Steady decode over 4 busy slots, graphed and eager, in one run.
+def trace_phase(model, per_decode, eager=True):
+    """Steady decode over 4 busy slots, graphed and (unless ``eager`` is
+    False) eager, in one run.
 
     Graphed: the Engine's horizon-8 dispatches (a replayed graph each),
     timed by wall clock and profiled: per token step the wall, the device
@@ -1070,11 +1224,18 @@ def trace_phase(model, per_decode):
     eng.graphs.run("decode_k1", fn, *args)
     reps = 4
     kinds1 = _kernel_kinds(_profiled(lambda: eng.graphs.run("decode_k1", fn, *args), reps))
+    check(kinds1["all"], f"trace [{variant}]: the profiler kept no kernel of {reps} "
+          f"replayed decode steps in {PROFILE_TRIES} tries")
     for name in ("lmme", "matrix_scan", "diag_scan"):
         check(kinds1[name] == reps * per_decode[name],
               f"trace [{variant}]: the profiler saw {kinds1[name]} {name} kernels in "
               f"{reps} replayed decode steps; an eager step launches {per_decode[name]}")
     del eng
+    if not eager:
+        print(f"trace [{variant}]: graphed (horizon 8) decode step (4 slots) "
+              f"{wall:.3f} ms wall, device busy {busy:.3f} ms in {graphed['kernels']:.0f} "
+              f"kernels; device idle share {graphed['idle']:.3f}", flush=True)
+        return graphed
 
     # the eager step, as the Engine ran it before graphs
     b = SERVE["max_slots"]
@@ -1093,12 +1254,12 @@ def trace_phase(model, per_decode):
         state["tok"].tolist()
 
     eager_step()
-    n_eager = 8
+    n_eager, n_prof = 8, 2   # timed steps; profiled steps (thousands of kernels each)
     e_wall = _timed(eager_step, n_eager)
-    e_prof = _profiled(eager_step, n_eager)
-    e_busy = _device_ms(e_prof) / n_eager
+    e_prof = _profiled(eager_step, n_prof)
+    e_busy = _device_ms(e_prof) / n_prof
     eager = dict(step_ms=e_wall, busy_ms=e_busy,
-                 kernels=_kernel_kinds(e_prof)["all"] / n_eager, idle=1 - e_busy / e_wall)
+                 kernels=_kernel_kinds(e_prof)["all"] / n_prof, idle=1 - e_busy / e_wall)
     for name, r in (("graphed (horizon 8)", graphed), ("eager", eager)):
         print(f"trace [{variant}]: {name} decode step (4 slots) {r['step_ms']:.3f} ms "
               f"wall, device busy {r['busy_ms']:.3f} ms in {r['kernels']:.0f} kernels; "
@@ -1797,9 +1958,10 @@ def launcher_phase():
 
 def layer_breakdown(model):
     """Device ms per decode step (4 slots) by layer kind: one layer of each
-    kind timed alone at the decode shape (its pre-norm included), times the
-    model's count of that kind, and the lm_head; against the step's weight
-    bytes at 3.35 TB/s."""
+    kind timed alone at the decode shape (its pre-norm included; attention
+    over dense caches of ``page_len`` rows, windowed attention apart), times
+    the model's count of that kind, and the lm_head; against the step's
+    weight bytes at 3.35 TB/s."""
     import torch
 
     cfg, cd = model.cfg, model.cfg.compute_dtype
@@ -1810,6 +1972,8 @@ def layer_breakdown(model):
     kinds = {}
     for i, blk in enumerate(cfg.layer_list):
         for part, kind in (("mixer", blk.mixer), ("channel", blk.channel)):
+            if kind == "attention" and blk.attn.window is not None:
+                kind = "windowed attention"
             if kind != "none":
                 kinds.setdefault(kind, [part, i, 0])[2] += 1
     out = {}
@@ -1817,7 +1981,7 @@ def layer_breakdown(model):
         for kind, (part, i, count) in kinds.items():
             layer = model.layers[i]
             norm, mod = getattr(layer, f"{part}_norm"), getattr(layer, part)
-            if kind == "attention":
+            if kind.endswith("attention"):
                 fn = lambda: mod(norm(x), positions=pos, cache=caches[i], compute_dtype=cd)  # noqa: E731
             elif kind == "moe":
                 fn = lambda: mod(norm(x), compute_dtype=cd, dropless=True)  # noqa: E731
@@ -1833,6 +1997,231 @@ def layer_breakdown(model):
           + ", ".join(f"{k} {v:.3f}" for k, v in out.items())
           + f"; sum {sum(out.values()):.3f}; reading every weight once takes "
           f"{weights_ms:.3f} ms at 3.35 TB/s", flush=True)
+    return out
+
+
+# a family's bf16 weights at most: full depth where they fit, else the
+# most whole layers that do (depth only; widths are the published ones)
+FAMILY_WEIGHT_BYTES = 40e9
+def weight_bytes(cfg):
+    """(bytes of each layer, bytes outside the layers) of ``cfg``'s weights,
+    sized on the meta device (nothing allocated)."""
+    import torch
+
+    from repro_torch import DecoderLM
+
+    m = DecoderLM(cfg, device="meta", generator=torch.Generator())
+    layers = [sum(p.numel() * p.element_size() for p in blk.parameters())
+              for blk in m.layers]
+    total = sum(p.numel() * p.element_size() for p in m.parameters())
+    return layers, total - sum(layers)
+
+
+def family_config(arch):
+    """``arch`` at full width with bf16 weights, cut in depth to the most
+    whole layers whose weights fit in ``FAMILY_WEIGHT_BYTES``."""
+    import torch
+
+    from repro_torch import get_config
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype=torch.bfloat16)
+    layers, rest = weight_bytes(cfg)
+    if rest + sum(layers) <= FAMILY_WEIGHT_BYTES:
+        return cfg
+    check(len(cfg.groups) == 1 and len(cfg.groups[0].period) == 1,
+          f"{arch}: only a config of one repeated layer is cut in depth here")
+    depth = int((FAMILY_WEIGHT_BYTES - rest) // layers[0])
+    return dataclasses.replace(cfg, n_layers=depth, groups=(
+        dataclasses.replace(cfg.groups[0], n_periods=depth),))
+
+
+@contextlib.contextmanager
+def f32_kv(model):
+    """Within: every cache ``model`` builds (``init_caches``, and through it
+    ``init_slot_caches``) holds its attention K/V in f32, where the model
+    keeps bf16 as the JAX package does."""
+    build = model.init_caches
+
+    def init_caches(*args, **kw):
+        return [{k: v.float() if k in ("k", "v") and "index" in c else v
+                 for k, v in c.items()} for c in build(*args, **kw)]
+
+    model.init_caches = init_caches
+    try:
+        yield model
+    finally:
+        del model.init_caches
+
+
+def _near_tie(logits, i, got, want, what):
+    """Fails unless the top-2 margin of ``logits[i]`` is below 1e-4·std;
+    True when ``got`` and ``want`` differ there (a near tie)."""
+    import torch
+
+    if got == want:
+        return False
+    top2 = torch.topk(logits[i], 2).values
+    margin = float(top2[0] - top2[1])
+    check(margin < 1e-4 * float(logits[i].std()),
+          f"{what} token {i}: cached {got} vs uncached {want} at margin {margin:.3e}")
+    return True
+
+
+#: the rolling-buffer check: prefill chunks of window + RING_FIRST (the chunk
+#: fills the buffer: the roll) and RING_SECOND tokens (a scatter at (start +
+#: i) % length that wraps), then RING_DECODE greedy decode steps at index %
+#: length; the buffer is window rows (max_len is above the window)
+RING_FIRST, RING_SECOND, RING_DECODE = 200, 400, 16
+
+
+def ring_phase(model, cfg):
+    """At f32 compute with f32 KV: windowed layers' rolling buffers wrapping
+    on the card.  One prompt of window + RING_FIRST + RING_SECOND tokens
+    through ``init_caches(1, L)`` with L above the window (so each windowed
+    layer keeps a ring of ``window`` rows), prefilled in two chunks, then
+    RING_DECODE greedy decode steps.  Against one no-cache forward over the
+    prompt and the decoded tokens: each chunk's last logits and each decode
+    step's within 1e-4·std, and the decoded tokens equal to its argmax,
+    except after a near tie.  The sequence outruns the window, so the mask
+    drops positions."""
+    import torch
+
+    variant = path_label(cfg)
+    window = max(b.attn.window for b in cfg.layer_list
+                 if b.mixer == "attention" and b.attn.window is not None)
+    n1, n2 = window + RING_FIRST, RING_SECOND
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    seq = torch.randint(0, cfg.vocab, (1, n1 + n2), generator=gen, device=DEVICE)
+    with torch.no_grad(), f32_kv(model):
+        caches = model.init_caches(1, n1 + n2 + RING_DECODE)
+        rows = {c["k"].shape[1] for c, b in zip(caches, cfg.layer_list)
+                if b.mixer == "attention" and b.attn.window is not None}
+        check(rows == {window}, f"ring [{variant}]: windowed buffers of {rows} rows")
+        lg1, caches = model.prefill(seq[:, :n1], caches)
+        pos = torch.arange(n1, n1 + n2, device=DEVICE)[None]
+        lg2, caches = model.prefill(seq[:, n1:], caches, pos)
+        got = [(n1 - 1, lg1[0, -1]), (n1 + n2 - 1, lg2[0, -1])]
+        out = [int(lg2[0, -1].argmax())]
+        for i in range(RING_DECODE - 1):
+            idx = torch.tensor([n1 + n2 + i], device=DEVICE)
+            lg, caches = model.decode_step(torch.tensor([[out[-1]]], device=DEVICE),
+                                           caches, idx)
+            got.append((n1 + n2 + i, lg[0, -1]))
+            out.append(int(lg[0, -1].argmax()))
+        full = model(torch.cat([seq, torch.tensor([out[:-1]], device=DEVICE)], 1))[0].float()
+    gaps = [float((row.float() - full[p]).abs().max() / full[p].std()) for p, row in got]
+    check(max(gaps) < 1e-4, f"ring [{variant}]: logits through the rings "
+          f"{max(gaps):.3e}·std from the no-cache forward's (chunks {gaps[:2]})")
+    tail = full[n1 + n2 - 1:]
+    compared, stopped = 0, None
+    for i, (x, y) in enumerate(zip(out, tail.argmax(-1).tolist())):
+        if _near_tie(tail, i, x, y, f"ring [{variant}]: decode"):
+            stopped = i
+            break
+        compared += 1
+    print(f"ring [{variant}] (f32, f32 KV): {n1 + n2}-token prompt in chunks of {n1} and "
+          f"{n2} and {RING_DECODE} decode steps over rings of {window} rows; chunks' last "
+          f"logits {gaps[0]:.3e} and {gaps[1]:.3e}·std, decode steps' at most "
+          f"{max(gaps[2:]):.3e}·std from the no-cache forward's; "
+          f"{compared} decoded tokens equal to its argmax; stopped at a near tie "
+          f"{stopped if stopped is not None else 'none'}", flush=True)
+    return dict(gaps=gaps, compared=compared, stopped=stopped)
+
+
+def cached_vs_uncached_phase(model, cfg, reqs):
+    """At f32 compute and with f32 KV caches, on the same weights (each
+    product casts its bf16 weight): the Engine's greedy tokens, served
+    through paged global KV and dense rolling buffers, against the argmax
+    of one no-cache forward over prompt + generated tokens at each
+    generated position; tokens equal except after a near tie (top-2 margin
+    of the uncached logits below 1e-4·std).  Also a prefill's last logits
+    through dense caches against the forward's, within 1e-4·std.  The KV
+    is f32 here because bf16 KV rounding parts the two paths by ~2e-2·std
+    (measured on the card), and an MoE's top-2 routing then flips for some
+    token, a difference of whole experts.  An MoE's capacity factor is set
+    to E/k for the run, so that the no-cache forward gives every token all
+    its experts: the serving (dropless) routing."""
+    import torch
+
+    variant = path_label(cfg)
+    moes = [layer.channel for layer in model.layers if layer.blk.channel == "moe"]
+    moe_cfgs = [m.cfg for m in moes]
+    model.cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    for m in moes:
+        m.cfg = dataclasses.replace(m.cfg, capacity_factor=m.cfg.n_experts / m.cfg.top_k)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        with f32_kv(model):
+            got, _, _ = serve(model, reqs)
+        compared, stopped = 0, []
+        with torch.no_grad():
+            for r in reqs:
+                out, p = got[r.uid], len(r.prompt)
+                seq = torch.tensor([list(r.prompt) + out[:-1]], device=DEVICE)
+                lg = model(seq)[0, p - 1:].float()            # (len(out), vocab)
+                for i, (x, y) in enumerate(zip(out, lg.argmax(-1).tolist())):
+                    if _near_tie(lg, i, x, y, f"{variant}: request {r.uid}"):
+                        stopped.append((r.uid, i))
+                        break
+                    compared += 1
+            seq = torch.tensor([max((list(r.prompt) for r in reqs), key=len)],
+                               device=DEVICE)
+            with f32_kv(model):
+                lg_cached, _ = model.prefill(seq, model.init_caches(1, SERVE["page_len"]))
+            lg_full = model(seq)[:, -1:]
+        gap = float((lg_cached - lg_full).abs().max() / lg_full.float().std())
+        check(gap < 1e-4, f"{variant}: prefill logits through the caches "
+              f"{gap:.3e}·std from the no-cache forward's")
+        ring = (ring_phase(model, cfg) if any(
+            b.mixer == "attention" and b.attn.window is not None for b in cfg.layer_list)
+            else None)
+    finally:
+        model.cfg = cfg
+        for m, c in zip(moes, moe_cfgs):
+            m.cfg = c
+    print(f"cached [{variant}] (f32, f32 KV): {compared} Engine tokens equal to the no-cache "
+          f"forward's argmax; stopped at near ties {stopped or 'none'}; a "
+          f"{seq.shape[1]}-token prefill's last logits through the caches "
+          f"{gap:.3e}·std from the no-cache forward's; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return dict(compared=compared, stopped=stopped, gap=gap, ring=ring)
+
+
+def families_phase():
+    """Each attention family at full width, bf16 weights, depth cut only to
+    fit ``FAMILY_WEIGHT_BYTES``: the closed batch through the graphed Engine
+    at horizons 8 and 1 (``serve_phase``), the graphed decode step
+    (``trace_phase``) and its device time by layer kind
+    (``layer_breakdown``), the f32 cached-against-uncached check (with the
+    wrapping rings of ``ring_phase`` for windowed models), and for gemma3-1b
+    (paged global layers beside dense rings) prefix reuse.  Each
+    model is freed before the next is built."""
+    import torch
+
+    from repro_torch import get_config
+
+    out = {}
+    for arch in FAMILIES:
+        free_memory()
+        cfg = family_config(arch)
+        model, reqs, stats = serve_phase(cfg)
+        trace = trace_phase(model, stats["per_decode"], eager=False)
+        layers = layer_breakdown(model)
+        prefix = prefix_phase(model) if arch == "gemma3-1b" else None
+        free_memory()
+        cached = cached_vs_uncached_phase(model, cfg, reqs)
+        n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        del model
+        out[arch] = dict(stats=stats, trace=trace, layers=layers, prefix=prefix,
+                         cached=cached)
+        print(f"family [{arch}]: {cfg.n_layers} of {get_config(arch).n_layers} layers "
+              f"({n_bytes / 1e9:.2f} GB of bf16 weights); graphed decode step (4 slots) "
+              f"{trace['step_ms']:.3f} ms wall / {trace['busy_ms']:.3f} ms busy, idle "
+              f"{trace['idle']:.3f}; {stats['tokens_per_s']:.1f} tokens/s at horizon 8, "
+              f"{stats['tokens_per_s_k1']:.1f} at 1 (tokens equal); peak memory "
+              f"{stats['peak_bytes'] / 2**30:.2f} GiB serving", flush=True)
+    free_memory()
+    torch.cuda.synchronize()
     return out
 
 
@@ -1889,6 +2278,7 @@ def main() -> int:
         print(f"[{phase} done at {time.perf_counter() - t_start:.1f} s]", flush=True)
 
     rows, max_err = kernel_phase()
+    rwkv6_rows = rwkv6_lmme_phase()
     scan_rows, scan_errs = scan_kernel_phase()
     if "--kernels" in sys.argv[1:]:  # the kernel phases alone
         print(card)
@@ -1933,9 +2323,23 @@ def main() -> int:
     free_memory()
     parity_phase(model_j, cfg_j, reqs_j)
     del model_j
+    free_memory()
     elapsed("jamba")
+    cfg_r = dataclasses.replace(get_config("rwkv6-7b"), param_dtype=torch.bfloat16)
+    model_r, reqs_r, stats_r = serve_phase(cfg_r)
+    trace_r = traces["rwkv6-7b"] = trace_phase(model_r, stats_r["per_decode"])
+    prefix["rwkv6-7b"] = prefix_phase(model_r)
+    layer_breakdown(model_r)
+    free_memory()
+    parity_phase(model_r, cfg_r, reqs_r)
+    del model_r
+    free_memory()
+    elapsed("rwkv6")
+    families = families_phase()
+    elapsed("families")
     for (path, st), tr in zip((("shared_a", stats), ("generic", stats_g),
-                               ("jamba-v0.1", stats_j)), traces.values()):
+                               ("jamba-v0.1", stats_j), ("rwkv6-7b", stats_r)),
+                              traces.values()):
         pf = prefix[path]
         print(f"summary [{path}]: decode step (4 slots) graphed {tr['step_ms']:.3f} ms "
               f"wall / {tr['busy_ms']:.3f} ms busy / idle {tr['idle']:.3f}, eager "
@@ -1952,7 +2356,9 @@ def main() -> int:
     by_path = {k: {"serve shared_a": stats["launches"][k], "serve generic":
                    stats_g["launches"][k], "train shared_a": train["shared_a"]["launches"][k],
                    "train generic": train["generic"]["launches"][k],
-                   "experiments": exp_launches[k], "serve jamba": stats_j["launches"][k]}
+                   "experiments": exp_launches[k], "serve jamba": stats_j["launches"][k],
+                   "serve rwkv6": stats_r["launches"][k],
+                   "serve families": sum(f["stats"]["launches"][k] for f in families.values())}
                for k in ("lmme", "matrix_scan", "matrix_scan_zero_b", "diag_scan")}
     lmme_row = next(r for r in rows if r["shape"].startswith("decode"))
     scan_row = next(v for k, v in scan_rows.items() if k.startswith("decode"))
@@ -1961,7 +2367,9 @@ def main() -> int:
     src = "src/repro_torch/kernels"
     entries = [
         ("lmme", f"{src}/lmme/csrc/lmme.cu", "src/repro/kernels/lmme/lmme.py:36",
-         stats["launches"]["lmme"], max_err, lmme_row, lmme_row["shape"],
+         stats["launches"]["lmme"],
+         max([max_err] + [r["max_abs_err"] for r in rwkv6_rows.values()]), lmme_row,
+         lmme_row["shape"],
          "serve shared_a"),
         ("matrix_scan", f"{src}/goom_scan/csrc/matrix_scan.cu",
          "src/repro/kernels/goom_scan/matrix_scan.py:75",
@@ -1983,9 +2391,13 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": None, "shape": shape,
         "main_path": path, "launches_by_path": by_path[name],
         "kernels_per_call": row.get("kernels_per_call"), "event_ms": row.get("event_ms"),
+        **({"rwkv6_shapes": rwkv6_rows} if name == "lmme" else {}),
     } for name, source, replaces, launches, err, row, shape, path in entries]}))
     print(f"jamba: decode step device busy {trace_j['busy_ms']:.3f} ms, of which the "
           f"diagonal scan {trace_j['diag_scan']:.3f} ms; {card}", flush=True)
+    print(f"rwkv6: decode step device busy {trace_r['busy_ms']:.3f} ms, of which the LMME "
+          f"kernel {trace_r['lmme']:.3f} ms ({trace_r['lmme'] / trace_r['busy_ms']:.4f} of "
+          f"busy, {stats_r['per_decode']['lmme']} launches a step); {card}", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Architecture registry: the models the port serves."""
+"""Architecture registry: the models the port serves, under the JAX
+package's names."""
 
 from .base import (
     AttentionCfg,
@@ -9,14 +10,24 @@ from .base import (
     MambaCfg,
     MlpCfg,
     MoeCfg,
+    Rwkv6Cfg,
     attn_block,
     get_config,
+    list_archs,
     register,
+    uniform_groups,
 )
 
 register("goom-rnn-124m", "repro_torch.configs.goom_rnn_124m")
 register("jamba-v0.1", "repro_torch.configs.jamba_v01")
+register("rwkv6-7b", "repro_torch.configs.rwkv6_7b")
+register("olmo-1b", "repro_torch.configs.olmo_1b")
+register("codeqwen1.5-7b", "repro_torch.configs.codeqwen15_7b")
+register("phi3.5-moe", "repro_torch.configs.phi35_moe")
+register("mixtral-8x7b", "repro_torch.configs.mixtral_8x7b")
+register("glm4-9b", "repro_torch.configs.glm4_9b")
+register("gemma3-1b", "repro_torch.configs.gemma3_1b")
 
 __all__ = ["AttentionCfg", "BlockCfg", "GoomSSMCfg", "GroupCfg", "LMConfig",
-           "MambaCfg", "MlpCfg", "MoeCfg", "attn_block", "get_config",
-           "register"]
+           "MambaCfg", "MlpCfg", "MoeCfg", "Rwkv6Cfg", "attn_block", "get_config",
+           "list_archs", "register", "uniform_groups"]

@@ -1,11 +1,15 @@
 """Config dataclasses and the architecture registry.
 
 The fields mirror the JAX package's ``GoomSSMCfg``, ``MambaCfg``,
-``AttentionCfg``, ``MlpCfg``, ``MoeCfg``, ``BlockCfg``, ``GroupCfg`` and
-``LMConfig`` (``repro/models/{goom_layer,ssm,attention,mlp,blocks,model}.py``),
-cut to those the port's models use (goom-rnn and Jamba: gated-SiLU MLPs,
-global attention without biases, q/k norms or M-RoPE); dtypes are torch
-dtypes.  The defaults are the JAX package's, ``norm="rms"`` included.
+``Rwkv6Cfg``, ``AttentionCfg``, ``MlpCfg``, ``MoeCfg``, ``BlockCfg``,
+``GroupCfg`` and ``LMConfig``
+(``repro/models/{goom_layer,ssm,attention,mlp,blocks,model}.py``); dtypes
+are torch dtypes and the defaults are the JAX package's.  Left out: the JAX
+flash-attention tiles (``block_q``, ``block_kv``), ``remat`` and Mamba's
+``scan_impl``.  Kept but not built yet, so that a config still equals
+JAX's field by field: M-RoPE (``mrope_sections``, ``mrope``), banded
+attention (``use_banded``), sinusoidal positions and frontends; the models
+raise ``NotImplementedError`` when one is set.
 """
 
 from __future__ import annotations
@@ -51,33 +55,60 @@ class MambaCfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class Rwkv6Cfg:
+    """RWKV6 (Finch) time and channel mix, the WKV scan in GOOM or float form."""
+
+    d_model: int
+    d_ff: int
+    head_dim: int = 64
+    lora_mix: int = 32
+    lora_decay: int = 64
+    chunk: int = 128
+    scan_impl: str = "goom"  # "goom" (paper) | "float" (baseline)
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_model // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
 class AttentionCfg:
-    """Global causal GQA with RoPE."""
+    """Causal GQA with RoPE (full or partial), optionally windowed."""
 
     d_model: int
     n_heads: int
     n_kv_heads: int
     head_dim: int
     rope_theta: float = 10000.0
+    rotary_fraction: float = 1.0
+    window: Optional[int] = None          # sliding-window size (None = global)
+    qkv_bias: bool = False
+    qk_norm: bool = False                 # gemma3-style q/k RMSNorm
+    mrope_sections: Optional[Tuple[int, ...]] = None  # M-RoPE: not built yet
+    query_scale: Optional[float] = None   # override 1/sqrt(head_dim)
+    use_banded: bool = False              # banded SWA: not built yet
 
 
 @dataclasses.dataclass(frozen=True)
 class MlpCfg:
-    """Gated SiLU MLP: down(silu(gate(x)) * up(x))."""
+    """MLP: down(act(gate(x)) * up(x)), or down(act(up(x))) when not gated."""
 
     d_model: int
     d_ff: int
+    activation: str = "silu"      # silu | gelu | relu2
+    gated: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
 class MoeCfg:
-    """Top-k mixture of gated SiLU experts."""
+    """Top-k mixture of gated experts."""
 
     d_model: int
     d_ff: int
     n_experts: int
     top_k: int = 2
     capacity_factor: float = 1.25
+    activation: str = "silu"
     router_z_loss: float = 1e-3     # weight of the router z-loss (training aux)
 
 
@@ -85,14 +116,16 @@ class MoeCfg:
 class BlockCfg:
     """One layer: a pre-normed sequence mixer and a pre-normed channel mixer."""
 
-    mixer: str                      # goom_ssm | mamba | attention
-    channel: str                    # none | mlp | moe
-    goom: Optional[GoomSSMCfg] = None
-    mamba: Optional[MambaCfg] = None
+    mixer: str                      # attention | rwkv6 | mamba | goom_ssm | none
+    channel: str                    # mlp | moe | rwkv6_cm | none
     attn: Optional[AttentionCfg] = None
+    rwkv: Optional[Rwkv6Cfg] = None
+    mamba: Optional[MambaCfg] = None
+    goom: Optional[GoomSSMCfg] = None
     mlp: Optional[MlpCfg] = None
     moe: Optional[MoeCfg] = None
-    norm: str = "rms"               # rms | ln
+    norm: str = "rms"               # rms | rms_plus_one | ln | ln_nonparam
+    post_norms: bool = False        # gemma3 sandwich norms
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +142,13 @@ class LMConfig:
     d_model: int
     n_layers: int
     groups: Tuple[GroupCfg, ...]
-    final_norm: str = "rms"        # rms | ln
+    tie_embeddings: bool = False
+    scale_embedding: bool = False  # gemma: multiply embeddings by sqrt(d)
+    final_norm: str = "rms"        # rms | rms_plus_one | ln | ln_nonparam
+    pos_embedding: str = "none"    # none | sinusoidal (not built yet)
+    frontend: Optional[str] = None  # vlm | audio (not built yet)
+    n_prefix: int = 0
+    mrope: bool = False            # not built yet
     sub_quadratic: bool = False
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
@@ -123,17 +162,45 @@ class LMConfig:
         return out
 
 
-def attn_block(d_model: int, n_heads: int, n_kv_heads: int, d_ff: int, *,
-               rope_theta: float = 10000.0, moe: Optional[MoeCfg] = None) -> BlockCfg:
-    """An attention block (head_dim d_model / n_heads) with a gated MLP, or
-    with ``moe`` as its channel (``repro/configs/base.py::attn_block``, cut
-    to the port's fields)."""
-    attn = AttentionCfg(d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv_heads,
-                        head_dim=d_model // n_heads, rope_theta=rope_theta)
+def attn_block(
+    d_model: int,
+    n_heads: int,
+    n_kv_heads: int,
+    d_ff: int,
+    *,
+    head_dim: Optional[int] = None,
+    rope_theta: float = 10000.0,
+    rotary_fraction: float = 1.0,
+    window: Optional[int] = None,
+    qkv_bias: bool = False,
+    qk_norm: bool = False,
+    mrope_sections: Optional[Tuple[int, ...]] = None,
+    query_scale: Optional[float] = None,
+    activation: str = "silu",
+    gated: bool = True,
+    moe: Optional[MoeCfg] = None,
+    norm: str = "rms",
+    post_norms: bool = False,
+) -> BlockCfg:
+    """An attention block (head_dim d_model / n_heads unless given) with an
+    MLP, or with ``moe`` as its channel (``repro/configs/base.py::attn_block``)."""
+    hd = head_dim if head_dim is not None else d_model // n_heads
+    attn = AttentionCfg(
+        d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=hd,
+        rope_theta=rope_theta, rotary_fraction=rotary_fraction, window=window,
+        qkv_bias=qkv_bias, qk_norm=qk_norm, mrope_sections=mrope_sections,
+        query_scale=query_scale)
     if moe is not None:
-        return BlockCfg(mixer="attention", channel="moe", attn=attn, moe=moe)
-    return BlockCfg(mixer="attention", channel="mlp", attn=attn,
-                    mlp=MlpCfg(d_model=d_model, d_ff=d_ff))
+        return BlockCfg(mixer="attention", channel="moe", attn=attn, moe=moe,
+                        norm=norm, post_norms=post_norms)
+    return BlockCfg(
+        mixer="attention", channel="mlp", attn=attn,
+        mlp=MlpCfg(d_model=d_model, d_ff=d_ff, activation=activation, gated=gated),
+        norm=norm, post_norms=post_norms)
+
+
+def uniform_groups(block: BlockCfg, n_layers: int) -> Tuple[GroupCfg, ...]:
+    return (GroupCfg(period=(block,), n_periods=n_layers),)
 
 
 _REGISTRY: Dict[str, str] = {}  # name -> module
@@ -149,3 +216,7 @@ def get_config(name: str, smoke: bool = False) -> LMConfig:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     mod = importlib.import_module(_REGISTRY[name])
     return mod.smoke_config() if smoke else mod.config()
+
+
+def list_archs():
+    return sorted(_REGISTRY)

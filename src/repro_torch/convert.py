@@ -10,10 +10,16 @@ The layouts agree leaf by leaf: goom-rnn's ``in_proj.w`` (d, H, hd) and
 ``out_proj.w`` (H·hd, d); attention's ``q.w`` (d, H, hd) and ``o.w``
 (H, hd, d); the MoE's f32 ``router.w`` (d, E) and its stacked expert
 weights ``gate``/``up`` (E, d, f) and ``down`` (E, f, d); Mamba's
-``dt_proj.{w,b}``, ``a_log``, ``conv_w``/``conv_b`` and ``d_skip``.  What
-differs is that a JAX group with ``n_periods > 1`` stacks each leaf over its
-periods on the leading axis, while the port has one module per layer: the
-leaves are unstacked period by period, block by block.
+``dt_proj.{w,b}``, ``a_log``, ``conv_w``/``conv_b`` and ``d_skip``;
+attention's biases ``q.b``/``k.b``/``v.b`` and ``q_norm``/``k_norm``; the
+post norms; RWKV6's ``mu_x``, ``mu.*``, ``lora.*.{a,b}``, ``decay_base``,
+``decay_lora``, ``bonus`` (H, hd), ``ln_x`` and the channel mix's
+``mu_k``/``mu_r``.  A non-parametric LayerNorm's JAX entry is an empty dict
+and gives no leaf; a tied model's tree has no ``lm_head``.  What differs is
+that a JAX group with ``n_periods > 1`` stacks each leaf over its periods
+on the leading axis, while the port has one module per layer: the leaves
+are unstacked period by period, block by block (a group of one period is
+not stacked, in either package).
 
 ``params_to_jax(cfg, state_dict)`` is the inverse: it restacks each group's
 periods on the leading axis and returns the JAX tree as nested dicts of
@@ -48,12 +54,10 @@ def _flat(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
 
 def params_from_jax(cfg: LMConfig, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict of the port's ``DecoderLM(cfg)`` from a JAX param tree."""
-    sd: Dict[str, np.ndarray] = {
-        "embed": np.asarray(tree["embed"]),
-        "lm_head.w": np.asarray(tree["lm_head"]["w"]),
-    }
-    for k, v in _flat(tree["final_norm"]).items():
-        sd[f"final_norm.{k}"] = v
+    sd: Dict[str, np.ndarray] = {"embed": np.asarray(tree["embed"])}
+    for top in ("final_norm", "lm_head"):
+        for k, v in _flat(tree.get(top, {})).items():
+            sd[f"{top}.{k}"] = v
     for layer, (gi, p, bi) in enumerate(_layer_slots(cfg)):
         stacked = cfg.groups[gi].n_periods > 1
         pre = f"b{bi}."
@@ -103,4 +107,17 @@ def params_to_jax(cfg: LMConfig, state_dict: Mapping[str, Any]) -> Dict[str, Any
         for k in parents:
             node = node.setdefault(k, {})
         node[leaf] = v
+    # a non-parametric LayerNorm has no leaf but is an (empty) node of the tree
+    if cfg.final_norm == "ln_nonparam":
+        tree.setdefault("final_norm", {})
+    for gi, grp in enumerate(cfg.groups):
+        for bi, blk in enumerate(grp.period):
+            if blk.norm != "ln_nonparam":
+                continue
+            node = tree.setdefault(f"group_{gi}", {}).setdefault(f"b{bi}", {})
+            for part in ("mixer", "channel"):
+                if getattr(blk, part) != "none":
+                    node.setdefault(f"{part}_norm", {})
+                    if blk.post_norms:
+                        node.setdefault(f"{part}_post_norm", {})
     return tree

@@ -1,19 +1,28 @@
-"""Attention: causal GQA with RoPE over a dense or a paged KV cache.
+"""Attention: causal GQA with RoPE over a dense, a rolling or a paged KV
+cache.
 
-Counterpart of ``repro/models/attention.py`` for global attention (no
-sliding window, biases, q/k norms or M-RoPE).  Four paths, each the JAX
-package's arithmetic:
+Counterpart of ``repro/models/attention.py``: q/k/v biases (``qkv_bias``),
+q/k RMSNorms over the head dim (``qk_norm``; plain RMS whatever the
+block's norm), ``query_scale``, partial rotary (``rotary_fraction``) and
+sliding windows.  M-RoPE and banded attention are not ported yet.  Four
+paths, each the JAX package's arithmetic:
 
-  * no cache: causal self-attention over the sequence (``flash_attention``,
-    which for one KV block is this masked softmax);
-  * a cache and S > 1: chunked prefill (``_prefill_attention``): the chunk's
-    K/V are written into the cache at the row's ``index`` and the chunk
-    attends over everything cached so far;
+  * no cache: causal (and windowed) self-attention over the sequence
+    (``flash_attention``, which for one KV block is this masked softmax);
+  * a cache and S > 1: chunked prefill (``_prefill_attention``).  Global:
+    the chunk's K/V are written into the cache at the row's ``index`` and
+    the chunk attends over everything cached so far.  Windowed: the cache
+    is a rolling buffer of ``min(max_len, window)`` rows; the chunk attends
+    over [buffer ; chunk] (each buffer row at the absolute position it
+    holds, the chunk's own K/V unrounded), then the chunk is written at
+    ``(start + i) % length``, or, when its tail fills the buffer, rolled in
+    so that position p sits in row p % length;
   * a cache and S == 1: decode (``_decode_attention``): each row writes at
-    its own ``index`` and attends over its cache row;
+    its own ``index`` (``index % length`` in a rolling buffer) and attends
+    over its cache row (positions in ``(index - window, index]``);
   * a paged cache (one with ``pages``) and S == 1: decode against the
     shared page pool (``_paged_decode_attention``, see
-    :func:`init_paged_cache`).
+    :func:`init_paged_cache`); global layers only.
 
 Scores and the softmax are f32; ``p`` is cast to the value dtype before
 the product and the sum is divided out after the f32 accumulation.  The KV
@@ -31,6 +40,7 @@ from torch import nn
 
 from ..configs.base import AttentionCfg
 from .common import Dense
+from .norms import RMSNorm
 from .rope import apply_rope
 
 NEG_INF = -1e30
@@ -58,9 +68,21 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tens
     return (acc / l).reshape(b, sq, h, d)
 
 
+def _ring_positions(last: torch.Tensor, length: int) -> torch.Tensor:
+    """Absolute position each row of a rolling buffer of ``length`` rows
+    holds once position ``last`` (any shape) is written: the latest position
+    <= ``last`` with that residue.  Shape ``last.shape + (length,)``;
+    negative where the row was never written."""
+    slots = torch.arange(length, device=last.device)
+    last = last[..., None]
+    return last - (last - slots) % length
+
+
 class Attention(nn.Module):
     """One attention mixer; parameter names follow the JAX param tree
-    (``q.w`` (d, H, hd), ``k.w``/``v.w`` (d, KVH, hd), ``o.w`` (H, hd, d))."""
+    (``q.w`` (d, H, hd), ``k.w``/``v.w`` (d, KVH, hd), ``o.w`` (H, hd, d);
+    with ``qkv_bias`` also ``q.b``, ``k.b``, ``v.b``; with ``qk_norm``
+    ``q_norm.scale`` and ``k_norm.scale``)."""
 
     def __init__(self, cfg: AttentionCfg, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -68,13 +90,22 @@ class Attention(nn.Module):
         if cfg.n_heads % cfg.n_kv_heads:
             raise ValueError(f"{cfg.n_heads} heads do not group over "
                              f"{cfg.n_kv_heads} KV heads")
+        if cfg.mrope_sections is not None:
+            raise NotImplementedError("M-RoPE (qwen2-vl-7b) is not ported yet: "
+                                      "it comes with the next slice")
+        if cfg.use_banded:
+            raise NotImplementedError("banded sliding-window attention is not "
+                                      "ported yet: it comes with the next slice")
         self.cfg = cfg
         d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         kw = dict(device=device, dtype=dtype, generator=generator)
-        self.q = Dense(d, (h, hd), **kw)
-        self.k = Dense(d, (kvh, hd), **kw)
-        self.v = Dense(d, (kvh, hd), **kw)
+        self.q = Dense(d, (h, hd), bias=cfg.qkv_bias, **kw)
+        self.k = Dense(d, (kvh, hd), bias=cfg.qkv_bias, **kw)
+        self.v = Dense(d, (kvh, hd), bias=cfg.qkv_bias, **kw)
         self.o = Dense(h, (hd, d), std=(h * hd) ** -0.5, **kw)
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(hd, device=device, dtype=dtype)
+            self.k_norm = RMSNorm(hd, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 cache: Optional[Cache] = None,
@@ -84,22 +115,28 @@ class Attention(nn.Module):
         cache or None)."""
         cfg, cd = self.cfg, compute_dtype
         b, s, _ = x.shape
-        scale = cfg.head_dim ** -0.5
+        scale = cfg.query_scale if cfg.query_scale is not None else cfg.head_dim ** -0.5
         q = self.q(x, compute_dtype=cd)
         k = self.k(x, compute_dtype=cd)
         v = self.v(x, compute_dtype=cd)
-        q = apply_rope(q, positions, theta=cfg.rope_theta)
-        k = apply_rope(k, positions, theta=cfg.rope_theta)
+        if cfg.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
+        q = apply_rope(q, positions, theta=cfg.rope_theta,
+                       rotary_fraction=cfg.rotary_fraction)
+        k = apply_rope(k, positions, theta=cfg.rope_theta,
+                       rotary_fraction=cfg.rotary_fraction)
 
         new_cache = None
         if cache is None:
             pos = positions[0]
-            causal = (pos[None, :] <= pos[:, None])[None]
-            out = _attend(q, k, v, causal, scale, fill=-torch.inf, p_dtype=cd)
+            out = _attend(q, k, v, self._mask(pos, pos)[None], scale,
+                          fill=-torch.inf, p_dtype=cd)
         elif "pages" in cache:
             if s != 1:
                 raise ValueError("a paged KV cache takes one token per row")
             out, new_cache = self._paged_decode(q, k, v, cache, scale)
+        elif s > 1 and cfg.window is not None:
+            out, new_cache = self._prefill_window(q, k, v, cache, positions, scale)
         elif s > 1:
             out, new_cache = self._prefill(q, k, v, cache, positions, scale)
         else:
@@ -107,6 +144,13 @@ class Attention(nn.Module):
         out = out.to(cd).reshape(b, s, -1)
         y = out @ self.o.w.to(cd).reshape(-1, cfg.d_model)
         return y, new_cache
+
+    def _mask(self, q_pos: torch.Tensor, kv_pos: torch.Tensor) -> torch.Tensor:
+        """(Sq, Sk) causal mask, also windowed when the layer is."""
+        m = kv_pos[None, :] <= q_pos[:, None]
+        if self.cfg.window is not None:
+            m = m & (kv_pos[None, :] > q_pos[:, None] - self.cfg.window)
+        return m
 
     @staticmethod
     def _prefill(q, k_new, v_new, cache: Cache, positions, scale):
@@ -126,24 +170,58 @@ class Attention(nn.Module):
                       fill=-torch.inf, p_dtype=q.dtype)
         return out, {"k": k, "v": v, "index": cache["index"] + s}
 
-    @staticmethod
-    def _decode(q, k_new, v_new, cache: Cache, scale):
+    def _prefill_window(self, q, k_new, v_new, cache: Cache, positions, scale):
+        """One prompt chunk against a rolling buffer, from row 0's
+        ``index``: attend over [buffer ; chunk] (a buffer row at the absolute
+        position it holds, 2**30 where never written), then write the chunk
+        into the buffer."""
+        s = q.shape[1]
+        length = cache["k"].shape[1]
+        start = cache["index"][0]
+        abs_prev = _ring_positions(start - 1, length)
+        kv_pos = torch.where(abs_prev >= 0, abs_prev, 2 ** 30)
+        k_cat = torch.cat([cache["k"].to(q.dtype), k_new], dim=1)
+        v_cat = torch.cat([cache["v"].to(q.dtype), v_new], dim=1)
+        pos = positions[0]
+        valid = self._mask(pos, torch.cat([kv_pos, pos]))[None]
+        out = _attend(q, k_cat, v_cat, valid, scale, fill=-torch.inf, p_dtype=q.dtype)
+        dt = cache["k"].dtype
+        if s >= length:
+            # the chunk's tail fills the buffer: position p goes to row p % length
+            shift = (start + s - length) % length
+            k = _roll_rows(k_new[:, s - length:], shift).to(dt)
+            v = _roll_rows(v_new[:, s - length:], shift).to(dt)
+        else:
+            at = (start + torch.arange(s, device=q.device)) % length
+            k = cache["k"].index_copy(1, at, k_new.to(dt))
+            v = cache["v"].index_copy(1, at, v_new.to(dt))
+        return out, {"k": k, "v": v, "index": cache["index"] + s}
+
+    def _decode(self, q, k_new, v_new, cache: Cache, scale):
         """One token per row, written at the row's own ``index`` (a write
-        past the end of the row is dropped), attending over the row."""
+        past the end of a global row is dropped; a rolling buffer writes at
+        ``index % length``), attending over the row's valid positions."""
         b = q.shape[0]
         length = cache["k"].shape[1]
         index = cache["index"]
         rows = torch.arange(b, device=q.device)
-        at = index.clamp(max=length - 1)
-        keep = (index < length)[:, None, None]
+        window = self.cfg.window
         k, v = cache["k"].clone(), cache["v"].clone()
-        k[rows, at] = torch.where(keep, k_new[:, 0].to(k.dtype), k[rows, at])
-        v[rows, at] = torch.where(keep, v_new[:, 0].to(v.dtype), v[rows, at])
-        slots = torch.arange(length, device=q.device)
-        valid = (slots[None, :] <= index[:, None])[:, None, :]
-        out = _attend(q, k, v, valid, scale, fill=NEG_INF, p_dtype=v.dtype)
+        if window is None:
+            at = index.clamp(max=length - 1)
+            keep = (index < length)[:, None, None]
+            k[rows, at] = torch.where(keep, k_new[:, 0].to(k.dtype), k[rows, at])
+            v[rows, at] = torch.where(keep, v_new[:, 0].to(v.dtype), v[rows, at])
+            slots = torch.arange(length, device=q.device)
+            valid = slots[None, :] <= index[:, None]
+        else:
+            at = index % length
+            k[rows, at] = k_new[:, 0].to(k.dtype)
+            v[rows, at] = v_new[:, 0].to(v.dtype)
+            abs_pos = _ring_positions(index, length)
+            valid = (abs_pos >= 0) & (abs_pos > index[:, None] - window)
+        out = _attend(q, k, v, valid[:, None, :], scale, fill=NEG_INF, p_dtype=v.dtype)
         return out, {"k": k, "v": v, "index": index + 1}
-
 
     @staticmethod
     def _paged_decode(q, k_new, v_new, cache: Cache, scale):
@@ -176,11 +254,22 @@ class Attention(nn.Module):
         return out, {"k": pool_k, "v": pool_v, "pages": pages, "index": index + 1}
 
 
+def _roll_rows(x: torch.Tensor, shift) -> torch.Tensor:
+    """``jnp.roll(x, shift, axis=1)`` for a tensor ``shift`` (no host read):
+    row r of the result is row (r - shift) % L of ``x``."""
+    length = x.shape[1]
+    src = (torch.arange(length, device=x.device) - shift) % length
+    return x.index_select(1, src)
+
+
 def attention_init_cache(batch: int, cfg: AttentionCfg, max_len: int, *,
                          device) -> Cache:
-    """Dense bf16 KV rows of ``max_len`` positions and a per-row ``index``
-    (the absolute position of the next token): every row is its own slot."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """Dense bf16 KV rows and a per-row ``index`` (the absolute position of
+    the next token): every row is its own slot.  A global layer holds
+    ``max_len`` positions; a windowed one a rolling buffer of ``min(max_len,
+    window)`` rows."""
+    length = max_len if cfg.window is None else min(max_len, cfg.window)
+    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "index": torch.zeros(batch, dtype=torch.long, device=device)}

@@ -24,13 +24,15 @@ def chunk_len(s: int, chunk: int) -> int:
 
 
 def dense_apply(w: torch.Tensor, x: torch.Tensor, *,
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """y[..., o1, o2, ...] = x[..., i] @ w[i, o1, o2, ...] in ``compute_dtype``
-    (default: x's dtype)."""
+                compute_dtype: Optional[torch.dtype] = None,
+                b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y[..., o1, o2, ...] = x[..., i] @ w[i, o1, o2, ...] (+ b[o1, o2, ...])
+    in ``compute_dtype`` (default: x's dtype)."""
     cd = compute_dtype or x.dtype
     out_dims = w.shape[1:]
     y = torch.matmul(x.to(cd), w.to(cd).reshape(w.shape[0], -1))
-    return y.reshape(x.shape[:-1] + out_dims)
+    y = y.reshape(x.shape[:-1] + out_dims)
+    return y if b is None else y + b.to(cd)
 
 
 def normal_param(shape, std: float, *, device=None, dtype=torch.float32,
@@ -44,16 +46,18 @@ def normal_param(shape, std: float, *, device=None, dtype=torch.float32,
 class Dense(nn.Module):
     """Weight ``w`` of shape (in_dim, *out_dims), the JAX package's layout;
     initialised LeCun-normal (std 1/sqrt(in_dim), or ``std``) from
-    ``generator``."""
+    ``generator``; with ``bias``, a zero bias ``b`` of shape out_dims."""
 
     def __init__(self, in_dim: int, out_dims, *, device=None,
                  dtype=torch.float32, generator: Optional[torch.Generator] = None,
-                 std: Optional[float] = None):
+                 std: Optional[float] = None, bias: bool = False):
         super().__init__()
         self.w = normal_param((in_dim, *out_dims),
                               in_dim ** -0.5 if std is None else std,
                               device=device, dtype=dtype, generator=generator)
+        self.b = (nn.Parameter(torch.zeros(tuple(out_dims), device=device, dtype=dtype))
+                  if bias else None)
 
     def forward(self, x: torch.Tensor, *,
                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        return dense_apply(self.w, x, compute_dtype=compute_dtype)
+        return dense_apply(self.w, x, compute_dtype=compute_dtype, b=self.b)

@@ -1,4 +1,5 @@
-"""Feed-forward layers: the gated SiLU MLP and the top-k MoE.
+"""Feed-forward layers: gated and plain MLPs (SiLU, tanh-GELU, ReLU²) and
+the top-k MoE.
 
 Counterpart of ``repro/models/mlp.py``.  The MoE packs each row's tokens
 into per-expert buffers of capacity C and runs every expert over its buffer
@@ -11,8 +12,8 @@ the caller as in the JAX package (``blocks.py``):
   * ``dropless=True`` (serving): C = S, so every token keeps its top-k
     experts and its output does not depend on how the prompt was chunked.
 
-The router runs in f32 (its weight is f32 whatever the model's dtype); ties
-in the top-k break to the lower expert index, as ``jax.lax.top_k`` does.
+Each expert is gated by its config's activation.  The router runs in f32
+(its weight is f32 whatever the model's dtype); ties in the top-k break to the lower expert index, as ``jax.lax.top_k`` does.
 The capacity routing also returns the training aux losses from the f32
 router logits: the Switch load balance and the router z-loss.  The dropless
 routing (serving) returns none: nothing reads them there, and in eager
@@ -24,7 +25,7 @@ package leaves the MoE to XLA, no Pallas kernel.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,21 +35,38 @@ from ..configs.base import MlpCfg, MoeCfg
 from .common import Dense, dense_apply, normal_param
 
 
+def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``silu``, ``gelu`` (the tanh approximation, ``jax.nn.gelu``'s
+    default) or ``relu2`` (squared ReLU)."""
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        return lambda x: torch.relu(x).square()
+    raise ValueError(f"unknown activation {name!r}; one of 'silu', 'gelu', 'relu2'")
+
+
 class Mlp(nn.Module):
-    """down(silu(gate(x)) * up(x)); weights ``up.w``, ``gate.w``, ``down.w``."""
+    """down(act(gate(x)) * up(x)), or down(act(up(x))) when not gated;
+    weights ``up.w``, ``gate.w`` (gated only), ``down.w``."""
 
     def __init__(self, cfg: MlpCfg, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.act = activation(cfg.activation)
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.up = Dense(cfg.d_model, (cfg.d_ff,), **kw)
-        self.gate = Dense(cfg.d_model, (cfg.d_ff,), **kw)
+        self.gate = Dense(cfg.d_model, (cfg.d_ff,), **kw) if cfg.gated else None
         self.down = Dense(cfg.d_ff, (cfg.d_model,), **kw)
 
     def forward(self, x: torch.Tensor, *,
                 compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         h = self.up(x, compute_dtype=compute_dtype)
-        h = F.silu(self.gate(x, compute_dtype=compute_dtype)) * h
+        if self.gate is not None:
+            h = self.act(self.gate(x, compute_dtype=compute_dtype)) * h
+        else:
+            h = self.act(h)
         return self.down(h, compute_dtype=compute_dtype)
 
 
@@ -67,6 +85,7 @@ class Moe(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
+        self.act = activation(cfg.activation)
         e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.router = Dense(d, (e,), device=device, dtype=torch.float32,
@@ -115,7 +134,7 @@ class Moe(nn.Module):
 
         g = torch.einsum("becd,edf->becf", buf, self.gate.to(cd))
         u = torch.einsum("becd,edf->becf", buf, self.up.to(cd))
-        out_buf = torch.einsum("becf,efd->becd", F.silu(g) * u, self.down.to(cd))
+        out_buf = torch.einsum("becf,efd->becd", self.act(g) * u, self.down.to(cd))
         out_buf = out_buf.reshape(b, e * cap, d)
 
         gathered = out_buf.gather(1, dst.clamp(max=e * cap - 1)[..., None].expand(-1, -1, d))

@@ -1,10 +1,14 @@
 """DecoderLM: embed → blocks → final norm → lm_head.
 
 Counterpart of ``repro/models/model.py`` for the port's models (goom-rnn,
-Jamba).  The residual stream runs in ``cfg.compute_dtype`` (bf16 by
-default); the parameters are ``cfg.param_dtype`` (f32 by default).  The
-lm_head product stays a plain ``torch.matmul``, as the JAX package leaves it
-to XLA outside any kernel.
+Jamba, RWKV6 and the attention families).  The residual stream runs in
+``cfg.compute_dtype`` (bf16 by default); the parameters are
+``cfg.param_dtype`` (f32 by default).  ``tie_embeddings``: no ``lm_head``
+parameter, the logits are ``h @ embed.T``; ``scale_embedding``: the
+embedded tokens times sqrt(d), both in the compute dtype.  The lm_head
+product stays a plain ``torch.matmul``, as the JAX package leaves it to XLA
+outside any kernel.  Modality frontends (``prefix_embeds``), sinusoidal
+positions and M-RoPE (musicgen-large, qwen2-vl-7b) are not ported yet.
 
 Training: ``loss(tokens, labels)``, the JAX package's next-token CE with
 the MoE's aux losses added (``repro/models/model.py::DecoderLM.loss``).
@@ -19,6 +23,7 @@ the recurrent layers ignore them.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -42,6 +47,14 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: LMConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        for name, unported in (("frontend", cfg.frontend is not None or cfg.n_prefix),
+                               ("pos_embedding", cfg.pos_embedding != "none"),
+                               ("mrope", cfg.mrope)):
+            if unported:
+                raise NotImplementedError(
+                    f"{cfg.name}: {name}={getattr(cfg, name)!r} is not ported yet "
+                    "(prefix embeddings, sinusoidal positions and M-RoPE come with "
+                    "the next slice, musicgen-large and qwen2-vl-7b)")
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -52,7 +65,8 @@ class DecoderLM(nn.Module):
         self.layers = nn.ModuleList(
             [Block(blk, generator=generator, **kw) for blk in cfg.layer_list])
         self.final_norm = make_norm(cfg.final_norm, cfg.d_model, **kw)
-        self.lm_head = Dense(cfg.d_model, (cfg.vocab,), generator=generator, **kw)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else Dense(cfg.d_model, (cfg.vocab,), generator=generator, **kw))
 
     @property
     def device(self) -> torch.device:
@@ -70,6 +84,8 @@ class DecoderLM(nn.Module):
         # F.embedding, not indexing: its backward gives the same bits every
         # run (indexing's accumulating backward does not on the CPU)
         x = F.embedding(tokens, self.embed).to(cd)
+        if self.cfg.scale_embedding:
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model)).to(cd)
         new_caches = []
         aux_tot: Dict[str, torch.Tensor] = {}
         for i, layer in enumerate(self.layers):
@@ -82,8 +98,13 @@ class DecoderLM(nn.Module):
         return (self.final_norm(x), (new_caches if caches is not None else None),
                 aux_tot)
 
+    def head_weight(self) -> torch.Tensor:
+        """The (d, vocab) head in the compute dtype: ``embed.T`` when tied."""
+        w = self.embed.T if self.lm_head is None else self.lm_head.w
+        return w.to(self.cfg.compute_dtype)
+
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        return hidden @ self.lm_head.w.to(self.cfg.compute_dtype)
+        return hidden @ self.head_weight()
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Full forward to logits (B, S, vocab)."""
@@ -102,7 +123,7 @@ class DecoderLM(nn.Module):
         than one piece's f32 logits are alive at a time; logits are the
         compute-dtype product cast to f32, as in JAX."""
         h, _, aux = self.hidden_states(tokens)
-        w = self.lm_head.w.to(self.cfg.compute_dtype)
+        w = self.head_weight()
         s = h.shape[1]
         ck = min(self.cfg.logit_chunk, s)
         if s % ck:

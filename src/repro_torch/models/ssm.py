@@ -1,7 +1,10 @@
-"""Mamba (selective SSM), Jamba's recurrent block, with a GOOM scan.
+"""State-space blocks: Mamba (selective SSM) and RWKV6 (Finch), with GOOM
+scans.
 
-Counterpart of ``repro/models/ssm.py`` (``segment_states``, ``MambaCfg``,
-``mamba_apply``, ``mamba_init_state``).  The block reduces to a diagonal
+Counterpart of ``repro/models/ssm.py``.
+
+**Mamba** (``segment_states``, ``MambaCfg``, ``mamba_apply``,
+``mamba_init_state``), Jamba's recurrent block, reduces to a diagonal
 linear recurrence with data-dependent decay, ``h_t = a_t ⊙ h_{t-1} + b_t``
 with ``log a_t = Δ_t·A`` already in log space, so the GOOM form is exact:
 no exp/log round trip of the decay and no clamp.  Every chunk of the
@@ -13,6 +16,27 @@ f32; Δ goes through softplus in f32; A = -exp(a_log); chunks of
 L = min(chunk, S) are identity-padded (Δ = 0: log-decay 0 and zero input).
 There is no sequence sharding in the port, so the full-sequence branch of
 the JAX code does not exist here.
+
+**RWKV6** (``Rwkv6Cfg``, the time mix, ``rwkv6_scan``, the channel mix,
+``rwkv6_init_state``): token shift, the data-dependent lerp (ddlerp) of
+five streams through tanh LoRAs, r/k/v/g projections, the decay
+``log a = -exp(w)`` in f32, the chunked WKV, the ``ln_x`` RMSNorm over d
+(the JAX package's stand-in for RWKV6's per-head GroupNorm, ported as JAX
+has it) and the SiLU gate.  The WKV runs chunks of L = min(chunk, S),
+identity-padded (log a = 0, k = 0).  In a chunk the strictly-causal scores
+r̃_i·k̃_j = (r_i A_{i-1})·(k_j / A_j) hold ratios of decay products that
+overflow floats when the decay is strong; with ``scan_impl="goom"`` they
+are one ``engine.lmme`` call over GOOMs (on the card one launch of the
+LMME kernel, even at decode, where the 1×1 product is masked away: JAX
+makes the call too), and with ``"float"`` the conventional products.
+Everything else in the scan is plain tensor work, as in JAX.
+
+The token-shift caches (``x_prev``, the channel mix's ``cm_x_prev``) are
+stored f32, the dtype JAX creates them in, and enter the shift cast to the
+compute dtype; a step writes its last (compute-dtype) row back into them,
+which f32 holds exactly.  JAX instead replaces the f32 buffer by the
+compute-dtype row, so in JAX a cache's first bf16 step shifts in f32; one
+dtype per buffer is what a replayed CUDA graph's static tensors need.
 """
 
 from __future__ import annotations
@@ -24,12 +48,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..configs.base import MambaCfg
+from ..configs.base import MambaCfg, Rwkv6Cfg
 from ..core import engine
 from ..core.goom import Goom, from_goom, nonzero_sign, safe_abs, safe_log
 from .common import Dense, normal_param
+from .norms import RMSNorm
 
-__all__ = ["MambaCfg", "Mamba", "segment_states", "mamba_init_state"]
+__all__ = ["MambaCfg", "Mamba", "segment_states", "mamba_init_state", "Rwkv6Cfg",
+           "Rwkv6TimeMix", "Rwkv6ChannelMix", "rwkv6_scan", "rwkv6_init_state"]
 
 
 def segment_states(log_a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
@@ -136,3 +162,175 @@ def mamba_init_state(batch: int, cfg: MambaCfg, *, device) -> Dict[str, torch.Te
         "conv": torch.zeros(batch, cfg.d_conv - 1, cfg.d_inner, device=device),
         "ssm": torch.zeros(batch, cfg.d_inner, cfg.d_state, device=device),
     }
+
+
+# ===========================================================================
+# RWKV6 (Finch) — arXiv:2404.05892
+# ===========================================================================
+def _token_shift(x: torch.Tensor, x_prev: Optional[torch.Tensor]) -> torch.Tensor:
+    """x_{t-1} along the sequence; the first step takes ``x_prev`` (the
+    cache, cast to x's dtype) or zeros."""
+    first = torch.zeros_like(x[:, :1]) if x_prev is None else x_prev.to(x.dtype)
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+class _Lora(nn.Module):
+    """tanh(x @ a) @ b; ``a`` (d, rank) drawn N(0, 0.01²), ``b`` (rank, out) zeros."""
+
+    def __init__(self, d: int, rank: int, out: int, *, device=None,
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.a = normal_param((d, rank), 0.01, device=device, dtype=dtype,
+                              generator=generator)
+        self.b = nn.Parameter(torch.zeros(rank, out, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(x @ self.a.to(x.dtype)) @ self.b.to(x.dtype)
+
+
+_MIX = ("w", "k", "v", "r", "g")
+
+
+class Rwkv6TimeMix(nn.Module):
+    """RWKV6's time mix; parameter names follow the JAX param tree
+    (``mu_x``, ``mu.{w,k,v,r,g}``, ``lora.{w,k,v,r,g}.{a,b}``,
+    ``decay_base``, ``decay_lora.{a,b}``, ``bonus`` (H, hd), ``r``/``k``/
+    ``v``/``g``/``out`` ``.w`` (d, d) and ``ln_x.scale``)."""
+
+    def __init__(self, cfg: Rwkv6Cfg, *, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.scan_impl not in ("goom", "float"):
+            raise ValueError(f"unknown scan_impl {cfg.scan_impl!r}; 'goom' or 'float'")
+        self.cfg = cfg
+        d = cfg.d_model
+        kw = dict(device=device, dtype=dtype)
+        gk = dict(kw, generator=generator)
+
+        def half():
+            return nn.Parameter(torch.full((d,), 0.5, **kw))
+
+        self.mu_x = half()
+        self.mu = nn.ParameterDict({m: half() for m in _MIX})
+        self.lora = nn.ModuleDict({m: _Lora(d, cfg.lora_mix, d, **gk) for m in _MIX})
+        u = torch.rand(d, generator=generator, device=device)
+        self.decay_base = nn.Parameter((u - 5.0).to(dtype))
+        self.decay_lora = _Lora(d, cfg.lora_decay, d, **gk)
+        self.bonus = normal_param((cfg.n_heads, cfg.head_dim), 0.1, **gk)
+        self.r, self.k, self.v, self.g, self.out = (Dense(d, (d,), **gk) for _ in range(5))
+        self.ln_x = RMSNorm(d, **kw)
+
+    def forward(self, x: torch.Tensor, *, state: Optional[Dict[str, torch.Tensor]] = None,
+                compute_dtype: torch.dtype = torch.bfloat16):
+        """x (B, S, d) → (out (B, S, d), new state or None); ``state`` holds
+        ``x_prev`` (B, 1, d) and ``wkv`` (B, H, hd, hd) f32."""
+        cfg, cd = self.cfg, compute_dtype
+        b, s, d = x.shape
+        h, hd = cfg.n_heads, cfg.head_dim
+        dx = _token_shift(x, None if state is None else state["x_prev"]) - x
+        xxx = x + dx * self.mu_x.to(x.dtype)
+        xw, xk, xv, xr, xg = (x + dx * (self.mu[m].to(x.dtype) + self.lora[m](xxx))
+                              for m in _MIX)
+        r = self.r(xr, compute_dtype=cd).reshape(b, s, h, hd)
+        k = self.k(xk, compute_dtype=cd).reshape(b, s, h, hd)
+        v = self.v(xv, compute_dtype=cd).reshape(b, s, h, hd)
+        g = F.silu(self.g(xg, compute_dtype=cd))
+        # the log-decay, exact in log space: log a = -exp(w) < 0
+        w = self.decay_base.float() + self.decay_lora(xw.float())
+        log_a = -torch.exp(w).reshape(b, s, h, hd)
+        y, wkv = rwkv6_scan(r.float(), k.float(), v.float(), log_a, self.bonus.float(),
+                            cfg, h0=None if state is None else state["wkv"])
+        y = self.ln_x(y.reshape(b, s, d)).to(cd) * g
+        out = self.out(y, compute_dtype=cd)
+        if state is None:
+            return out, None
+        return out, {"x_prev": x[:, -1:].to(state["x_prev"].dtype), "wkv": wkv}
+
+
+def rwkv6_scan(r, k, v, log_a, u, cfg: Rwkv6Cfg, h0=None):
+    """Chunked WKV: y_t = r_t · (S_{t-1} + diag(u)·k_t v_tᵀ);
+    S_t = diag(a_t) S_{t-1} + k_t v_tᵀ.  All arguments f32.
+
+    r, k, v, log_a (B, S, H, D); u (H, D); h0 (B, H, D, D) or None (zeros).
+    Returns (y (B, S, H, D), final state (B, H, D, D)).  ``_rwkv6_scan`` of
+    ``repro/models/ssm.py``, its ``lax.scan`` over chunks a Python loop."""
+    b, s, h, dk = r.shape
+    L = min(cfg.chunk, s)
+    # identity-pad to whole chunks: log a = 0 and k = 0 leave the state be
+    pad = -s % L
+    if pad:
+        r, k, v, log_a = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v, log_a))
+    sp = s + pad
+    nc = sp // L
+    dv = v.shape[-1]
+
+    def chunks(t):  # (B, S, H, D) -> (nc, B, H, L, D)
+        return t.reshape(b, nc, L, h, t.shape[-1]).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc, lac = chunks(r), chunks(k), chunks(v), chunks(log_a)
+    S = torch.zeros(b, h, dk, dv, device=r.device) if h0 is None else h0
+    # strictly causal (the current token is the bonus term's)
+    mask = torch.tril(torch.ones(L, L, dtype=torch.bool, device=r.device), diagonal=-1)
+    ub = u[None, :, None, :]
+    ys = []
+    for c in range(nc):
+        rb, kb, vb, la = rc[c], kc[c], vc[c], lac[c]            # (B, H, L, D)
+        cum = torch.cumsum(la, dim=-2)                          # log A_i
+        cum_prev = cum - la                                     # log A_{i-1}
+        total = cum[..., -1:, :]                                # log A_L
+        if cfg.scan_impl == "goom":
+            # scores over GOOMs: log r~ = log|r| + cum_prev, log k~ = log|k| - cum
+            log_k, sign_k = safe_log(safe_abs(kb)), nonzero_sign(kb)
+            rg = Goom(safe_log(safe_abs(rb)) + cum_prev, nonzero_sign(rb))
+            kg = Goom((log_k - cum).mT, sign_k.mT)
+            scores = from_goom(engine.lmme(rg, kg))            # (B, H, L, L)
+            k_rem = from_goom(Goom(log_k + (total - cum), sign_k))
+        else:
+            # every exp of a cumulative decay <= 0 is at most 1 but exp(-cum):
+            # the products overflow when the decay is strong
+            scores = torch.einsum("bhik,bhjk->bhij", rb * torch.exp(cum_prev),
+                                  kb * torch.exp(-cum))
+            k_rem = kb * torch.exp(total - cum)
+        scores = torch.where(mask, scores, 0.0)
+        y = (torch.einsum("bhij,bhjv->bhiv", scores, vb)
+             + torch.einsum("bhik,bhkv->bhiv", rb * torch.exp(cum_prev), S)
+             + (rb * ub * kb).sum(dim=-1, keepdim=True) * vb)
+        S = (torch.exp(total[..., 0, :])[..., :, None] * S
+             + torch.einsum("bhjk,bhjv->bhkv", k_rem, vb))
+        ys.append(y)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, sp, h, dk)[:, :s]
+    return y, S
+
+
+class Rwkv6ChannelMix(nn.Module):
+    """RWKV6's channel mix: sigmoid(r(x_r)) · v(relu(k(x_k))²) over the
+    token-shifted input; parameters ``mu_k``, ``mu_r``, ``k.w`` (d, d_ff),
+    ``v.w`` (d_ff, d), ``r.w`` (d, d)."""
+
+    def __init__(self, cfg: Rwkv6Cfg, *, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        kw = dict(device=device, dtype=dtype)
+        self.mu_k = nn.Parameter(torch.full((d,), 0.5, **kw))
+        self.mu_r = nn.Parameter(torch.full((d,), 0.5, **kw))
+        self.k = Dense(d, (f,), generator=generator, **kw)
+        self.v = Dense(f, (d,), generator=generator, **kw)
+        self.r = Dense(d, (d,), generator=generator, **kw)
+
+    def forward(self, x: torch.Tensor, *, x_prev: Optional[torch.Tensor] = None,
+                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        cd = compute_dtype
+        dx = _token_shift(x, x_prev) - x
+        xk = x + dx * self.mu_k.to(x.dtype)
+        xr = x + dx * self.mu_r.to(x.dtype)
+        kv = self.v(torch.relu(self.k(xk, compute_dtype=cd)).square(), compute_dtype=cd)
+        return torch.sigmoid(self.r(xr, compute_dtype=cd)) * kv
+
+
+def rwkv6_init_state(batch: int, cfg: Rwkv6Cfg, *, device) -> Dict[str, torch.Tensor]:
+    """The time mix's decode state, f32 and zero: ``x_prev`` (B, 1, d) and
+    ``wkv`` (B, H, hd, hd)."""
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {"x_prev": torch.zeros(batch, 1, d, device=device),
+            "wkv": torch.zeros(batch, h, hd, hd, device=device)}

@@ -1,6 +1,7 @@
 """Entry point: ``python -m repro_torch.serve.api [--smoke] [--device cpu]``.
 
-Builds goom-rnn-124m (``--arch``) with seeded random weights, at full width
+Builds goom-rnn-124m (or any registered ``--arch``: rwkv6-7b, gemma3-1b,
+...) with seeded random weights, at full width
 unless ``--smoke`` is given, on the card unless ``--device cpu`` is given,
 wraps it in Engine -> Gateway -> ServeAPI, and serves until interrupted::
 

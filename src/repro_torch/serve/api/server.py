@@ -319,8 +319,9 @@ def build_engine(arch: str = "goom-rnn-124m", *, smoke: bool = True,
 
     The demo and test entry; a deployment hands its own ``Engine`` to
     ``Gateway``.  ``device`` defaults to ``cuda`` (the port's entry points
-    run on the card unless the caller asks for the CPU).  The default arch
-    is goom-rnn-124m: the JAX entry's olmo-1b is not in the port."""
+    run on the card unless the caller asks for the CPU).  ``arch`` is any
+    registered architecture (``configs.list_archs()``); the default is
+    goom-rnn-124m, the paper's model."""
     import torch
 
     from ...configs import get_config

@@ -8,9 +8,13 @@ attention layer keeps its KV in a shared page pool of ``(n_pages + 1, ps,
 kvh, hd)`` pages with a per-slot ``(max_slots, max_blocks)`` page table.  A
 *slot* is one resident sequence; a *page* is ``ps`` tokens of one layer's
 KV, shareable between slots that decode from a common prompt prefix.  A
-goom-rnn layer's state is its fixed-size GOOM carry and a Mamba layer's its
-conv tail and SSM state, whatever the context length, so a prefix
-checkpoint costs kilobytes and restores the recurrence exactly.
+goom-rnn layer's state is its fixed-size GOOM carry, a Mamba layer's its
+conv tail and SSM state, an RWKV6 layer's its token-shift rows and WKV
+state, and a windowed attention layer's its dense rolling buffer of
+``min(page_len, window)`` rows, whatever the context length: a prefix
+checkpoint holds them whole and restores them exactly.  A model with no
+global attention layer (rwkv6, mixtral) pages nothing and reuses prefixes
+through checkpoints alone.
 
 Device-side tree ops.  Page id ``n_pages`` is the sentinel, as in JAX; JAX
 drops scatters through it and clamps gathers, while here it is a real trash
@@ -60,8 +64,9 @@ def slot_cache_bytes(model, max_slots: int, page_len: int, **kw) -> dict:
     """Byte cost of a serving config, from ``device="meta"`` shapes.
 
     Returns ``{"total", "per_slot", "kv_pages", "recurrent"}`` (bytes):
-    ``kv_pages`` counts the attention K/V leaves (dense rows or pool pages,
-    the trash page included), ``recurrent`` everything else.  Extra
+    ``kv_pages`` counts the attention K/V leaves (dense rows, rolling
+    buffers or pool pages, the trash page included), ``recurrent``
+    everything else.  Extra
     ``init_slot_caches`` kwargs (``page_size``, ``cache_pages``) pass
     through."""
     caches = model.init_slot_caches(max_slots, page_len, device="meta", **kw)

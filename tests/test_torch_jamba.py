@@ -272,8 +272,12 @@ def test_norms_default_to_rms_in_both_packages():
 
 
 def test_block_of_an_unported_kind_raises():
-    with pytest.raises(NotImplementedError, match="rwkv6"):
-        Block(BlockCfg(mixer="rwkv6", channel="none"), device="cpu")
+    """A mixer or a channel that no config names raises, naming it."""
+    with pytest.raises(NotImplementedError, match="bogus"):
+        Block(BlockCfg(mixer="bogus", channel="none"), device="cpu")
+    attn = AttentionCfg(**ATTN)
+    with pytest.raises(NotImplementedError, match="bogus"):
+        Block(BlockCfg(mixer="attention", channel="bogus", attn=attn), device="cpu")
 
 
 # ---------------------------------------------------------------------------
