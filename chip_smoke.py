@@ -78,13 +78,14 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 LLE of the four in-repo systems at 4096 steps, parallel
                 against sequential and λ1 against the literature;
   7. jamba    — serve jamba-v0.1 at full width (d=4096, vocab 65536, GQA
-                32/8 heads, 16-expert top-2 MoE) cut to two of its four
-                8-layer periods (16 layers, 26.1B parameters, 52 GB in bf16:
-                the most whole periods one 80 GB card holds), seeded random
-                bf16 weights built on the card, bf16 compute, f32 recurrent
-                state, through the same Engine and requests.  Every engine
-                diagonal_scan call must have launched the diagonal-scan
-                kernel, and no other GOOM op may run; the horizon, trace and
+                32/8 heads, 16-expert top-2 MoE) cut to one of its four
+                8-layer periods (8 layers, 13.3B parameters, 26.6 GB in
+                bf16; two periods, 52 GB, fit but cost the run's time),
+                seeded random bf16 weights built on the card, bf16 compute,
+                f32 recurrent state, through the same Engine and requests.
+                Every engine diagonal_scan call must have launched the
+                diagonal-scan kernel, and no other GOOM op may run; the
+                horizon, trace and
                 prefix checks of phase 3, a decode step's device time by
                 layer kind, then the parity check of phase 4 at f32 compute
                 on the same weights;
@@ -108,7 +109,24 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 (gemma3-1b, mixtral-8x7b) a prompt of window + 600 tokens
                 prefilled in two chunks and decoded through rings of window
                 rows that wrap, held to the no-cache forward; gemma3-1b
-                (paged global layers beside dense rings) also prefix reuse.
+                (paged global layers beside dense rings) also prefix reuse;
+ 10. frontends — musicgen-large (48 layers, d=2048, 2.42B parameters, 4.85
+                GB in bf16; sinusoidal positions, LayerNorm) and qwen2-vl-7b
+                (28 layers, d=3584, M-RoPE (16, 24, 24), qkv biases, 7.62B
+                parameters, 15.23 GB) at full width and depth, bf16 weights,
+                one at a time: the Engine refuses them, as JAX's does;
+                ``generate`` serves 4 prompts (128 tokens with 64 prefix
+                embeddings; 320 tokens with a 16x16 patch grid of 256 and its
+                M-RoPE positions) for 32 tokens: the single-shot prefill,
+                the decode step as one CUDA graph traced, device time by
+                layer kind, and at f32 compute with f32 KV the tokens against
+                a no-cache forward's argmax; then banded sliding-window
+                attention against the dense windowed path (gemma3-1b's smoke
+                config, f32, logits within 1e-5·std);
+ 11. examples — ``examples/quickstart_torch.py``,
+                ``lyapunov_spectra_torch.py`` and ``serve_lm_torch.py`` run
+                in-process (their ``main()``) at their default sizes, each
+                checked, their LMME and zero-B launches counted.
 
 ``--kernels`` runs phases 1 and 2 without the diagonal scan and stops: the
 loop for kernel work (``tools/kernels_ab.sh`` runs it on two checkouts in
@@ -116,7 +134,8 @@ turns).
 
 Before the last lines, one summary line a served path (graphed and eager
 decode step, tokens/s at horizons 8 and 1, tokens a dispatch, host syncs a
-token, prefix hit rate and TTFT).  The last lines are a JSON object of
+token, prefix hit rate and TTFT; for the frontend models generate's graphed
+decode step, tokens/s and prefill), and each phase's seconds.  The last lines are a JSON object of
 per-kernel numbers, the card's name and power limit (from nvidia-smi), and
 ``{"ok": true, "device": {...}}``.
 TF32 is off for every float32 product (the default, set here explicitly).
@@ -150,7 +169,7 @@ BUDGETS = [8, 16, 32, 32, 32, 1]
 SERVE = dict(max_slots=4, page_len=512, chunk=64)
 DEVICE = "cuda"
 # jamba-v0.1 is cut to this many of its four 8-layer periods (depth only)
-JAMBA_PERIODS = 2
+JAMBA_PERIODS = 1
 
 
 def check(cond, msg: str) -> None:
@@ -2225,6 +2244,296 @@ def families_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the frontend models through generate
+# ---------------------------------------------------------------------------
+#: per model: B prompts of this many tokens; for M-RoPE the patch grid's side
+FRONTENDS = {"musicgen-large": dict(batch=4, prompt=128, grid=None),
+             "qwen2-vl-7b": dict(batch=4, prompt=320, grid=16)}
+GEN_TOKENS, GEN_MAX_LEN = 32, 512
+#: replays of generate's decode graph timed by wall clock, and profiled
+FRONT_TIMED, FRONT_PROFILED = 16, 8
+
+
+def frontend_inputs(cfg, batch, length, grid, gen):
+    """(prompts (B, P), kw): ``prefix_embeds`` (B, n_prefix, d) at
+    0.02·N(0, 1), standing in for EnCodec frames or patch embeddings, and
+    for M-RoPE ``mrope_positions`` (3, B, P): the first n_prefix positions
+    a grid of ``grid`` columns (t = 0, h = i // grid, w = i % grid), the
+    text after it at its absolute index on all three streams, which is
+    what ``decode_step`` continues."""
+    import torch
+
+    prompt = torch.randint(0, cfg.vocab, (batch, length), generator=gen, device=DEVICE)
+    kw = {"prefix_embeds": 0.02 * torch.randn(batch, cfg.n_prefix, cfg.d_model,
+                                              generator=gen, device=DEVICE)}
+    if cfg.mrope:
+        i = torch.arange(length, device=DEVICE)
+        img = i < cfg.n_prefix
+        kw["mrope_positions"] = torch.stack([
+            torch.where(img, 0, i), torch.where(img, i // grid, i),
+            torch.where(img, i % grid, i)])[:, None].expand(3, batch, length)
+    return prompt, kw
+
+
+def generate_trace(model, prompt, kw):
+    """``generate``'s decode step over B rows: after a single-shot prefill,
+    captured once (``StepGraphs``) over static token, index and cache
+    tensors, then its replays timed by wall clock and profiled: wall, busy
+    ms, kernels and idle share a step, as ``trace_phase`` reads the
+    Engine's."""
+    import torch
+
+    from repro_torch.serve import StepGraphs, make_decode_in_place
+
+    b, p = prompt.shape
+    with torch.no_grad():
+        logits, caches = model.prefill(prompt, model.init_caches(b, GEN_MAX_LEN), **kw)
+    tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+    index = torch.full((b,), p, dtype=torch.long, device=DEVICE)
+    graphs, step = StepGraphs(), make_decode_in_place(model)
+
+    def run():
+        graphs.run("generate_decode", step, tok, caches, index)
+
+    run()   # the capture
+    run()
+    wall = _timed(run, FRONT_TIMED)
+    prof = _profiled(run, FRONT_PROFILED)
+    busy = _device_ms(prof) / FRONT_PROFILED
+    check(DEVICE == "cpu" or graphs.n_graphs == 1,   # a CPU rehearsal captures nothing
+          f"generate's decode: {graphs.n_graphs} graphs")
+    return dict(step_ms=wall, busy_ms=busy,
+                kernels=_kernel_kinds(prof)["all"] / FRONT_PROFILED, idle=1 - busy / wall)
+
+
+def frontends_phase():
+    """musicgen-large and qwen2-vl-7b at full width and depth, bf16 weights
+    from seed 0, one at a time: the Engine refuses them (as JAX's does);
+    ``generate`` with ``prefix_embeds`` (and ``mrope_positions``) serves B
+    prompts: a single-shot prefill's time, ``GEN_TOKENS`` tokens with no
+    GOOM kernel launched, the graphed decode step traced
+    (``generate_trace``), the device time by layer kind; then at f32
+    compute with f32 KV on the same weights, ``generate``'s tokens against
+    the argmax of one no-cache forward over prompt + tokens with the same
+    prefix and positions, at every generated position (``_near_tie``)."""
+    import torch
+
+    from repro_torch import DecoderLM, Engine, get_config
+    from repro_torch.serve import generate
+
+    out = {}
+    for arch, shape in FRONTENDS.items():
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(get_config(arch), param_dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        model = DecoderLM(cfg, device=DEVICE,
+                          generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        try:
+            Engine(model, **SERVE)
+        except NotImplementedError as e:
+            refused = str(e)
+        else:
+            raise RuntimeError(f"{arch}: the Engine took a frontend model")
+        b, p = shape["batch"], shape["prompt"]
+        prompt, kw = frontend_inputs(cfg, b, p, shape["grid"],
+                                     torch.Generator(device=DEVICE).manual_seed(SEED + 23))
+
+        with torch.no_grad():
+            def prefill():
+                return model.prefill(prompt, model.init_caches(b, GEN_MAX_LEN), **kw)
+            prefill()
+            prefill_ms = _timed(prefill, 3)
+            prefill_busy = device_ms(prefill, 2)
+        reset_counts()
+        t0 = time.perf_counter()
+        toks = generate(model, prompt, GEN_TOKENS, GEN_MAX_LEN, **kw)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches, calls = read_counts()
+        check_launches(launches, calls, f"generate [{arch}]", set())
+        check(tuple(toks.shape) == (b, GEN_TOKENS)
+              and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"{arch}: generate gave {tuple(toks.shape)} tokens or ids out of vocabulary")
+        trace = generate_trace(model, prompt, kw)
+        peak = torch.cuda.max_memory_allocated()
+        layers = layer_breakdown(model)
+
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        model.cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        try:
+            with f32_kv(model):
+                toks32 = generate(model, prompt, GEN_TOKENS, GEN_MAX_LEN, **kw)
+            full_kw = dict(kw)
+            if cfg.mrope:
+                tail = torch.arange(p, p + GEN_TOKENS - 1, device=DEVICE).expand(3, b, -1)
+                full_kw["mrope_positions"] = torch.cat([kw["mrope_positions"], tail], 2)
+            with torch.no_grad():
+                seq = torch.cat([prompt, toks32[:, :-1]], 1)
+                lg = model(seq, **full_kw)[:, p - 1:].float()    # (B, GEN_TOKENS, vocab)
+        finally:
+            model.cfg = cfg
+        peak32 = torch.cuda.max_memory_allocated()
+        compared, stopped = 0, []
+        for r in range(b):
+            for i, (x, y) in enumerate(zip(toks32[r].tolist(), lg[r].argmax(-1).tolist())):
+                if _near_tie(lg[r], i, x, y, f"{arch}: row {r}"):
+                    stopped.append((r, i))
+                    break
+                compared += 1
+        del model, lg
+        steady = b / trace["step_ms"] * 1e3
+        grid = (f", M-RoPE grid {shape['grid']}x{cfg.n_prefix // shape['grid']} then text "
+                "at its index" if cfg.mrope else ", sinusoidal positions")
+        print(f"frontend [{arch}]: {cfg.n_layers} layers d={cfg.d_model} vocab={cfg.vocab}, "
+              f"{n_params / 1e6:.1f}M params ({n_bytes / 1e9:.2f} GB in bf16), built in "
+              f"{t_build:.1f} s; {b} prompts of {p} tokens, prefix_embeds on the first "
+              f"{cfg.n_prefix}{grid}; single-shot prefill {prefill_ms:.3f} ms wall, "
+              f"{prefill_busy:.3f} ms device busy (eager); generate "
+              f"{GEN_TOKENS} tokens a row in {gen_s:.3f} s = {b * GEN_TOKENS / gen_s:.1f} "
+              f"tokens/s (prefill and the decode graph's capture included); graphed decode "
+              f"step ({b} rows) {trace['step_ms']:.3f} ms wall / {trace['busy_ms']:.3f} ms "
+              f"busy in {trace['kernels']:.0f} kernels, idle {trace['idle']:.3f} = "
+              f"{steady:.1f} tokens/s steady; peak {peak / 2**30:.2f} GiB; launches "
+              f"{launches}; Engine refuses: {refused!r}", flush=True)
+        print(f"frontend [{arch}] (f32, f32 KV): {compared} generate tokens equal to a "
+              f"no-cache forward's argmax; stopped at near ties {stopped or 'none'}; peak "
+              f"{peak32 / 2**30:.2f} GiB", flush=True)
+        out[arch] = dict(prefill_ms=prefill_ms, prefill_busy_ms=prefill_busy, tokens_per_s=b * GEN_TOKENS / gen_s,
+                         steady_tokens_per_s=steady, trace=trace, peak_bytes=peak,
+                         layers=layers, launches=launches, compared=compared,
+                         stopped=stopped, n_bytes=n_bytes)
+    free_memory()
+    return out
+
+
+#: banded against dense: sequence lengths of at least two windows
+BANDED_LENS = [32, 70, 200]
+
+
+def banded_phase():
+    """gemma3-1b's smoke config at f32 with every attention layer flipped to
+    banded sliding windows (``transform_blocks``) against the same weights
+    dense: the local layers' two-block band at S >= 2·window, logits within
+    1e-5·std of the dense windowed path's."""
+    import torch
+
+    from repro_torch import DecoderLM, get_config
+    from repro_torch.configs import transform_blocks
+
+    cfg = dataclasses.replace(get_config("gemma3-1b", smoke=True), compute_dtype=torch.float32)
+    banded_cfg = transform_blocks(cfg, lambda blk: dataclasses.replace(
+        blk, attn=dataclasses.replace(blk.attn, use_banded=True)))
+    window = max(blk.attn.window or 0 for blk in cfg.layer_list)
+    dense = DecoderLM(cfg, device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    banded = DecoderLM(banded_cfg, device=DEVICE,
+                       generator=torch.Generator(device=DEVICE).manual_seed(SEED + 1))
+    banded.load_state_dict(dense.state_dict())
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 29)
+    gaps = {}
+    with torch.no_grad():
+        for s in BANDED_LENS:
+            check(s >= 2 * window, f"banded: S={s} below two windows of {window}")
+            seq = torch.randint(0, cfg.vocab, (2, s), generator=gen, device=DEVICE)
+            want = dense(seq)
+            gaps[s] = float((banded(seq) - want).abs().max() / want.std())
+    check(max(gaps.values()) < 1e-5, f"banded: logits {gaps} (·std) from the dense path's")
+    print(f"banded (gemma3-1b smoke, f32, windows of {window}): logits at S = "
+          + ", ".join(f"{s}: {g:.3e}" for s, g in gaps.items())
+          + "·std from the dense windowed path's", flush=True)
+    return gaps
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the examples on the card
+# ---------------------------------------------------------------------------
+def load_example(name):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: a near tie of the serving example's bf16 model: the top-2 margin of a
+#: no-cache forward's logits below this many std (the JAX package's own bound
+#: for bf16 KV rounding between serving paths, tests/test_serve_engine.py)
+SERVE_EXAMPLE_TIE = 0.1
+
+
+def examples_phase():
+    """The three examples' ``main()`` in-process on the card, their default
+    sizes: the quickstart (its LMME kernel within 1e-4 of the plain version
+    over each row's scale, the chain finite), the Lyapunov spectra at 4096
+    steps (sequential and parallel within rtol = atol = 0.12 of the
+    literature for logistic, henon and lorenz63, as
+    ``tests/test_lyapunov.py``, parallel within 1e-3 of sequential), and
+    the serving demo (every client served its budget; ``generate``'s tokens
+    equal to the HTTP stream's on the same prompts up to a near tie).
+    Returns the kernels' launches over the three, each equal to its engine
+    calls."""
+    import numpy as np
+    import torch
+
+    reset_counts()
+    t0 = time.perf_counter()
+    quick = load_example("quickstart_torch").main([])
+    check(quick["lmme_err"] <= 1e-4 and quick["chain_finite"] and quick["chain_max"] > 88.0,
+          f"quickstart: {quick}")
+    t_quick = time.perf_counter() - t0
+    lyap = load_example("lyapunov_spectra_torch").main(["--steps", "4096", "--chunk", "256"])
+    for name in ("logistic", "henon", "lorenz63"):
+        r = lyap[name]
+        for est in ("seq", "par"):
+            check(np.allclose(r[est], r["ref"], rtol=0.12, atol=0.12),
+                  f"lyapunov {name}: {est} {r[est]} vs literature {r['ref']}")
+        check(np.allclose(r["par"], r["seq"], rtol=1e-3, atol=1e-3),
+              f"lyapunov {name}: parallel {r['par']} vs sequential {r['seq']}")
+    t_lyap = time.perf_counter() - t0 - t_quick
+    demo = load_example("serve_lm_torch").main([])
+    for i, (toks, reason, _) in enumerate(demo["http"]):
+        check(reason == "length" and len(toks) == max(2, 32 - 4 * i),
+              f"serve_lm: client {i} got {len(toks)} tokens ({reason})")
+    model, compared, ties = demo["model"], 0, []
+    for i in demo["rows"]:
+        http, got = demo["http"][i][0], demo["generated"][i].tolist()
+        for j, (x, y) in enumerate(zip(got, http)):
+            if x != y:
+                seq = torch.tensor([demo["prompts"][i] + http[:j]], device=DEVICE)
+                with torch.no_grad():
+                    lg = model(seq)[0, -1].float()
+                top2 = torch.topk(lg, 2).values
+                margin = float(top2[0] - top2[1])
+                check(margin < SERVE_EXAMPLE_TIE * float(lg.std()),
+                      f"serve_lm: row {i} token {j}: generate {x} vs HTTP {y} at margin "
+                      f"{margin:.3e}")
+                ties.append((i, j, margin / float(lg.std())))
+                break
+            compared += 1
+    t_demo = time.perf_counter() - t0 - t_quick - t_lyap
+    launches, calls = read_counts()
+    check_launches(launches, calls, "examples", {"lmme", "matrix_scan_zero_b"})
+    print(f"examples: quickstart {t_quick:.1f} s (LMME kernel {quick['lmme_err']:.3e} over "
+          f"each row's scale from the plain version, log-mag {quick['lmme_log_err']:.3e}; "
+          f"chain log-magnitudes {quick['chain_min']:.1f} .. {quick['chain_max']:.1f}); "
+          f"lyapunov_spectra {t_lyap:.1f} s (logistic, henon, lorenz63 within 0.12 of the "
+          f"literature, parallel within 1e-3 of sequential); serve_lm {t_demo:.1f} s "
+          f"({len(demo['http'])} clients served; {compared} generate tokens equal to the "
+          f"HTTP stream's on rows {demo['rows']}; near ties {ties or 'none'}); launches "
+          f"{launches} == engine calls {calls}", flush=True)
+    return launches
+
+
+
 def free_memory():
     """Return dead Engines' graph pools and caches to the card."""
     import gc
@@ -2274,8 +2583,14 @@ def main() -> int:
         print(f"build {name}: {(log or 'loaded from an earlier build').strip()}",
               flush=True)
 
+    phase_s = {}
+
     def elapsed(phase):
-        print(f"[{phase} done at {time.perf_counter() - t_start:.1f} s]", flush=True)
+        at = time.perf_counter() - t_start
+        phase_s[phase] = at - sum(phase_s.values())
+        print(f"[{phase} done at {at:.1f} s]", flush=True)
+
+    elapsed("build")
 
     rows, max_err = kernel_phase()
     rwkv6_rows = rwkv6_lmme_phase()
@@ -2337,6 +2652,11 @@ def main() -> int:
     elapsed("rwkv6")
     families = families_phase()
     elapsed("families")
+    frontends = frontends_phase()
+    banded_phase()
+    elapsed("frontends")
+    ex_launches = examples_phase()
+    elapsed("examples")
     for (path, st), tr in zip((("shared_a", stats), ("generic", stats_g),
                                ("jamba-v0.1", stats_j), ("rwkv6-7b", stats_r)),
                               traces.values()):
@@ -2350,6 +2670,17 @@ def main() -> int:
               f"token; prefix hit rate {pf['hit_rate']:.3f}, TTFT hit "
               f"{pf['ttft_hit_ms']:.2f} ms vs miss {pf['ttft_miss_ms']:.2f} ms; peak "
               f"{st['peak_bytes'] / 2**30:.2f} GiB; {card}", flush=True)
+    for arch, fr in frontends.items():
+        tr = fr["trace"]
+        print(f"summary [{arch}]: generate's decode step ({FRONTENDS[arch]['batch']} rows) "
+              f"graphed {tr['step_ms']:.3f} ms wall / {tr['busy_ms']:.3f} ms busy / idle "
+              f"{tr['idle']:.3f}; {fr['steady_tokens_per_s']:.1f} tokens/s steady, "
+              f"{fr['tokens_per_s']:.1f} over a generate call; single-shot prefill "
+              f"{fr['prefill_ms']:.3f} ms wall / {fr['prefill_busy_ms']:.3f} ms busy; peak "
+              f"{fr['peak_bytes'] / 2**30:.2f} GiB; {card}",
+              flush=True)
+    print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f"; total {sum(phase_s.values()):.1f}", flush=True)
 
     # each kernel's row: the shape its main path launches most, and the
     # launches of the run of that path (the other paths' beside them)
@@ -2358,7 +2689,9 @@ def main() -> int:
                    "train generic": train["generic"]["launches"][k],
                    "experiments": exp_launches[k], "serve jamba": stats_j["launches"][k],
                    "serve rwkv6": stats_r["launches"][k],
-                   "serve families": sum(f["stats"]["launches"][k] for f in families.values())}
+                   "serve families": sum(f["stats"]["launches"][k] for f in families.values()),
+                   "serve frontends": sum(f["launches"][k] for f in frontends.values()),
+                   "examples": ex_launches[k]}
                for k in ("lmme", "matrix_scan", "matrix_scan_zero_b", "diag_scan")}
     lmme_row = next(r for r in rows if r["shape"].startswith("decode"))
     scan_row = next(v for k, v in scan_rows.items() if k.startswith("decode"))

@@ -15,6 +15,7 @@ from .base import (
     get_config,
     list_archs,
     register,
+    transform_blocks,
     uniform_groups,
 )
 
@@ -27,7 +28,9 @@ register("phi3.5-moe", "repro_torch.configs.phi35_moe")
 register("mixtral-8x7b", "repro_torch.configs.mixtral_8x7b")
 register("glm4-9b", "repro_torch.configs.glm4_9b")
 register("gemma3-1b", "repro_torch.configs.gemma3_1b")
+register("musicgen-large", "repro_torch.configs.musicgen_large")
+register("qwen2-vl-7b", "repro_torch.configs.qwen2_vl_7b")
 
 __all__ = ["AttentionCfg", "BlockCfg", "GoomSSMCfg", "GroupCfg", "LMConfig",
            "MambaCfg", "MlpCfg", "MoeCfg", "Rwkv6Cfg", "attn_block", "get_config",
-           "list_archs", "register", "uniform_groups"]
+           "list_archs", "register", "transform_blocks", "uniform_groups"]

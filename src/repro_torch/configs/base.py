@@ -6,10 +6,8 @@ The fields mirror the JAX package's ``GoomSSMCfg``, ``MambaCfg``,
 (``repro/models/{goom_layer,ssm,attention,mlp,blocks,model}.py``); dtypes
 are torch dtypes and the defaults are the JAX package's.  Left out: the JAX
 flash-attention tiles (``block_q``, ``block_kv``), ``remat`` and Mamba's
-``scan_impl``.  Kept but not built yet, so that a config still equals
-JAX's field by field: M-RoPE (``mrope_sections``, ``mrope``), banded
-attention (``use_banded``), sinusoidal positions and frontends; the models
-raise ``NotImplementedError`` when one is set.
+``scan_impl``.  ``transform_blocks`` rebuilds a config block by block (for
+example to flip attention to banded sliding windows).
 """
 
 from __future__ import annotations
@@ -84,9 +82,9 @@ class AttentionCfg:
     window: Optional[int] = None          # sliding-window size (None = global)
     qkv_bias: bool = False
     qk_norm: bool = False                 # gemma3-style q/k RMSNorm
-    mrope_sections: Optional[Tuple[int, ...]] = None  # M-RoPE: not built yet
+    mrope_sections: Optional[Tuple[int, ...]] = None  # M-RoPE, half-dim units
     query_scale: Optional[float] = None   # override 1/sqrt(head_dim)
-    use_banded: bool = False              # banded SWA: not built yet
+    use_banded: bool = False              # banded SWA without a cache (2·window <= S)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,10 +143,10 @@ class LMConfig:
     tie_embeddings: bool = False
     scale_embedding: bool = False  # gemma: multiply embeddings by sqrt(d)
     final_norm: str = "rms"        # rms | rms_plus_one | ln | ln_nonparam
-    pos_embedding: str = "none"    # none | sinusoidal (not built yet)
-    frontend: Optional[str] = None  # vlm | audio (not built yet)
-    n_prefix: int = 0
-    mrope: bool = False            # not built yet
+    pos_embedding: str = "none"    # none | sinusoidal
+    frontend: Optional[str] = None  # vlm | audio (stubbed: prefix_embeds)
+    n_prefix: int = 0              # frontend embedding positions
+    mrope: bool = False
     sub_quadratic: bool = False
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
@@ -201,6 +199,14 @@ def attn_block(
 
 def uniform_groups(block: BlockCfg, n_layers: int) -> Tuple[GroupCfg, ...]:
     return (GroupCfg(period=(block,), n_periods=n_layers),)
+
+
+def transform_blocks(cfg: LMConfig, fn) -> LMConfig:
+    """``cfg`` with ``fn(BlockCfg) -> BlockCfg`` applied to every block of
+    every group (``repro/configs/base.py::transform_blocks``)."""
+    groups = tuple(dataclasses.replace(g, period=tuple(fn(blk) for blk in g.period))
+                   for g in cfg.groups)
+    return dataclasses.replace(cfg, groups=groups)
 
 
 _REGISTRY: Dict[str, str] = {}  # name -> module

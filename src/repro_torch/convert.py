@@ -11,7 +11,8 @@ The layouts agree leaf by leaf: goom-rnn's ``in_proj.w`` (d, H, hd) and
 (H, hd, d); the MoE's f32 ``router.w`` (d, E) and its stacked expert
 weights ``gate``/``up`` (E, d, f) and ``down`` (E, f, d); Mamba's
 ``dt_proj.{w,b}``, ``a_log``, ``conv_w``/``conv_b`` and ``d_skip``;
-attention's biases ``q.b``/``k.b``/``v.b`` and ``q_norm``/``k_norm``; the
+attention's biases ``q.b``/``k.b``/``v.b`` (qwen2-vl's among them) and
+``q_norm``/``k_norm``; a LayerNorm's ``scale`` and ``bias`` (musicgen's ``ln``); the
 post norms; RWKV6's ``mu_x``, ``mu.*``, ``lora.*.{a,b}``, ``decay_base``,
 ``decay_lora``, ``bonus`` (H, hd), ``ln_x`` and the channel mix's
 ``mu_k``/``mu_r``.  A non-parametric LayerNorm's JAX entry is an empty dict

@@ -3,12 +3,15 @@ cache.
 
 Counterpart of ``repro/models/attention.py``: q/k/v biases (``qkv_bias``),
 q/k RMSNorms over the head dim (``qk_norm``; plain RMS whatever the
-block's norm), ``query_scale``, partial rotary (``rotary_fraction``) and
-sliding windows.  M-RoPE and banded attention are not ported yet.  Four
-paths, each the JAX package's arithmetic:
+block's norm), ``query_scale``, partial rotary (``rotary_fraction``),
+M-RoPE (``mrope_sections``: q and k rotate by three position streams,
+``mrope_positions`` (3, B, S), each stream ``positions`` when none are
+given) and sliding windows.  Four paths, each the JAX package's arithmetic:
 
   * no cache: causal (and windowed) self-attention over the sequence
-    (``flash_attention``, which for one KV block is this masked softmax);
+    (``flash_attention``, which for one KV block is this masked softmax),
+    or, for a windowed layer with ``use_banded`` and at least two windows
+    of sequence, the two-block band (:func:`banded_attention`);
   * a cache and S > 1: chunked prefill (``_prefill_attention``).  Global:
     the chunk's K/V are written into the cache at the row's ``index`` and
     the chunk attends over everything cached so far.  Windowed: the cache
@@ -41,7 +44,7 @@ from torch import nn
 from ..configs.base import AttentionCfg
 from .common import Dense
 from .norms import RMSNorm
-from .rope import apply_rope
+from .rope import apply_mrope, apply_rope
 
 NEG_INF = -1e30
 
@@ -68,6 +71,50 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tens
     return (acc / l).reshape(b, sq, h, d)
 
 
+def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     positions: torch.Tensor, window: int, scale: float) -> torch.Tensor:
+    """Exact sliding-window attention by two-block bands (Longformer-style),
+    ``repro/models/attention.py::banded_attention``: q (B, S, H, D), k and v
+    (B, S, KVH, D) at ``positions`` (S,).
+
+    The sequence is cut into blocks of W = ``window`` (padded at positions
+    of -2^30, which no query sees) and block i attends to blocks i-1 and i
+    under the causal and window mask: O(S·2W) scores instead of O(S²).  The
+    scores and the softmax are f32; a row with no valid key keeps a maximum
+    of 0 and a sum floored at 1e-30; ``p`` is cast to the value dtype before
+    the f32-accumulated product.  Returns (B, S, H, D) in q's dtype."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    w = window
+    nb = -(-s // w)
+    pad = nb * w - s
+    if pad:
+        q, k, v = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v))
+        positions = torch.nn.functional.pad(positions, (0, pad), value=-(2 ** 30))
+    qb = q.reshape(b, nb, w, kvh, h // kvh, d)
+    kb = k.reshape(b, nb, w, kvh, d)
+    vb = v.reshape(b, nb, w, kvh, d)
+    pos_b = positions.reshape(nb, w)
+
+    # pair each block with its predecessor (block -1: zeros, fully masked)
+    k_pair = torch.cat([torch.nn.functional.pad(kb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1], kb], 2)
+    v_pair = torch.cat([torch.nn.functional.pad(vb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1], vb], 2)
+    pos_prev = torch.nn.functional.pad(pos_b, (0, 0, 1, 0), value=-(2 ** 30))[:-1]
+    pos_pair = torch.cat([pos_prev, pos_b], 1)                       # (nb, 2W)
+
+    scores = torch.einsum("bnqhgd,bnkhd->bnqhgk", qb.float(), k_pair.float()) * scale
+    mask = ((pos_pair[:, None, :] <= pos_b[:, :, None])
+            & (pos_pair[:, None, :] > pos_b[:, :, None] - w))        # (nb, W, 2W)
+    scores = scores.masked_fill(~mask[None, :, :, None, None, :], -torch.inf)
+    m = scores.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bnqhgk,bnkhd->bnqhgd", (p / l).to(v_pair.dtype).float(),
+                       v_pair.float())
+    return out.reshape(b, nb * w, h, d)[:, :s].to(q.dtype)
+
+
 def _ring_positions(last: torch.Tensor, length: int) -> torch.Tensor:
     """Absolute position each row of a rolling buffer of ``length`` rows
     holds once position ``last`` (any shape) is written: the latest position
@@ -90,12 +137,6 @@ class Attention(nn.Module):
         if cfg.n_heads % cfg.n_kv_heads:
             raise ValueError(f"{cfg.n_heads} heads do not group over "
                              f"{cfg.n_kv_heads} KV heads")
-        if cfg.mrope_sections is not None:
-            raise NotImplementedError("M-RoPE (qwen2-vl-7b) is not ported yet: "
-                                      "it comes with the next slice")
-        if cfg.use_banded:
-            raise NotImplementedError("banded sliding-window attention is not "
-                                      "ported yet: it comes with the next slice")
         self.cfg = cfg
         d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         kw = dict(device=device, dtype=dtype, generator=generator)
@@ -108,11 +149,12 @@ class Attention(nn.Module):
             self.k_norm = RMSNorm(hd, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                mrope_positions: Optional[torch.Tensor] = None,
                 cache: Optional[Cache] = None,
                 compute_dtype: torch.dtype = torch.bfloat16
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-        """x (B, S, d) at absolute ``positions`` (B, S) → (y (B, S, d), new
-        cache or None)."""
+        """x (B, S, d) at absolute ``positions`` (B, S), and for M-RoPE at
+        ``mrope_positions`` (3, B, S) → (y (B, S, d), new cache or None)."""
         cfg, cd = self.cfg, compute_dtype
         b, s, _ = x.shape
         scale = cfg.query_scale if cfg.query_scale is not None else cfg.head_dim ** -0.5
@@ -121,16 +163,26 @@ class Attention(nn.Module):
         v = self.v(x, compute_dtype=cd)
         if cfg.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
-        q = apply_rope(q, positions, theta=cfg.rope_theta,
-                       rotary_fraction=cfg.rotary_fraction)
-        k = apply_rope(k, positions, theta=cfg.rope_theta,
-                       rotary_fraction=cfg.rotary_fraction)
+        if cfg.mrope_sections is not None:
+            pos3 = (mrope_positions if mrope_positions is not None
+                    else positions.expand((3,) + positions.shape))
+            q = apply_mrope(q, pos3, theta=cfg.rope_theta, sections=cfg.mrope_sections)
+            k = apply_mrope(k, pos3, theta=cfg.rope_theta, sections=cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, theta=cfg.rope_theta,
+                           rotary_fraction=cfg.rotary_fraction)
+            k = apply_rope(k, positions, theta=cfg.rope_theta,
+                           rotary_fraction=cfg.rotary_fraction)
 
         new_cache = None
         if cache is None:
             pos = positions[0]
-            out = _attend(q, k, v, self._mask(pos, pos)[None], scale,
-                          fill=-torch.inf, p_dtype=cd)
+            if cfg.use_banded and cfg.window is not None and 2 * cfg.window <= s:
+                out = banded_attention(q, k, v, positions=pos, window=cfg.window,
+                                       scale=scale)
+            else:
+                out = _attend(q, k, v, self._mask(pos, pos)[None], scale,
+                              fill=-torch.inf, p_dtype=cd)
         elif "pages" in cache:
             if s != 1:
                 raise ValueError("a paged KV cache takes one token per row")

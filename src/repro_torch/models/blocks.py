@@ -66,16 +66,19 @@ class Block(nn.Module):
                 self.channel_post_norm = make_norm(blk.norm, ccfg.d_model, **kw)
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                mrope_positions: Optional[torch.Tensor] = None,
                 cache: Optional[Cache] = None,
                 compute_dtype: torch.dtype = torch.bfloat16):
         """Returns (x, new cache or None, aux losses); residual adds are in
-        x's dtype."""
+        x's dtype.  ``mrope_positions`` (3, B, S) go to an attention mixer;
+        the other mixers take no positions."""
         blk = self.blk
         c = None
         if blk.mixer != "none":
             h = self.mixer_norm(x)
             if blk.mixer == "attention":
-                h, c = self.mixer(h, positions=positions, cache=cache,
+                h, c = self.mixer(h, positions=positions,
+                                  mrope_positions=mrope_positions, cache=cache,
                                   compute_dtype=compute_dtype)
             else:
                 h, c = self.mixer(h, state=cache, compute_dtype=compute_dtype)

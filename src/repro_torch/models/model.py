@@ -1,17 +1,26 @@
 """DecoderLM: embed → blocks → final norm → lm_head.
 
-Counterpart of ``repro/models/model.py`` for the port's models (goom-rnn,
-Jamba, RWKV6 and the attention families).  The residual stream runs in
+Counterpart of ``repro/models/model.py`` for every model of the JAX
+package's registry (goom-rnn, Jamba, RWKV6, the attention families,
+musicgen-large and qwen2-vl-7b).  The residual stream runs in
 ``cfg.compute_dtype`` (bf16 by default); the parameters are
 ``cfg.param_dtype`` (f32 by default).  ``tie_embeddings``: no ``lm_head``
 parameter, the logits are ``h @ embed.T``; ``scale_embedding``: the
 embedded tokens times sqrt(d), both in the compute dtype.  The lm_head
 product stays a plain ``torch.matmul``, as the JAX package leaves it to XLA
-outside any kernel.  Modality frontends (``prefix_embeds``), sinusoidal
-positions and M-RoPE (musicgen-large, qwen2-vl-7b) are not ported yet.
+outside any kernel.
 
-Training: ``loss(tokens, labels)``, the JAX package's next-token CE with
-the MoE's aux losses added (``repro/models/model.py::DecoderLM.loss``).
+Modality frontends are stubs, as in the JAX package: ``prefix_embeds``
+(B, P, d) carries precomputed patch or frame embeddings, cast to the
+compute dtype and added onto the first P positions of the call's tokens.
+``pos_embedding="sinusoidal"`` (musicgen-large) adds ``[cos, sin]``
+embeddings of the absolute positions after the prefix.  M-RoPE
+(qwen2-vl-7b) takes ``mrope_positions`` (3, B, S); without them each of
+the three streams is ``positions``.
+
+Training: ``loss(tokens, labels, **kw)``, the JAX package's next-token CE
+with the MoE's aux losses added (``repro/models/model.py::DecoderLM.loss``);
+``kw`` are the frontend inputs above.
 
 Serving API (what ``serve.Engine`` drives): ``init_caches``,
 ``init_slot_caches`` (the paged KV pool), ``prefill`` and ``decode_step``.
@@ -36,6 +45,7 @@ from ..kernels.dispatch import resolve_device
 from .blocks import Block, block_init_cache
 from .common import Dense
 from .norms import make_norm
+from .rope import sinusoidal_embedding
 
 Caches = List[Dict[str, torch.Tensor]]
 
@@ -47,14 +57,6 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: LMConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        for name, unported in (("frontend", cfg.frontend is not None or cfg.n_prefix),
-                               ("pos_embedding", cfg.pos_embedding != "none"),
-                               ("mrope", cfg.mrope)):
-            if unported:
-                raise NotImplementedError(
-                    f"{cfg.name}: {name}={getattr(cfg, name)!r} is not ported yet "
-                    "(prefix embeddings, sinusoidal positions and M-RoPE come with "
-                    "the next slice, musicgen-large and qwen2-vl-7b)")
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -74,9 +76,13 @@ class DecoderLM(nn.Module):
 
     def hidden_states(self, tokens: torch.Tensor,
                       caches: Optional[Caches] = None,
-                      positions: Optional[torch.Tensor] = None):
+                      positions: Optional[torch.Tensor] = None, *,
+                      prefix_embeds: Optional[torch.Tensor] = None,
+                      mrope_positions: Optional[torch.Tensor] = None):
         """tokens (B, S) at ``positions`` (B, S; default 0..S-1) → (final-normed
-        hidden (B, S, d), new caches or None, aux losses summed over layers)."""
+        hidden (B, S, d), new caches or None, aux losses summed over layers).
+        ``prefix_embeds`` (B, P <= S, d) are added onto the first P
+        positions; ``mrope_positions`` (3, B, S) go to M-RoPE layers."""
         cd = self.cfg.compute_dtype
         b, s = tokens.shape
         if positions is None:
@@ -86,10 +92,17 @@ class DecoderLM(nn.Module):
         x = F.embedding(tokens, self.embed).to(cd)
         if self.cfg.scale_embedding:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model)).to(cd)
+        if prefix_embeds is not None:
+            pad = s - prefix_embeds.shape[1]
+            if pad < 0:
+                raise ValueError("prefix longer than sequence")
+            x = x + F.pad(prefix_embeds.to(cd), (0, 0, 0, pad))
+        if self.cfg.pos_embedding == "sinusoidal":
+            x = x + sinusoidal_embedding(positions, self.cfg.d_model).to(cd)
         new_caches = []
         aux_tot: Dict[str, torch.Tensor] = {}
         for i, layer in enumerate(self.layers):
-            x, c, aux = layer(x, positions=positions,
+            x, c, aux = layer(x, positions=positions, mrope_positions=mrope_positions,
                               cache=None if caches is None else caches[i],
                               compute_dtype=cd)
             new_caches.append(c)
@@ -106,23 +119,24 @@ class DecoderLM(nn.Module):
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return hidden @ self.head_weight()
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full forward to logits (B, S, vocab)."""
-        h, _, _ = self.hidden_states(tokens)
+    def forward(self, tokens: torch.Tensor, **kw) -> torch.Tensor:
+        """Full forward to logits (B, S, vocab); ``kw`` as ``hidden_states``."""
+        h, _, _ = self.hidden_states(tokens, **kw)
         return self.logits(h)
 
     # -- training ------------------------------------------------------------
-    def loss(self, tokens: torch.Tensor, labels: torch.Tensor
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor, **kw
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token CE of tokens (B, S) against labels (B, S; -1 masked),
         plus 0.01·load_balance_loss + router_z_loss when the model has an
-        MoE.  Returns (loss, metrics: ce_loss, tokens, loss and the aux terms).
+        MoE; ``kw`` (frontend inputs) as ``hidden_states``.  Returns (loss,
+        metrics: ce_loss, tokens, loss and the aux terms).
 
         The CE runs over pieces of ``min(logit_chunk, S)`` tokens, each
         recomputed in the backward (``jax.checkpoint`` in JAX), so no more
         than one piece's f32 logits are alive at a time; logits are the
         compute-dtype product cast to f32, as in JAX."""
-        h, _, aux = self.hidden_states(tokens)
+        h, _, aux = self.hidden_states(tokens, **kw)
         w = self.head_weight()
         s = h.shape[1]
         ck = min(self.cfg.logit_chunk, s)
@@ -183,20 +197,26 @@ class DecoderLM(nn.Module):
                                 kv_pages=(ps, n_pages, max_blocks), device=device)
 
     def prefill(self, tokens: torch.Tensor, caches: Caches,
-                positions: Optional[torch.Tensor] = None
+                positions: Optional[torch.Tensor] = None, **kw
                 ) -> Tuple[torch.Tensor, Caches]:
         """Ingest a prompt chunk (B, S) from the caches' state at absolute
-        ``positions`` (B, S; default 0..S-1: a fresh cache); returns the last
-        position's logits (B, 1, vocab) and the advanced caches."""
-        h, caches, _ = self.hidden_states(tokens, caches, positions)
+        ``positions`` (B, S; default 0..S-1: a fresh cache), with ``kw``'s
+        frontend inputs; returns the last position's logits (B, 1, vocab)
+        and the advanced caches."""
+        h, caches, _ = self.hidden_states(tokens, caches, positions, **kw)
         return self.logits(h[:, -1:]), caches
 
     def decode_step(self, token: torch.Tensor, caches: Caches,
-                    index: torch.Tensor) -> Tuple[torch.Tensor, Caches]:
+                    index: torch.Tensor, mrope_positions: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Caches]:
         """One decode step: token (B, 1) at absolute position ``index`` (B,)
-        → (logits (B, 1, vocab), caches)."""
+        → (logits (B, 1, vocab), caches).  With M-RoPE and no
+        ``mrope_positions`` (3, B, 1), the attention layers rotate every
+        stream by ``index``, as JAX's ``decode_step`` does (after an image
+        prefix too)."""
         positions = torch.as_tensor(index, device=token.device).reshape(-1, 1)
-        h, caches, _ = self.hidden_states(token, caches, positions)
+        h, caches, _ = self.hidden_states(token, caches, positions,
+                                          mrope_positions=mrope_positions)
         return self.logits(h), caches
 
 

@@ -1,7 +1,14 @@
-"""Rotary position embeddings, the JAX package's half-split layout, full or
-partial (``repro/models/rope.py``; M-RoPE is not ported yet)."""
+"""Position encodings (``repro/models/rope.py``): rotary embeddings in the
+JAX package's half-split layout, full or partial; M-RoPE (Qwen2-VL,
+arXiv:2409.12191), whose three position streams (temporal, height, width)
+each rotate their own section of the frequencies; and the classic
+sinusoidal embedding (MusicGen's positions)."""
 
 from __future__ import annotations
+
+import itertools
+import math
+from typing import Sequence
 
 import torch
 
@@ -18,6 +25,15 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float = 10000.0) 
     return positions.float()[..., None] * inv
 
 
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate x (B, S, H, 2n) by angles (B, S, n): the table is built in f32
+    and cast to ``x.dtype`` before the product, as in JAX."""
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)       # (B, S, 1, n)
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
                theta: float = 10000.0, rotary_fraction: float = 1.0) -> torch.Tensor:
     """Rotate ``x`` (B, S, H, D) at ``positions`` (B, S): the first and
@@ -31,8 +47,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     if rot_d == 0:
         return x
     x_rot, x_pass = x[..., :rot_d], x[..., rot_d:]
-    ang = rope_angles(positions, rot_d, theta)           # (B, S, rot_d // 2)
-    cos = torch.cos(ang)[..., None, :].to(x.dtype)       # (B, S, 1, rot_d // 2)
-    sin = torch.sin(ang)[..., None, :].to(x.dtype)
-    x1, x2 = x_rot.chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin, x_pass], dim=-1)
+    return torch.cat([_rotate(x_rot, rope_angles(positions, rot_d, theta)), x_pass], dim=-1)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, *,
+                theta: float = 1_000_000.0,
+                sections: Sequence[int] = (16, 24, 24)) -> torch.Tensor:
+    """M-RoPE: x (B, S, H, D) at positions3 (3, B, S) = (temporal, height,
+    width).  ``sections`` are in half-dim units (sum D // 2; Qwen2-VL's
+    (16, 24, 24) at head dim 128): frequency slot j rotates by the stream
+    whose section holds j.  Equal streams give 1-D RoPE."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to {half}")
+    inv = rope_frequencies(x.shape[-1], theta, device=x.device)       # (half,)
+    ang = positions3.float()[..., None] * inv                          # (3, B, S, half)
+    # the stream of each slot, from arithmetic on the device alone (no host
+    # copy, so that a CUDA graph can capture it)
+    slot = torch.arange(half, device=x.device)
+    stream = torch.zeros_like(slot)                                    # (half,)
+    for edge in list(itertools.accumulate(sections))[:-1]:
+        stream += slot >= edge
+    ang = torch.gather(ang.movedim(0, -1), -1,
+                       stream.expand(ang.shape[1:]).unsqueeze(-1))[..., 0]  # (B, S, half)
+    return _rotate(x, ang)
+
+
+def sinusoidal_embedding(positions: torch.Tensor, dim: int, *,
+                         max_period: float = 10000.0) -> torch.Tensor:
+    """(..., S) positions -> (..., S, dim) f32 ``[cos, sin]`` embeddings over
+    ``dim // 2`` frequencies, zero-padded by one column at odd ``dim``."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    emb = torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+    if dim % 2:
+        emb = torch.nn.functional.pad(emb, (0, 1))
+    return emb

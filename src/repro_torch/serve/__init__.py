@@ -22,7 +22,13 @@ from .state_cache import (
     write_slot,
     write_slot_paged,
 )
-from .steps import generate, make_decode_multi, make_decode_step, make_prefill_step
+from .steps import (
+    generate,
+    make_decode_in_place,
+    make_decode_multi,
+    make_decode_step,
+    make_prefill_step,
+)
 
 __all__ = [
     "CANCELLED",
@@ -45,4 +51,5 @@ __all__ = [
     "make_prefill_step",
     "make_decode_step",
     "make_decode_multi",
+    "make_decode_in_place",
 ]

@@ -170,7 +170,9 @@ class Engine:
 
     Arguments are JAX's ``Engine``'s, less ``params`` (the model holds its
     weights), ``mesh``, ``seq_shards`` and ``blocks``.  ``backend`` scopes
-    every step (``engine.use_backend``)."""
+    every step (``engine.use_backend``).  Prompts are tokens only: a model
+    with a frontend (``cfg.frontend``) raises ``NotImplementedError``, as in
+    JAX; ``steps.generate`` serves it with its prefix embeddings."""
 
     def __init__(
         self,
@@ -186,6 +188,10 @@ class Engine:
         cache_pages: Optional[int] = None,
         prefix_reuse: bool = True,
     ):
+        if model.cfg.frontend is not None:
+            raise NotImplementedError(
+                "serve.Engine handles token prompts only (no frontend "
+                "prefix embeddings)")
         if chunk > page_len:
             raise ValueError(f"chunk {chunk} exceeds page_len {page_len}")
         self.model = model

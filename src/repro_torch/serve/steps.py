@@ -3,7 +3,10 @@
 Counterpart of ``repro/serve/steps.py``.  ``make_prefill_step`` and
 ``make_decode_step`` wrap the model's serving API in a backend scope;
 ``generate`` is the lockstep whole-batch greedy driver for tests and
-examples.  ``make_decode_multi`` is the engine's fused decode: ``horizon``
+examples, and the one serve path for models with a frontend (the Engine
+takes token prompts only): its prefill takes the frontend inputs, and its
+decode step is one CUDA graph, captured once a call and replayed a token,
+on the card (``graphs.StepGraphs``; eager on CPU tensors).  ``make_decode_multi`` is the engine's fused decode: ``horizon``
 greedy steps over every slot with on-device termination, the body of JAX's
 ``lax.scan`` (``steps.py:138-148``) written as a Python loop.  Where JAX
 returns new arrays (and donates the old), the fused decode updates its
@@ -18,12 +21,14 @@ import torch
 
 from ..core import engine
 from ..models.model import Caches, DecoderLM
+from .graphs import StepGraphs
 from .state_cache import assign_caches, mask_frozen_pages, merge_frozen
 
 
 def make_prefill_step(model: DecoderLM, *, backend: str = "auto") -> Callable:
-    """``prefill_step(tokens (B, S), caches, positions=None) -> (last
-    logits (B, 1, vocab), caches)`` under ``engine.use_backend(backend)``."""
+    """``prefill_step(tokens (B, S), caches, positions=None, **kw) -> (last
+    logits (B, 1, vocab), caches)`` under ``engine.use_backend(backend)``;
+    ``kw`` are the frontend inputs (``prefix_embeds``, ``mrope_positions``)."""
 
     @torch.no_grad()
     def prefill_step(tokens, caches, **kw):
@@ -82,18 +87,41 @@ def make_decode_multi(model: DecoderLM, horizon: int) -> Callable:
     return decode_multi
 
 
+def make_decode_in_place(model: DecoderLM) -> Callable:
+    """``step(token (B, 1), caches, index (B,))``: one greedy decode step
+    that writes the next token, the advanced caches and index + 1 back into
+    its arguments, so that one CUDA graph of it replays a token at a time.
+    M-RoPE's streams are the index, broadcast inside the step."""
+
+    @torch.no_grad()
+    def step(token, caches, index):
+        logits, stepped = model.decode_step(token, caches, index)
+        assign_caches(caches, stepped)
+        token.copy_(torch.argmax(logits[:, -1, :], dim=-1)[:, None])
+        index.add_(1)
+
+    return step
+
+
 @torch.no_grad()
 def generate(model: DecoderLM, prompt: torch.Tensor, n_tokens: int, max_len: int,
-             backend: str = "auto") -> torch.Tensor:
+             backend: str = "auto", **kw) -> torch.Tensor:
     """Greedy lockstep-batch generation: prompt (B, P) -> (B, n_tokens).
-    For request-level batching use ``serve.Engine``."""
+
+    ``kw`` go to the single-shot prefill (``prefix_embeds`` (B, n_prefix,
+    d), ``mrope_positions`` (3, B, P)), as in JAX's ``generate``; decode
+    positions continue at P, P + 1, ... on every M-RoPE stream.  On the card
+    the decode step is captured once as a CUDA graph over static token,
+    index and cache tensors and replayed for each token; a failed capture
+    raises.  For request-level batching use ``serve.Engine``."""
     b, p = prompt.shape
     prefill = make_prefill_step(model, backend=backend)
-    step = make_decode_step(model, backend=backend)
-    logits, caches = prefill(prompt, model.init_caches(b, max_len))
+    logits, caches = prefill(prompt, model.init_caches(b, max_len), **kw)
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
-    out = [tok]
-    for i in range(n_tokens - 1):
-        tok, caches = step(tok, caches, torch.full((b,), p + i, device=prompt.device))
-        out.append(tok)
+    out = [tok.clone()]
+    index = torch.full((b,), p, dtype=torch.long, device=prompt.device)
+    graphs, step = StepGraphs(backend), make_decode_in_place(model)
+    for _ in range(n_tokens - 1):
+        graphs.run("generate_decode", step, tok, caches, index)
+        out.append(tok.clone())
     return torch.cat(out, dim=1)

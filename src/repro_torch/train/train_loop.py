@@ -49,21 +49,24 @@ def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
                     microbatches: int = 1
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
     """The train step over ``batch`` = {tokens, labels}, both (B, S) with B
-    a multiple of ``microbatches``.  Metrics: the loss's (averaged over
-    microbatches), ``grad_norm`` before the clip and ``lr = schedule(step+1)``,
-    the rate the update used."""
+    a multiple of ``microbatches``; any other key (a frontend's
+    ``prefix_embeds`` (B, P, d), ``mrope_positions`` (3, B, S)) goes to
+    ``model.loss``, split with the batch (``mrope_positions`` along its dim
+    1).  Metrics: the loss's (averaged over microbatches), ``grad_norm``
+    before the clip and ``lr = schedule(step+1)``, the rate the update used."""
     decay = optimizer.decay_mask(model.cfg, [n for n, _ in model.named_parameters()])
 
-    def grads_of(params, tokens, labels):
-        loss, metrics = model.loss(tokens, labels)
+    def grads_of(params, tokens, labels, **kw):
+        loss, metrics = model.loss(tokens, labels, **kw)
         names = list(params)
         grads = torch.autograd.grad(loss, [params[n] for n in names])
         return dict(zip(names, grads)), {k: v.detach() for k, v in metrics.items()}
 
     def compute_grads(params, batch):
         tokens, labels = batch["tokens"], batch["labels"]
+        kw = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
         if microbatches == 1:
-            return grads_of(params, tokens, labels)
+            return grads_of(params, tokens, labels, **kw)
         if tokens.shape[0] % microbatches:
             raise ValueError(f"batch {tokens.shape[0]} does not split into "
                              f"{microbatches} microbatches")
@@ -71,8 +74,10 @@ def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
         acc = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
         per_mb = []
         for i in range(microbatches):
-            grads, metrics = grads_of(params, tokens[i * k:(i + 1) * k],
-                                      labels[i * k:(i + 1) * k])
+            part = slice(i * k, (i + 1) * k)
+            grads, metrics = grads_of(params, tokens[part], labels[part], **{
+                name: v[:, part] if name == "mrope_positions" else v[part]
+                for name, v in kw.items()})
             names = list(acc)
             torch._foreach_add_([acc[n] for n in names],
                                 torch._foreach_div([grads[n].float() for n in names],

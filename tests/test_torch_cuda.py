@@ -845,3 +845,74 @@ def test_a_capture_failure_raises_and_does_not_fall_back(card):
             g.run("bad", step, x)
     assert g.n_graphs == 0
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# generate: the decode step one CUDA graph, replayed a token
+# ---------------------------------------------------------------------------
+def _frontend_inputs(model, b, p, card):
+    gen = torch.Generator(device=card).manual_seed(3)
+    cfg = model.cfg
+    kw = {"prefix_embeds": 0.5 * torch.randn(b, cfg.n_prefix, cfg.d_model, generator=gen,
+                                             device=card)}
+    if cfg.mrope:
+        i = torch.arange(p, device=card)
+        side, grid = cfg.n_prefix // 2, i < cfg.n_prefix
+        kw["mrope_positions"] = torch.stack([
+            torch.where(grid, 0, i), torch.where(grid, i // side, i),
+            torch.where(grid, i % side, i)])[:, None].expand(3, b, p)
+    return kw
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "qwen2-vl-7b", "goom-rnn-124m"])
+def test_generate_graphed_decode_equals_eager(card, arch, monkeypatch):
+    """``generate`` captures its decode step once and replays it a token; the
+    tokens equal those of the same steps run eagerly (frontend inputs for
+    the two frontend models)."""
+    from repro_torch.serve import StepGraphs, generate, steps
+
+    model = _serve_model(card, arch, "shared_a" if arch == "goom-rnn-124m" else None)
+    b, p = 3, 12
+    prompt = torch.randint(0, model.cfg.vocab, (b, p), device=card,
+                           generator=torch.Generator(device=card).manual_seed(2))
+    kw = _frontend_inputs(model, b, p, card) if model.cfg.frontend else {}
+    made = []
+
+    class Recorded(StepGraphs):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    monkeypatch.setattr(steps, "StepGraphs", Recorded)
+    got = generate(model, prompt, 9, 32, **kw)
+    assert len(made) == 1 and made[0].n_graphs == 1
+    assert made[0].captured()["generate_decode"]["replays"] == 8
+
+    class Eager(StepGraphs):
+        def run(self, name, fn, *args):
+            with engine.use_backend(self.backend):
+                fn(*args)
+
+    monkeypatch.setattr(steps, "StepGraphs", Eager)
+    want = generate(model, prompt, 9, 32, **kw)
+    assert torch.equal(got, want)
+
+
+def test_generate_capture_failure_raises(card, monkeypatch):
+    """A decode step that reads the card back cannot be captured: generate
+    raises rather than decode eagerly."""
+    from repro_torch.serve import generate
+
+    model = _serve_model(card, "qwen2-vl-7b")
+    step = model.decode_step
+
+    def reading_step(token, caches, index, **kw):
+        if float(index.sum()) < 0:   # a host read: not capturable
+            raise AssertionError
+        return step(token, caches, index, **kw)
+
+    monkeypatch.setattr(model, "decode_step", reading_step)
+    prompt = torch.zeros(2, 10, dtype=torch.long, device=card)
+    with pytest.raises(RuntimeError):
+        generate(model, prompt, 4, 32, **_frontend_inputs(model, 2, 10, card))
+    torch.cuda.synchronize()

@@ -14,7 +14,7 @@ gemma3-1b, and every registered config field by field.
   * chunked prefill at chunks 1, 7 and 64 against JAX's dense caches, leaf
     by leaf, for olmo, gemma3 (rings of 16 that a 70-token prompt wraps four
     times) and mixtral (rings of 32);
-  * what is not ported yet raises.
+  * what is not ported raises (the Engine with a frontend model).
 
 The Engine's runs of these models are in ``test_torch_families_serve.py``.
 
@@ -99,8 +99,9 @@ def test_every_config_equals_jax_field_by_field(smoke):
     from repro.configs import list_archs as jax_archs
 
     ported = list_archs()
-    assert set(FAMILIES + ["rwkv6-7b", "goom-rnn-124m", "jamba-v0.1"]) == set(ported)
-    assert set(ported) <= set(jax_archs())
+    assert set(FAMILIES + ["rwkv6-7b", "goom-rnn-124m", "jamba-v0.1", "musicgen-large",
+                           "qwen2-vl-7b"]) == set(ported)
+    assert set(ported) == set(jax_archs())
     for arch in ported:
         _same(get_config(arch, smoke=smoke), jax_get_config(arch, smoke=smoke), arch)
     gemma = get_config("gemma3-1b")
@@ -230,15 +231,23 @@ def test_attention_chunks_and_decode_match_jax_dense_cache(variant):
 
 
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        Attention(AttentionCfg(**ATTN, mrope_sections=(1, 1, 2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="banded"):
-        Attention(AttentionCfg(**ATTN, use_banded=True), device="cpu")
+    """M-RoPE, banded attention, frontends and sinusoidal positions build;
+    what the port leaves unported is what JAX's Engine refuses too: a
+    model with a frontend (``test_torch_frontends.py`` holds the message to
+    JAX's)."""
+    from repro_torch import Engine
+
+    Attention(AttentionCfg(**ATTN, mrope_sections=(1, 1, 2)), device="cpu")
+    Attention(AttentionCfg(**ATTN, window=4, use_banded=True), device="cpu")
     cfg = get_config("olmo-1b", smoke=True)
     for change in (dict(frontend="audio", n_prefix=4), dict(pos_embedding="sinusoidal"),
                    dict(mrope=True)):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            DecoderLM(dataclasses.replace(cfg, **change), device="cpu")
+        model = DecoderLM(dataclasses.replace(cfg, **change), device="cpu")
+        if "frontend" in change:
+            with pytest.raises(NotImplementedError, match="token prompts only"):
+                Engine(model, max_slots=2, page_len=32, chunk=8)
+        else:
+            Engine(model, max_slots=2, page_len=32, chunk=8)
 
 
 # ---------------------------------------------------------------------------
