@@ -158,6 +158,7 @@ def selective_reset_scan(
     *,
     matmul: Matmul = lmme_reference,
     reset_only_state_compounds: bool = True,
+    assoc_scan: Callable = associative_scan,
 ) -> Tuple[Goom, torch.Tensor]:
     """Prefix scan of X_t = A_t X_{t-1} with conditional resets (paper §5).
 
@@ -168,7 +169,8 @@ def selective_reset_scan(
     selected and not yet reset becomes (0, R(A*_e)), then the ordinary
     recurrence runs.  ``reset_only_state_compounds`` resets only compounds
     that contain element 0, i.e. actual deviation states (see the JAX
-    package's docstring for why).
+    package's docstring for why).  ``assoc_scan`` runs the scan (the engine
+    passes the sequence-sharded one under a mesh).
     """
     zeros = goom_zeros(a.shape, a.dtype, device=a.device)
 
@@ -191,8 +193,8 @@ def selective_reset_scan(
     flags = torch.zeros(a.shape[:-2], dtype=torch.bool, device=a.device)
     contains_x0 = flags.clone()
     contains_x0[0] = True
-    out = associative_scan(combine, (a.log_abs, a.sign, zeros.log_abs,
-                                     zeros.sign, flags, contains_x0))
+    out = assoc_scan(combine, (a.log_abs, a.sign, zeros.log_abs,
+                               zeros.sign, flags, contains_x0))
     # X_t = A*_t ⊕ B*_t: un-reset, B* is zero and the LSE returns A*; reset,
     # A* has been zeroed and the LSE returns B*
     states = goom_add(Goom(out[0], out[1]), Goom(out[2], out[3]))

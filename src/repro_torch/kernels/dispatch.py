@@ -17,8 +17,11 @@ A CUDA tensor never falls back to the plain version on its own: only a
 caller's ``use_backend("torch_reference")`` puts it there.
 
 **Registry**: implementations are registered per ``(op, backend)`` with
-:func:`register_impl`: ``lmme``, ``diagonal_scan``, ``matrix_scan`` and
-``cumulative_lmme``, each on both backends.  Both ``diagonal_scan``
+:func:`register_impl` as factories of the launch knobs (a
+``blocks.BlockConfig``): ``lmme``, ``diagonal_scan``, ``matrix_scan`` and
+``cumulative_lmme``, each on both backends.  :func:`get_impl` resolves the
+knobs (``use_blocks`` overrides, the autotune cache, the defaults) and,
+under a mesh, wraps a scan in its sequence-sharded form.  Both ``diagonal_scan``
 implementations broadcast ``a`` and ``b`` to a common shape, as the JAX
 package's do.  On ``cuda``, ``cumulative_lmme`` is the zero-B
 matrix-scan kernel with X_0 = I, as in the JAX package.
@@ -30,14 +33,16 @@ The platform (is there a card at all?) is read once per process by
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..core import scan
 from ..core.goom import Goom
 from ..core.ops import lmme_reference
+from .blocks import BlockConfig
 from .goom_scan import (
+    REF_CHUNK,
     diagonal_scan_cuda,
     goom_diag_scan_ref,
     matrix_scan_cuda,
@@ -92,12 +97,13 @@ _REGISTRY: Dict[Tuple[str, str], _Impl] = {}
 
 
 def register_impl(op: str, *backends: str):
-    """Decorator: register ``impl`` for ``op`` on each named backend."""
+    """Decorator: register ``factory(blocks) -> impl`` for ``op`` on each
+    named backend."""
 
-    def deco(impl: _Impl) -> _Impl:
+    def deco(factory: Callable[[BlockConfig], _Impl]):
         for backend in backends:
-            _REGISTRY[(op, backend)] = impl
-        return impl
+            _REGISTRY[(op, backend)] = factory
+        return factory
 
     return deco
 
@@ -111,34 +117,100 @@ def registered_impls() -> Tuple[Tuple[str, str], ...]:
     return tuple(sorted(_REGISTRY))
 
 
-register_impl("lmme", "torch_reference")(lmme_reference)
-register_impl("lmme", "cuda")(lmme_cuda)
-register_impl("diagonal_scan", "torch_reference")(goom_diag_scan_ref)
-register_impl("diagonal_scan", "cuda")(diagonal_scan_cuda)
-register_impl("matrix_scan", "torch_reference")(matrix_scan_ref)
-register_impl("matrix_scan", "cuda")(matrix_scan_cuda)
+# Each registered entry is a factory: ``factory(blocks) -> impl``, the
+# implementation with the launch knobs of ``blocks`` bound.
+register_impl("lmme", "torch_reference")(lambda blocks: lmme_reference)
+register_impl("lmme", "cuda")(lambda blocks: lmme_cuda)
+register_impl("diagonal_scan", "torch_reference")(lambda blocks: goom_diag_scan_ref)
+register_impl("diagonal_scan", "cuda")(lambda blocks: diagonal_scan_cuda)
+
+
+def _chunk(blocks: BlockConfig, t: int) -> Optional[int]:
+    """The time chunk L a ``cuda`` scan launches with: T for ``algo="seq"``,
+    else ``block_t`` (None: the kernel's default for (T, d))."""
+    return max(t, 1) if blocks.algo == "seq" else blocks.block_t
+
+
+@register_impl("matrix_scan", "torch_reference")
+def _matrix_scan_ref(blocks: BlockConfig):
+    chunk = blocks.block_t or REF_CHUNK
+
+    def ref(a: Goom, b: Goom, x0: Optional[Goom] = None) -> Goom:
+        return matrix_scan_ref(a, b, x0, chunk=chunk)
+
+    return ref
+
+
+@register_impl("matrix_scan", "cuda")
+def _matrix_scan_cuda(blocks: BlockConfig):
+    if blocks.block_t is None and blocks.algo is None:
+        return matrix_scan_cuda   # the default L for (T, d)
+
+    def f(a: Goom, b: Goom, x0: Optional[Goom] = None) -> Goom:
+        return matrix_scan_cuda(a, b, x0, ell=_chunk(blocks, b.shape[0]))
+
+    return f
 
 
 @register_impl("cumulative_lmme", "torch_reference")
-def _cumulative_lmme_ref(a: Goom) -> Goom:
-    return scan.cumulative_lmme(a, matmul=lmme_reference)
+def _cumulative_lmme_ref(blocks: BlockConfig):
+    return lambda a: scan.cumulative_lmme(a, matmul=lmme_reference)
 
 
 @register_impl("cumulative_lmme", "cuda")
-def _cumulative_lmme_cuda(a: Goom) -> Goom:
-    """A_t···A_1 as the B = 0 recurrence from X_0 = I: only the (d, d)
-    identity is built (0 on the diagonal, -inf off it), no B operand."""
-    d, dev = a.shape[-1], a.log_abs.device
-    eye = torch.eye(d, dtype=torch.bool, device=dev)
-    x0 = Goom(torch.zeros(d, d, device=dev).masked_fill(~eye, -torch.inf),
-              torch.ones(d, d, device=dev))
-    return matrix_scan_cuda(a, None, x0)
+def _cumulative_lmme_cuda(blocks: BlockConfig):
+    def f(a: Goom) -> Goom:
+        """A_t···A_1 as the B = 0 recurrence from X_0 = I: only the (d, d)
+        identity is built (0 on the diagonal, -inf off it), no B operand."""
+        d, dev = a.shape[-1], a.log_abs.device
+        eye = torch.eye(d, dtype=torch.bool, device=dev)
+        x0 = Goom(torch.zeros(d, d, device=dev).masked_fill(~eye, -torch.inf),
+                  torch.ones(d, d, device=dev))
+        return matrix_scan_cuda(a, None, x0, ell=_chunk(blocks, a.shape[0]))
+
+    return f
 
 
-def get_impl(op: str, resolved: str) -> _Impl:
+def _make(op: str, resolved: str, blocks: Optional[BlockConfig],
+          shapes: Optional[Tuple[int, ...]]) -> _Impl:
+    if blocks is None:
+        from . import autotune   # autotune imports this module for timing
+
+        blocks = autotune.cached_blocks(op, resolved, shapes)
     try:
-        return _REGISTRY[(op, resolved)]
+        factory = _REGISTRY[(op, resolved)]
     except KeyError:
         raise KeyError(
             f"no implementation registered for op {op!r} on backend "
             f"{resolved!r}; registered: {registered_backends(op)}") from None
+    return factory(blocks)
+
+
+def get_impl(op: str, resolved: str, blocks: Optional[BlockConfig] = None,
+             shard=None, shapes: Optional[Tuple[int, ...]] = None) -> _Impl:
+    """The callable that runs ``op`` on the resolved backend.
+
+    ``blocks`` pins the launch knobs; None reads the autotune cache for
+    ``(op, resolved, device_kind, shape_bucket(shapes))`` and falls back to
+    the defaults (``blocks.DEFAULTS``).  ``shard`` (a
+    ``kernels.sharded.ShardSpec``) wraps a scan op's local implementation
+    in the sequence-sharded algebra of ``kernels/sharded.py``; ``lmme`` is
+    not a scan and ignores it.  Inside a shard, the local zero-B scan runs
+    at its default L and the stitch's LMME is this backend's."""
+    base = _make(op, resolved, blocks, shapes)
+    if shard is None or op == "lmme":
+        return base
+    from . import sharded   # collectives only where a shard asks for them
+
+    if op == "diagonal_scan":
+        return lambda a, b, x0=None: sharded.seq_sharded_diagonal_scan(
+            a, b, x0, spec=shard, local_diagonal_scan=base)
+    lmme_impl = _make("lmme", resolved, None, None)
+    if op == "matrix_scan":
+        cum = _make("cumulative_lmme", resolved, None, None)
+        return lambda a, b, x0=None: sharded.seq_sharded_matrix_scan(
+            a, b, x0, spec=shard, local_matrix_scan=base,
+            local_cumulative_lmme=cum, lmme=lmme_impl)
+    assert op == "cumulative_lmme", op
+    return lambda a: sharded.seq_sharded_cumulative_lmme(
+        a, spec=shard, local_cumulative_lmme=base, lmme=lmme_impl)

@@ -156,8 +156,10 @@ def _ptr(x: Optional[torch.Tensor]):
 
 
 def _launch(al, asn, bl, bsn, xl, xs, ell=None):
-    """The kernel on CUDA planes; ``ell`` overrides the with-B chunk length
-    (``ell=T`` times the plain walk)."""
+    """The kernel on CUDA planes; ``ell`` overrides the time chunk L of
+    either form (``with_b_chunk_len`` / ``zero_b_chunk_len`` when None;
+    ``ell=T`` is the one-chunk walk).  ``matrix_scan_cuda.last_chunk``
+    records (has_b, T, d, L) of the launch."""
     has_b = bl is not None
     planes = [p for p in (al, asn, bl, bsn, xl, xs) if p is not None]
     dev = al.device
@@ -194,16 +196,16 @@ def _launch(al, asn, bl, bsn, xl, xs, ell=None):
     if xl is not None:
         xl, xs, x_st = _strides(xl, xs, batch + (d, m), False)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ell = ell or (with_b_chunk_len(t, d) if has_b else zero_b_chunk_len(t, d))
     if has_b:
         bl, bsn, b_st = _strides(bl, bsn, (t,) + batch + (d, m), True)
         rc = _kernel_fn(True)(
             _ptr(al), _ptr(asn), _ptr(bl), _ptr(bsn), _ptr(xl), _ptr(xs),
             out_log.data_ptr(), out_sign.data_ptr(), t, g, d, m,
-            ell or with_b_chunk_len(t, d), a_st, b_st, x_st, stream)
+            ell, a_st, b_st, x_st, stream)
     else:
         # scratch of the three passes: each chunk's product but the last's,
         # and the state entering each chunk, both with f64 logs
-        ell = zero_b_chunk_len(t, d)
         k = -(-t // ell)
         p_log = torch.empty((k - 1, g, d, d), dtype=torch.float64, device=dev)
         p_sign = torch.empty((k - 1, g, d, d), dtype=torch.float32, device=dev)
@@ -226,7 +228,8 @@ def _launch(al, asn, bl, bsn, xl, xs, ell=None):
         matrix_scan_cuda.launches += 1
     else:
         matrix_scan_cuda.launches_zero_b += 1
-        matrix_scan_cuda.kernels_zero_b += zero_b_kernels(t, d)
+        matrix_scan_cuda.kernels_zero_b += (4 if k > 1 else 2) + (d > 16)
+    matrix_scan_cuda.last_chunk = (has_b, t, d, ell)
     return out_log, out_sign
 
 
@@ -240,8 +243,8 @@ def _plain(al, asn, bl, bsn, xl, xs) -> Goom:
 
 class _MatrixScanFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, al, asn, bl, bsn, xl, xs):
-        out_log, out_sign = _launch(al, asn, bl, bsn, xl, xs)
+    def forward(ctx, al, asn, bl, bsn, xl, xs, ell):
+        out_log, out_sign = _launch(al, asn, bl, bsn, xl, xs, ell)
         ctx.save_for_backward(al, asn, bl, bsn, xl, xs)
         ctx.mark_non_differentiable(out_sign)
         return out_log, out_sign
@@ -258,12 +261,14 @@ class _MatrixScanFn(torch.autograd.Function):
             grads = iter(torch.autograd.grad(out, wrt, g_log))
         d_al, d_bl, d_xl = (next(grads) if x is not None and x.requires_grad else None
                             for x in logs)
-        return d_al, None, d_bl, None, d_xl, None
+        return d_al, None, d_bl, None, d_xl, None, None
 
 
-def matrix_scan_cuda(a: Goom, b: Optional[Goom], x0: Optional[Goom] = None) -> Goom:
+def matrix_scan_cuda(a: Goom, b: Optional[Goom], x0: Optional[Goom] = None,
+                     ell: Optional[int] = None) -> Goom:
     """All states of X_t = A_t X_{t-1} ⊕ B_t (B = 0 when ``b`` is None)
-    through the CUDA kernel; the plain version on CPU planes."""
+    through the CUDA kernel, in time chunks of ``ell`` (None: the form's
+    default); the plain version on CPU planes."""
     if b is None and x0 is None:
         raise ValueError("matrix_scan_cuda(a, None) needs x0: with B = 0 and "
                          "X_0 = 0 every state is zero, and x0 fixes the width m")
@@ -272,7 +277,7 @@ def matrix_scan_cuda(a: Goom, b: Optional[Goom], x0: Optional[Goom] = None) -> G
               None if x0 is None else x0.log_abs, None if x0 is None else x0.sign)
     if all(x.device.type == "cpu" for x in planes if x is not None):
         return _plain(*planes)
-    return Goom(*_MatrixScanFn.apply(*planes))
+    return Goom(*_MatrixScanFn.apply(*planes, ell))
 
 
 #: calls that launched since the last reset (set to 0 to reset): with B,
@@ -283,6 +288,8 @@ matrix_scan_cuda.launches_zero_b = 0
 matrix_scan_cuda.kernels_zero_b = 0
 #: operands copied because their batch dims did not collapse into one stride
 matrix_scan_cuda.copies = 0
+#: (has_b, T, d, L) of the last launch: the time chunk it ran with
+matrix_scan_cuda.last_chunk = None
 
 
 # ---------------------------------------------------------------------------

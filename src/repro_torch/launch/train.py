@@ -1,12 +1,30 @@
-"""Training launcher: one device, fault-tolerant loop.
+"""Training launcher: a host mesh of ranks, fault-tolerant loop.
 
     python -m repro_torch.launch.train --arch goom-rnn-124m --task copy \
         --steps 200 --ckpt-dir ckpt
 
 runs on the card (``--device cuda``, the default; it raises when there is
 none) or, with ``--device cpu``, on the CPU through the kernels' plain
-versions.  The port of ``repro/launch/train.py`` without meshes, sequence
-sharding, autotuning or gradient compression.
+versions.  The port of ``repro/launch/train.py``; its production meshes
+wait for the dry-run tools.
+
+**Ranks.**  Under ``python -m torch.distributed.run --nproc-per-node N -m
+repro_torch.launch.train ...`` the N ranks join one process group
+(``--dist-backend``, ``nccl`` by default; ``gloo`` moves the collectives'
+tensors through host memory) and form the host mesh ("data", "model") of
+shape (N / seq_shards, seq_shards) (``launch/mesh.py``).  Rank r runs on
+``cuda:{local_rank % device_count}``.  ``--seq-shards`` maps the
+``scan_seq`` logical axis to "model": every GOOM scan of the step is
+time-sharded over the rank's seq group (``kernels/sharded.py``), whose
+ranks hold the same batch.  The "data" axis splits the global batch: data
+rank i draws its slice with ``process_index = i`` and the gradients are
+averaged over the data group.  Rank 0 alone logs and checkpoints.  NCCL
+takes one rank a card: more ranks than cards under NCCL are refused (pass
+``--dist-backend gloo`` to share a card).
+
+``--autotune`` sweeps the kernels' launch knobs on the training shapes
+before the first step (rank 0; the others read its cache).
+``--grad-compression int8`` rounds the averaged gradients through int8.
 
 Fault tolerance (see ``train/checkpoint.py``):
   * a checkpoint every ``--ckpt-every`` steps, atomic and asynchronous;
@@ -22,18 +40,24 @@ of the last 20 is reported.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
+import json
+import os
 import signal
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config
 from ..core import engine
 from ..kernels.dispatch import BACKENDS, resolve_device
+from ..launch.mesh import make_host_mesh
 from ..models.model import DecoderLM
+from ..sharding.rules import make_rules, use_rules
 from ..train.checkpoint import CheckpointManager
 from ..train.data import DataConfig, Prefetcher, SyntheticStream
 from ..train.optimizer import AdamW, cosine_schedule
@@ -59,24 +83,96 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "kernels on the card, the plain versions on the CPU)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--mesh", default="host", choices=["host"],
+                    help="the ranks of this host as a (data, model) mesh")
+    ap.add_argument("--seq-shards", type=int, default=1,
+                    help="time-shard every GOOM scan over this many ranks (the "
+                         "mesh's model axis); 1 = off")
+    ap.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
+                    help="process-group backend under torch.distributed.run")
+    ap.add_argument("--autotune", action="store_true",
+                    help="sweep the kernels' launch knobs on the training shapes "
+                         "first and persist the winners (kernels/autotune.py)")
+    ap.add_argument("--grad-compression", default=None, choices=["int8"])
+    ap.add_argument("--compute-dtype", default=None, choices=["bfloat16", "float32"],
+                    help="the model's compute dtype (default: the config's)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="rank 0 writes every step's metrics and its kernel launches "
+                         "here as JSON")
     ap.add_argument("--straggler-factor", type=float, default=2.0)
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
 
+def _init_ranks(args) -> torch.device:
+    """Join the process group when started by torch.distributed.run, and
+    the device this rank runs on."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    dev = resolve_device(args.device)
+    if world == 1:
+        return dev
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    if dev.type == "cuda":
+        n_cards = torch.cuda.device_count()
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+        if args.dist_backend == "nccl" and local_world > n_cards:
+            raise RuntimeError(
+                f"--dist-backend nccl: {local_world} ranks on {n_cards} card(s), and "
+                "NCCL refuses two ranks on one card; pass --dist-backend gloo to "
+                "share a card")
+        dev = torch.device("cuda", local % n_cards)
+        torch.cuda.set_device(dev)
+    elif args.dist_backend == "nccl":
+        raise RuntimeError("--dist-backend nccl needs --device cuda")
+    dist.init_process_group(args.dist_backend)
+    return dev
+
+
 def main(argv=None):
     """Train; returns (model, final TrainState, metrics of the last step)."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    dev = _init_ranks(args)
+    try:
+        return _train(args, dev)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, dev):
+    mesh = make_host_mesh(seq_shards=args.seq_shards)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    multi = mesh.device_mesh is not None
+    rules = make_rules(mesh, overrides={"scan_seq": "model"} if args.seq_shards > 1 else None)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.compute_dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=getattr(torch, args.compute_dtype))
     model = DecoderLM(cfg, device=dev,
                       generator=torch.Generator(device=dev).manual_seed(args.seed))
     opt = AdamW(cosine_schedule(args.lr, args.warmup, args.steps))
     state = init_train_state(model, opt)
-    step_fn = make_train_step(model, opt, microbatches=args.microbatches)
-    stream = SyntheticStream(DataConfig(task=args.task, vocab=cfg.vocab,
-                                        seq_len=args.seq_len, global_batch=args.batch,
-                                        seed=args.seed))
+    data_group = mesh.get_group("data") if mesh.shape["data"] > 1 else None
+    step_fn = make_train_step(model, opt, microbatches=args.microbatches,
+                              grad_compression=args.grad_compression, data_group=data_group)
+    stream = SyntheticStream(DataConfig(
+        task=args.task, vocab=cfg.vocab, seq_len=args.seq_len, global_batch=args.batch,
+        seed=args.seed, process_index=mesh.get_local_rank("data") if multi else 0,
+        process_count=mesh.shape["data"]))
+
+    if args.autotune:
+        if rank == 0:
+            # the training shapes, as the JAX launcher's; the cache is bucketed
+            with engine.use_backend(args.backend):
+                engine.autotune(shapes={
+                    "diagonal_scan": (args.seq_len, cfg.d_model),
+                    "matrix_scan": (args.seq_len, 16, 16),
+                    "cumulative_lmme": (args.seq_len, 16),
+                    "lmme": (args.seq_len, cfg.d_model, cfg.d_model)}, verbose=True)
+        if multi:
+            dist.barrier()
+            from ..kernels import autotune
+
+            autotune.load_cache(reload=True)
 
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start_step = 0
@@ -86,7 +182,8 @@ def main(argv=None):
             start_step, tree, extra = restored
             state = load_state_tree(cfg, state, tree)
             stream.load_state_dict(extra.get("data", {"step": start_step}))
-            print(f"resumed from checkpoint step {start_step}", flush=True)
+            if rank == 0:
+                print(f"resumed from checkpoint step {start_step}", flush=True)
 
     # preemption: checkpoint at the end of the step in flight, then exit
     preempted = {"flag": False}
@@ -95,15 +192,18 @@ def main(argv=None):
         preempted["flag"] = True
 
     old_handler = signal.signal(signal.SIGTERM, on_sigterm)
+    mgr = mgr if rank == 0 else None   # rank 0 alone writes checkpoints
     batches = Prefetcher(itertools.islice(stream, args.steps - start_step), dev)
-    metrics, times = None, []
+    metrics, times, history = None, [], []
     t_start = time.perf_counter()
     try:
-        with engine.use_backend(args.backend):
+        with use_rules(rules), engine.use_backend(args.backend):
             for step, batch in zip(range(start_step, args.steps), batches):
                 t0 = time.perf_counter()
                 state, metrics = step_fn(state, batch)
-                if step % args.log_every == 0 or step == args.steps - 1:
+                if args.metrics_out and rank == 0:
+                    history.append({"step": step, **{k: float(v) for k, v in metrics.items()}})
+                if rank == 0 and (step % args.log_every == 0 or step == args.steps - 1):
                     m = {k: float(v) for k, v in metrics.items()}
                     print(f"step {step:5d}  loss {m['loss']:.4f}  ce {m['ce_loss']:.4f}  "
                           f"gnorm {m['grad_norm']:.3f}  "
@@ -112,15 +212,18 @@ def main(argv=None):
                 if len(times) > 20:
                     med = float(np.median(times[-20:]))
                     if times[-1] > args.straggler_factor * med:
-                        print(f"[straggler-watch] step {step} took {times[-1]:.2f}s "
-                              f"vs median {med:.2f}s", flush=True)
-                if mgr is not None and ((step + 1) % args.ckpt_every == 0
-                                        or preempted["flag"]):
-                    mgr.save(step + 1, state_tree(cfg, state),
-                             extra={"data": {"step": step + 1}})
+                        print(f"[straggler-watch] rank {rank} step {step} took "
+                              f"{times[-1]:.2f}s vs median {med:.2f}s", flush=True)
+                if args.ckpt_dir and ((step + 1) % args.ckpt_every == 0
+                                      or preempted["flag"]):
+                    if mgr is not None:
+                        mgr.save(step + 1, state_tree(cfg, state),
+                                 extra={"data": {"step": step + 1}})
                     if preempted["flag"]:
-                        mgr.wait()
-                        print(f"preempted: checkpointed at step {step + 1}", flush=True)
+                        if mgr is not None:
+                            mgr.wait()
+                            print(f"preempted: checkpointed at step {step + 1}",
+                                  flush=True)
                         sys.exit(0)
         if mgr is not None:
             mgr.save(args.steps, state_tree(cfg, state), extra={"data": {"step": args.steps}})
@@ -128,8 +231,15 @@ def main(argv=None):
     finally:
         batches.close()
         signal.signal(signal.SIGTERM, old_handler)
-    print(f"done: {args.steps - start_step} steps in "
-          f"{time.perf_counter() - t_start:.1f}s", flush=True)
+    if args.metrics_out and rank == 0:
+        from ..serve.graphs import kernel_launches
+
+        with open(args.metrics_out, "w") as f:
+            json.dump({"steps": history, "launches": kernel_launches(),
+                       "world": dist.get_world_size() if multi else 1}, f)
+    if rank == 0:
+        print(f"done: {args.steps - start_step} steps in "
+              f"{time.perf_counter() - t_start:.1f}s", flush=True)
     return model, state, metrics
 
 

@@ -14,6 +14,8 @@ picks the scan:
     launch of the CUDA LMME kernel;
   * ``generic`` is the paper-literal eq. 26: one ``engine.matrix_scan_carry``
     call per layer, on the card one launch of the fused matrix-scan kernel.
+    Under an engine mesh (``engine.active_seq_shards() > 1``) ``shared_a``
+    takes this path too, so that the scan is time-sharded.
 
 B·u is an ``engine.lmme`` call in both.
 """
@@ -179,7 +181,10 @@ class GoomSSM(nn.Module):
         bu = engine.lmme(b_g, u_col)
 
         x0 = None if state is None else Goom(state["x_log"], state["x_sign"])
-        if self.cfg.scan_variant == "shared_a":
+        # the shared-A doubling is a host loop of LMMEs, local by nature:
+        # under a mesh the layer hands the engine one full-length matrix scan,
+        # which the engine time-shards (as JAX's goom_layer.py:232-236)
+        if self.cfg.scan_variant == "shared_a" and engine.active_seq_shards() == 1:
             states, final = _scan_shared_a(a_g, bu, x0, self.cfg.chunk)
         else:
             states, final = _scan_generic(a_g, bu, x0)

@@ -14,8 +14,8 @@ of the CUDA diagonal-scan kernel.
 Numerics kept from the JAX package: the conv tail and the SSM state are
 f32; Δ goes through softplus in f32; A = -exp(a_log); chunks of
 L = min(chunk, S) are identity-padded (Δ = 0: log-decay 0 and zero input).
-There is no sequence sharding in the port, so the full-sequence branch of
-the JAX code does not exist here.
+Under an engine mesh the whole sequence is one chunk, one scan that the
+engine time-shards, as in JAX.
 
 **RWKV6** (``Rwkv6Cfg``, the time mix, ``rwkv6_scan``, the channel mix,
 ``rwkv6_init_state``): token shift, the data-dependent lerp (ddlerp) of
@@ -129,7 +129,10 @@ class Mamba(nn.Module):
         h = (torch.zeros(b, cfg.d_inner, n, device=x.device) if state is None
              else state["ssm"])
 
-        L = min(cfg.chunk, s)
+        # under an engine mesh a loop of chunks would serialise the ranks:
+        # hand the engine one full-length scan, which it time-shards (as
+        # JAX's ssm.py:375-389)
+        L = s if engine.active_seq_shards() > 1 else min(cfg.chunk, s)
         pad = -s % L
         dtx = dt * xc.float()
         if pad:

@@ -15,10 +15,19 @@ outputs) and returns nothing.  ``StepGraphs.run(name, fn, *args)``:
     into a graph; every call, the first included, replays the graph.  A
     failure to capture or to replay raises: there is no eager fallback.
 
-Every call runs inside ``engine.use_backend(backend)``, so one graph is one
-backend, as one jitted step is in JAX.  All graphs of one ``StepGraphs``
-share one memory pool: a step's temporaries live there, and the steps run
-one after another on one stream.
+Every call runs inside the engine scope of ``StepGraphs(backend, mesh=,
+seq_shards=, blocks=)`` (``steps._engine_scope``), so one graph is one
+backend and one set of launch knobs, as one jitted step is in JAX.  All
+graphs of one ``StepGraphs`` share one memory pool: a step's temporaries
+live there, and the steps run one after another on one stream.
+
+**Under a mesh.**  A step whose scans are time-sharded holds collectives
+(``kernels.sharded.collectives`` moves during its warm-up run), and a
+replayed graph cannot hold a collective that goes through the host.  Such a
+step is never captured: its warm-up run stands as its first call and every
+later call runs eagerly.  Steps whose scans stay local (a decode step,
+T = 1 below the shard count) are captured as ever.  ``captured()`` says
+which step ran which way (``"mode"``: ``"graph"`` or ``"eager"``).
 
 Replays move no Python counter, so each graph records what its capture
 counted (the kernels' launch counts and the engine's op calls) and each
@@ -34,6 +43,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 
 from ..core import engine
+from ..kernels import sharded
 from ..kernels.goom_scan import diagonal_scan_cuda, matrix_scan_cuda
 from ..kernels.lmme import lmme_cuda
 
@@ -75,36 +85,47 @@ class _Captured:
     __slots__ = ("graph", "launches", "calls", "replays")
 
     def __init__(self, graph, launches, calls):
-        self.graph = graph
+        self.graph = graph            # None: the step holds collectives, eager
         self.launches = launches      # kernel launches one replay makes
         self.calls = calls            # engine op calls one replay stands for
-        self.replays = 0
+        self.replays = 0              # calls served (replays, or eager runs)
 
 
 class StepGraphs:
     """The captured steps of one serving engine (see the module docstring)."""
 
-    def __init__(self, backend: str = "auto"):
+    def __init__(self, backend: str = "auto", *, mesh=None, seq_shards="auto",
+                 blocks=None):
         self.backend = backend
+        self.mesh, self.seq_shards, self.blocks = mesh, seq_shards, blocks
         self._graphs: Dict[Tuple, _Captured] = {}
         self._pool = None
 
+    def scope(self):
+        """The engine scope every call of a step runs in."""
+        from .steps import _engine_scope
+
+        return _engine_scope(self.backend, self.mesh, self.seq_shards, self.blocks)
+
     @property
     def n_graphs(self) -> int:
-        return len(self._graphs)
+        return sum(g.graph is not None for g in self._graphs.values())
 
     def captured(self) -> Dict[str, Dict[str, Any]]:
-        """Per step name: what one replay launches and calls, and replays."""
+        """Per step name: ``"graph"`` or ``"eager"`` (a step that holds
+        collectives), what one replay launches and calls, and the calls
+        served."""
         out: Dict[str, Dict[str, Any]] = {}
         for key, g in self._graphs.items():
-            out[key[0]] = {"launches": dict(g.launches), "calls": dict(g.calls),
+            out[key[0]] = {"mode": "eager" if g.graph is None else "graph",
+                           "launches": dict(g.launches), "calls": dict(g.calls),
                            "replays": g.replays}
         return out
 
     def run(self, name: str, fn: Callable[..., None], *args) -> None:
         leaves = _leaves(args, [])
         if not leaves or leaves[0].device.type != "cuda":
-            with engine.use_backend(self.backend):
+            with self.scope():
                 fn(*args)
             return
         key = (name,) + tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
@@ -113,6 +134,14 @@ class StepGraphs:
         if g is None:
             g = self._capture(fn, args, leaves)
             self._graphs[key] = g
+            if g.graph is None:   # the warm-up run was this call
+                g.replays += 1
+                return
+        if g.graph is None:
+            with self.scope():
+                fn(*args)
+            g.replays += 1
+            return
         g.graph.replay()
         g.replays += 1
         for kind, counts in (("launches", g.launches), ("calls", g.calls)):
@@ -126,17 +155,19 @@ class StepGraphs:
         saved = [t.clone() for t in leaves]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side), engine.use_backend(self.backend):
+        before = sharded.collectives["n"]
+        with torch.cuda.stream(side), self.scope():
             fn(*args)                                    # the warm-up run
         torch.cuda.current_stream().wait_stream(side)
+        if sharded.collectives["n"] != before:   # time-sharded: keep it eager
+            return _Captured(None, {}, {})
         for t, s in zip(leaves, saved):
             t.copy_(s)
         del saved
         launches0, calls0 = kernel_launches(), dict(engine.calls)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool,
-                              capture_error_mode="thread_local"), \
-                engine.use_backend(self.backend):
+                              capture_error_mode="thread_local"), self.scope():
             fn(*args)
         return _Captured(graph, _delta(kernel_launches(), launches0),
                          _delta(dict(engine.calls), calls0))

@@ -41,17 +41,21 @@ def upload(dst: torch.Tensor, values) -> torch.Tensor:
 class ChunkedPrefill:
     """Ingest prompts through two persistent steps, the chunk and the tail.
 
-    ``graphs`` (default: a new ``StepGraphs(backend)``) holds their CUDA
-    graphs; an Engine passes its own so that all its graphs share one
-    memory pool."""
+    ``graphs`` (default: a new ``StepGraphs(backend, mesh=mesh,
+    seq_shards=seq_shards, blocks=blocks)``) holds their CUDA graphs and
+    engine scope; an Engine passes its own so that all its graphs share one
+    memory pool.  Under a mesh the chunk step (T >= P) runs eagerly, its
+    scans time-sharded, and the tail step is a graph."""
 
     def __init__(self, model: DecoderLM, chunk: int, *, backend: str = "auto",
+                 mesh=None, seq_shards="auto", blocks=None,
                  graphs: Optional[StepGraphs] = None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.model = model
         self.chunk = chunk
-        self.graphs = graphs if graphs is not None else StepGraphs(backend)
+        self.graphs = graphs if graphs is not None else StepGraphs(
+            backend, mesh=mesh, seq_shards=seq_shards, blocks=blocks)
         # dispatch counters: a prefix hit must run only its suffix's calls
         self.n_chunk_calls = 0
         self.n_tail_calls = 0

@@ -36,8 +36,14 @@ Terminal ``finish_reason``s: ``"length"``, ``"stop"`` (EOS), ``"timeout"``
 (``cancel``; ``result`` returns the ``CANCELLED`` sentinel, while an
 unknown uid raises ``KeyError``).  ``stream=True`` requests get their first
 token at admission, then completed transfer blocks, through
-``stream_callback``.  Greedy sampling; token prompts only.  Not ported:
-JAX's ``mesh``, ``seq_shards`` and ``blocks`` arguments.
+``stream_callback``.  Greedy sampling; token prompts only.
+
+Under a ``mesh`` (``seq_shards``, ``blocks``: JAX's arguments) every step
+runs in that engine scope.  Every rank of the mesh's seq group runs the same
+Engine on the same requests; a step whose scans are time-sharded (a prefill
+chunk of T >= P tokens) holds collectives and runs eagerly, while the steps
+whose scans stay local (decode, the tail, T = 1 < P) are CUDA graphs
+(``graphs.StepGraphs.captured()`` says which ran which way).
 """
 
 from __future__ import annotations
@@ -169,8 +175,8 @@ class Engine:
     >>> results = eng.run()          # {"a": [8 generated token ids]}
 
     Arguments are JAX's ``Engine``'s, less ``params`` (the model holds its
-    weights), ``mesh``, ``seq_shards`` and ``blocks``.  ``backend`` scopes
-    every step (``engine.use_backend``).  Prompts are tokens only: a model
+    weights).  ``backend``, ``mesh``, ``seq_shards`` and ``blocks`` scope
+    every step (``steps._engine_scope``).  Prompts are tokens only: a model
     with a frontend (``cfg.frontend``) raises ``NotImplementedError``, as in
     JAX; ``steps.generate`` serves it with its prefix embeddings."""
 
@@ -182,6 +188,9 @@ class Engine:
         page_len: int = 512,
         chunk: int = 64,
         backend: str = "auto",
+        mesh=None,
+        seq_shards="auto",
+        blocks=None,
         eos_scan_every: int = 8,
         stream_callback: Optional[Callable[[Any, List[int], Optional[str]], None]] = None,
         page_size: Optional[int] = None,
@@ -219,7 +228,7 @@ class Engine:
         self.stream_callback = stream_callback
 
         dev = model.device
-        self.graphs = StepGraphs(backend)
+        self.graphs = StepGraphs(backend, mesh=mesh, seq_shards=seq_shards, blocks=blocks)
         self._prefill = ChunkedPrefill(model, chunk, graphs=self.graphs)
         self._decode_multi: Dict[int, Callable] = {}
         self._caches = model.init_slot_caches(

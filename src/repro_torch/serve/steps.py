@@ -15,7 +15,8 @@ tensors in place, so one CUDA graph of it replays over fixed addresses.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import contextlib
+from typing import Callable, Dict, Mapping, Optional
 
 import torch
 
@@ -25,26 +26,49 @@ from .graphs import StepGraphs
 from .state_cache import assign_caches, mask_frozen_pages, merge_frozen
 
 
-def make_prefill_step(model: DecoderLM, *, backend: str = "auto") -> Callable:
+Blocks = Optional[Mapping[str, Mapping[str, int]]]
+
+
+def _engine_scope(backend: str, mesh, seq_shards, blocks: Blocks = None):
+    """The engine scope of a serve step (JAX ``steps.py:37-47``): the backend,
+    the mesh of sequence-sharded scans when there is one, and per-op launch
+    knobs.  Without a mesh an explicit ``seq_shards`` count raises in the
+    engine instead of serving locally."""
+    stack = contextlib.ExitStack()
+    if mesh is None:
+        stack.enter_context(engine.use_backend(backend, seq_shards=seq_shards))
+    else:
+        stack.enter_context(engine.use_mesh(mesh, seq_shards=seq_shards, backend=backend))
+    if blocks:
+        stack.enter_context(engine.use_blocks(**dict(blocks)))
+    return stack
+
+
+def make_prefill_step(model: DecoderLM, *, backend: str = "auto", mesh=None,
+                      seq_shards="auto", blocks: Blocks = None) -> Callable:
     """``prefill_step(tokens (B, S), caches, positions=None, **kw) -> (last
-    logits (B, 1, vocab), caches)`` under ``engine.use_backend(backend)``;
-    ``kw`` are the frontend inputs (``prefix_embeds``, ``mrope_positions``)."""
+    logits (B, 1, vocab), caches)`` in ``_engine_scope(backend, mesh,
+    seq_shards, blocks)``: under a mesh the prompt's scans are time-sharded
+    over its seq group; ``blocks`` (e.g. ``{"matrix_scan": {"block_t":
+    8}}``) pins launch knobs.  ``kw`` are the frontend inputs
+    (``prefix_embeds``, ``mrope_positions``)."""
 
     @torch.no_grad()
     def prefill_step(tokens, caches, **kw):
-        with engine.use_backend(backend):
+        with _engine_scope(backend, mesh, seq_shards, blocks):
             return model.prefill(tokens, caches, **kw)
 
     return prefill_step
 
 
-def make_decode_step(model: DecoderLM, *, backend: str = "auto") -> Callable:
+def make_decode_step(model: DecoderLM, *, backend: str = "auto", mesh=None,
+                     seq_shards="auto", blocks: Blocks = None) -> Callable:
     """``decode_step(token (B, 1), caches, index (B,)) -> (next (B, 1),
     caches)``: one greedy step, ``index`` the incoming tokens' positions."""
 
     @torch.no_grad()
     def decode_step(token, caches, index):
-        with engine.use_backend(backend):
+        with _engine_scope(backend, mesh, seq_shards, blocks):
             logits, caches = model.decode_step(token, caches, index)
         return torch.argmax(logits[:, -1, :], dim=-1)[:, None], caches
 
@@ -105,7 +129,8 @@ def make_decode_in_place(model: DecoderLM) -> Callable:
 
 @torch.no_grad()
 def generate(model: DecoderLM, prompt: torch.Tensor, n_tokens: int, max_len: int,
-             backend: str = "auto", **kw) -> torch.Tensor:
+             backend: str = "auto", mesh=None, seq_shards="auto", blocks: Blocks = None,
+             **kw) -> torch.Tensor:
     """Greedy lockstep-batch generation: prompt (B, P) -> (B, n_tokens).
 
     ``kw`` go to the single-shot prefill (``prefix_embeds`` (B, n_prefix,
@@ -113,14 +138,18 @@ def generate(model: DecoderLM, prompt: torch.Tensor, n_tokens: int, max_len: int
     positions continue at P, P + 1, ... on every M-RoPE stream.  On the card
     the decode step is captured once as a CUDA graph over static token,
     index and cache tensors and replayed for each token; a failed capture
-    raises.  For request-level batching use ``serve.Engine``."""
+    raises.  Under a ``mesh`` the prefill's scans are time-sharded and the
+    decode step (T = 1, local) is still one graph.  For request-level
+    batching use ``serve.Engine``."""
     b, p = prompt.shape
-    prefill = make_prefill_step(model, backend=backend)
+    prefill = make_prefill_step(model, backend=backend, mesh=mesh, seq_shards=seq_shards,
+                                blocks=blocks)
     logits, caches = prefill(prompt, model.init_caches(b, max_len), **kw)
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
     out = [tok.clone()]
     index = torch.full((b,), p, dtype=torch.long, device=prompt.device)
-    graphs, step = StepGraphs(backend), make_decode_in_place(model)
+    graphs = StepGraphs(backend, mesh=mesh, seq_shards=seq_shards, blocks=blocks)
+    step = make_decode_in_place(model)
     for _ in range(n_tokens - 1):
         graphs.run("generate_decode", step, tok, caches, index)
         out.append(tok.clone())

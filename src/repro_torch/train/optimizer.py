@@ -16,7 +16,8 @@ leaves instead of a dozen a leaf).
 
 The decay mask is JAX's: a leaf decays unless its lower-cased JAX tree path
 (``convert.jax_path``, never the port's own name) holds one of
-``no_decay_substrings``.  Int8 gradient compression is not ported.
+``no_decay_substrings``.  ``compress_int8`` / ``decompress_int8`` are the
+JAX package's symmetric per-tensor int8 rounding of gradients.
 """
 
 from __future__ import annotations
@@ -29,13 +30,14 @@ import numpy as np
 import torch
 
 from ..configs.base import LMConfig
-from ..convert import jax_path
+from .. import convert
 
 Schedule = Callable[[int], float]
 NO_DECAY = ("norm", "bias", "scale", "mu", "bonus")
 
 __all__ = ["AdamW", "Lion", "cosine_schedule", "constant_schedule",
-           "global_norm", "clip_by_global_norm", "NO_DECAY"]
+           "global_norm", "clip_by_global_norm", "compress_int8", "decompress_int8",
+           "NO_DECAY"]
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +86,25 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
     return grads, norm
 
 
+def compress_int8(grads: Dict[str, torch.Tensor]
+                  ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """Symmetric per-tensor int8 quantization (JAX ``optimizer.py:58-75``):
+    each tensor as (int8 values, f32 scale), scale = max(max|x|, 1e-12) / 127
+    and values round(x / scale), half to even, all in f32."""
+    out = {}
+    for name, x in grads.items():
+        x = x.float()
+        scale = x.abs().amax().clamp_min(1e-12) / 127.0
+        out[name] = (torch.round(x / scale).to(torch.int8), scale)
+    return out
+
+
+def decompress_int8(qgrads: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+                    ) -> Dict[str, torch.Tensor]:
+    """The f32 tensors of ``compress_int8``'s pairs: values times scale."""
+    return {name: q.float() * scale for name, (q, scale) in qgrads.items()}
+
+
 def _step_params(params: Dict[str, torch.Tensor], delta: Dict[str, torch.Tensor],
                  decay: Dict[str, bool], weight_decay: float, lr: float) -> None:
     """p ← p - lr·(Δ [+ wd·p]) in f32, in place (Δ is overwritten)."""
@@ -118,7 +139,7 @@ class AdamW:
         """Which parameters decay: those whose lower-cased JAX tree path holds
         none of ``no_decay_substrings``."""
         def decays(name):
-            path = jax_path(cfg, name)[0].lower()
+            path = convert.jax_path(cfg, name)[0].lower()
             return not any(sub in path for sub in self.no_decay_substrings)
 
         return {name: decays(name) for name in names}

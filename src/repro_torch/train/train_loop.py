@@ -1,8 +1,15 @@
 """The train step: forward and backward, the global-norm clip, the
 optimizer update; with gradient accumulation over microbatches.
 
-The port of ``repro/train/train_loop.py`` without sharding, bf16 parameter
-casting or gradient compression.  ``make_train_step`` returns
+The port of ``repro/train/train_loop.py`` without parameter sharding or bf16
+parameter casting.  Distribution is data parallel over ``data_group`` (a
+``torch.distributed`` group whose ranks hold the same parameters and each a
+slice of the global batch): the gradients are averaged over it before the
+clip.  Sequence sharding needs nothing here: the engine's sharded scans
+leave every rank of the seq group with the whole gradient
+(``kernels/sharded.py``).  ``grad_compression="int8"`` rounds the averaged
+gradients through ``compress_int8`` / ``decompress_int8``, as the JAX step
+does after GSPMD's reduction.  ``make_train_step`` returns
 ``train_step(state, batch) -> (state, metrics)``; ``state.params`` are the
 model's own parameters, updated in place, so the state returned is the one
 passed in, advanced by a step.
@@ -21,7 +28,7 @@ checkpoint stores.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +36,7 @@ import torch
 from ..configs.base import LMConfig
 from ..convert import params_from_jax, params_to_jax
 from ..models.model import DecoderLM
-from .optimizer import clip_by_global_norm
+from .optimizer import clip_by_global_norm, compress_int8, decompress_int8
 
 Batch = Dict[str, torch.Tensor]
 
@@ -45,15 +52,55 @@ def init_train_state(model: DecoderLM, optimizer) -> TrainState:
     return TrainState(params=params, opt_state=optimizer.init(params), step=0)
 
 
+def _sum_over(flat: torch.Tensor, group) -> torch.Tensor:
+    """One all-reduce of ``flat`` over ``group`` (through host memory unless
+    the group is NCCL's: gloo takes CPU tensors)."""
+    import torch.distributed as dist
+
+    wire = flat if "nccl" in str(dist.get_backend(group)) else flat.cpu()
+    dist.all_reduce(wire, group=group)
+    return wire.to(flat.device)
+
+
+def mean_over(grads: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """The mean of each gradient over the ranks of ``group``, in place, in
+    one f32 all-reduce of all of them."""
+    import torch.distributed as dist
+
+    names = list(grads)
+    flat = torch.cat([grads[n].reshape(-1).float() for n in names])
+    flat = _sum_over(flat, group) / dist.get_world_size(group)
+    for n, part in zip(names, flat.split([grads[n].numel() for n in names])):
+        grads[n] = part.view_as(grads[n]).to(grads[n].dtype)
+    return grads
+
+
+def _metrics_over(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """The global batch's metrics from each rank's slice: ``tokens`` summed,
+    the rest averaged (every slice holds as many labelled tokens)."""
+    import torch.distributed as dist
+
+    names = list(metrics)
+    tot = _sum_over(torch.stack([metrics[n].float() for n in names]), group)
+    n = dist.get_world_size(group)
+    return {k: v if k == "tokens" else v / n for k, v in zip(names, tot)}
+
+
 def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
-                    microbatches: int = 1
+                    microbatches: int = 1, grad_compression: Optional[str] = None,
+                    data_group=None
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
     """The train step over ``batch`` = {tokens, labels}, both (B, S) with B
     a multiple of ``microbatches``; any other key (a frontend's
     ``prefix_embeds`` (B, P, d), ``mrope_positions`` (3, B, S)) goes to
     ``model.loss``, split with the batch (``mrope_positions`` along its dim
-    1).  Metrics: the loss's (averaged over microbatches), ``grad_norm``
-    before the clip and ``lr = schedule(step+1)``, the rate the update used."""
+    1).  Metrics: the loss's (averaged over microbatches, this rank's batch
+    slice), ``grad_norm`` before the clip and ``lr = schedule(step+1)``, the
+    rate the update used.  ``data_group``: average the gradients over its
+    ranks, and the metrics (``tokens`` summed); ``grad_compression``: None or
+    ``"int8"``."""
+    if grad_compression not in (None, "int8"):
+        raise ValueError(f"unknown grad_compression {grad_compression!r}; None or 'int8'")
     decay = optimizer.decay_mask(model.cfg, [n for n, _ in model.named_parameters()])
 
     def grads_of(params, tokens, labels, **kw):
@@ -87,6 +134,12 @@ def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
 
     def train_step(state: TrainState, batch: Batch):
         grads, metrics = compute_grads(state.params, batch)
+        if data_group is not None:
+            grads = mean_over(grads, data_group)
+            metrics = _metrics_over(metrics, data_group)
+        if grad_compression == "int8":
+            grads = {n: g.to(state.params[n].dtype)
+                     for n, g in decompress_int8(compress_int8(grads)).items()}
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         params, opt_state = optimizer.update(grads, state.opt_state, state.params, decay)
         metrics = dict(metrics, grad_norm=gnorm, lr=optimizer.schedule(state.step + 1))

@@ -916,3 +916,86 @@ def test_generate_capture_failure_raises(card, monkeypatch):
     with pytest.raises(RuntimeError):
         generate(model, prompt, 4, 32, **_frontend_inputs(model, 2, 10, card))
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# launch knobs, MAX_D, and the Engine under a mesh of ranks sharing the card
+# ---------------------------------------------------------------------------
+def test_max_d_is_refused_on_the_card(card):
+    """The matrix-scan kernels take d <= MAX_D = 128: at d = 129 on the card
+    the engine's matrix scan and prefix products raise the wrapper's
+    ValueError (no silent fall back to the plain version)."""
+    from repro_torch.kernels.goom_scan import MAX_D
+
+    rng = np.random.default_rng(3)
+    d = MAX_D + 1
+    a = Goom(*(torch.tensor(x, device=card) for x in goom_planes(rng, (4, d, d))))
+    b = Goom(*(torch.tensor(x, device=card) for x in goom_planes(rng, (4, d, 1))))
+    with pytest.raises(ValueError, match=f"d <= {MAX_D}"):
+        engine.matrix_scan(a, b)
+    with pytest.raises(ValueError, match=f"d <= {MAX_D}"):
+        engine.cumulative_lmme(a)
+
+
+@pytest.mark.parametrize("blocks,want_l", [({"block_t": 4}, 4), ({"algo": "seq"}, 37),
+                                           ({}, None)])
+def test_use_blocks_sets_the_chunk_the_kernels_launch_with(card, blocks, want_l):
+    """``use_blocks`` reaches the launch: the with-B and zero-B kernels run
+    at the pinned L (``algo="seq"``: L = T), and the states stay the plain
+    version's."""
+    from repro_torch.kernels.goom_scan.ops import with_b_chunk_len, zero_b_chunk_len
+
+    rng = np.random.default_rng(4)
+    t, d = 37, 16
+
+    def positive(shape):   # no cancellation: the states compare entry by entry
+        log = torch.tensor(goom_planes(rng, shape)[0], device=card) - 2.0
+        return Goom(log, torch.ones_like(log))
+
+    a, b = positive((t, d, d)), positive((t, d, 2))
+    with engine.use_blocks(matrix_scan=blocks, cumulative_lmme=blocks):
+        got = engine.matrix_scan(a, b)
+        assert matrix_scan_cuda.last_chunk[3] == (want_l or with_b_chunk_len(t, d))
+        prod = engine.cumulative_lmme(a)
+        assert matrix_scan_cuda.last_chunk[3] == (want_l or zero_b_chunk_len(t, d))
+    plain = matrix_scan_ref(a, b)
+    assert_goom_close(got.log_abs, got.sign, plain.log_abs, plain.sign)
+    with engine.use_backend("torch_reference"):
+        plain = engine.cumulative_lmme(a)
+    assert_goom_close(prod.log_abs, prod.sign, plain.log_abs, plain.sign)
+
+
+def _mesh_engine_rank(rank, variant):
+    """A rank of a 2-rank mesh on the card: the smoke model's Engine under
+    the mesh and without it, on the same requests."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _serve_model(torch.device("cuda"), "goom-rnn-124m", variant)
+    mesh = make_host_mesh(seq_shards=2)
+    from repro_torch import Engine, Request
+
+    rng = np.random.default_rng(0)
+    reqs = lambda: [Request(uid=i, prompt=rng.integers(0, model.cfg.vocab, size=p).tolist(),
+                            max_new_tokens=6) for i, p in enumerate([19, 5])]
+    sharded = Engine(model, max_slots=2, page_len=96, chunk=8, mesh=mesh)
+    got = sharded.run(reqs())
+    rng = np.random.default_rng(0)
+    want = Engine(model, max_slots=2, page_len=96, chunk=8).run(reqs())
+    modes = {k: v["mode"] for k, v in sharded.graphs.captured().items()}
+    return got, want, modes
+
+
+@pytest.mark.parametrize("variant", ["shared_a", "generic"])
+def test_engine_under_a_mesh_captures_only_local_steps(card, variant):
+    """Two gloo ranks on the card run one Engine under a (1, 2) mesh: the
+    chunk steps (T = 8 >= 2, their scans time-sharded, collectives through
+    the host) run eagerly, the decode and tail steps (T = 1, local) are
+    graphs, and the tokens equal a local Engine's."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    for got, want, modes in spawn_ranks(_mesh_engine_rank, 2, variant, timeout=300):
+        assert got == want
+        assert any(name.startswith("decode") for name in modes)
+        for name, mode in modes.items():   # chunk steps: prefill_chunk, admit_chunk
+            assert mode == ("eager" if "chunk" in name else "graph"), (name, mode)
