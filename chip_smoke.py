@@ -1743,7 +1743,7 @@ def experiments_phase():
 # at a cosine lr of peak 3e-3 over the example's 200 steps with 20 warm-up
 # steps; of which this phase runs TRAIN_STEPS
 TRAIN = dict(batch=16, seq_len=128, lr=3e-3, warmup=20, total=200)
-TRAIN_STEPS = 10
+TRAIN_STEPS = 3
 # f32 step on the kernels against the same step under the plain versions,
 # from the seed weights: the loss within TRAIN_LOSS_RTOL; each leaf's
 # max-normalised gradient gap max |g_kernel - g_plain| / max |g_plain|, at
@@ -1846,7 +1846,7 @@ def train_phase(cfg, model):
     """goom-rnn-124m trained at full width through ``make_train_step``:
     TRAIN_STEPS steps of the 124M model (loss finite, launches == the
     forward's engine calls), then each part of a step timed by CUDA events
-    (median of 5), one step profiled part by part, and one step at f32 on
+    (median of 3), one step profiled part by part, and one step at f32 on
     the kernels against the same step under the plain versions."""
     import torch
 
@@ -1860,7 +1860,7 @@ def train_phase(cfg, model):
     opt, state = _train_setup(model)
     step_fn = make_train_step(model, opt)
     decay = opt.decay_mask(cfg, list(state.params))
-    warm, n_split = 2, 5
+    warm, n_split = 2, 3
     batches = list(_train_batches(cfg, warm + TRAIN_STEPS + 2 * n_split + 1))
     t0 = time.perf_counter()
     for b in batches[:warm]:   # allocator, cuBLAS, the kernels' first calls
@@ -1933,6 +1933,7 @@ def train_phase(cfg, model):
           f"steps {parity_s:.1f} s", flush=True)
 
     return dict(launches=launches, per_step=per_step, step_ms=step_ms, parts=med,
+                kernels=f_n + b_n + o_n,
                 plain_parts=plain_med,
                 busy_ms=busy, idle=idle, plain_bwd_ms=plain_ms, peak_bytes=peak,
                 losses=losses, **gap)
@@ -2003,6 +2004,229 @@ def _train_parity(model, cfg, batch):
           f"the plain version's by {worst[1]:.3e} > {bound:.3e}")
     return dict(loss_gap=loss_gap, grad_err=worst[1], grad_err_at=worst[0],
                 plain_spread=spread["plain"][1], kernel_spread=spread["kernels"][1])
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: remat (LMConfig.remat) on the train step
+# ---------------------------------------------------------------------------
+REMATS = ("none", "full", "dots")
+#: steps a remat setting is timed over, after one warm-up step
+REMAT_STEPS = 2
+
+
+def remat_phase(cfg, model, none):
+    """goom-rnn-124m's train step at full width (B=16, S=128, bf16) under
+    ``full`` and ``dots`` beside ``none`` (``train_phase``'s result on the
+    same model, ``none``): wall ms a step (median of REMAT_STEPS), one
+    step's device-busy ms (profiler), the peak GiB over the timed steps
+    (``max_memory_allocated`` after a reset) and the kernels' launches a
+    step (``full`` and ``dots`` re-run the forward's GOOM kernels in the
+    backward: twice ``none``'s).  Then f32 gradients under ``full`` against
+    ``none`` on the same weights and batch, within TRAIN_SPREAD_FACTOR times
+    ``none``'s own spread (weights one f32 ulp apart), the train phase's rule."""
+    import torch
+
+    from repro_torch.train import make_train_step
+
+    variant = path_label(cfg)
+    out = {"none": dict(step_ms=none["step_ms"], busy_ms=none["busy_ms"],
+                        kernels=none["kernels"], peak_gib=none["peak_bytes"] / 2**30,
+                        per_step=none["per_step"], launches=none["launches"],
+                        how=f"mean of {TRAIN_STEPS} in train_phase; busy summed over its "
+                            "parts' profiles")}
+    batches = list(_train_batches(cfg, 1 + REMAT_STEPS + 1))
+    try:
+        for remat in REMATS[1:]:
+            model.cfg = dataclasses.replace(cfg, remat=remat)
+            opt, state = _train_setup(model)
+            step_fn = make_train_step(model, opt)
+            state, _ = step_fn(state, batches[0])
+            torch.cuda.synchronize()
+            free_memory()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            walls = []
+            for b in batches[1:1 + REMAT_STEPS]:
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, b)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+            launches, calls = read_counts()
+            check_launches(launches, calls, f"remat {remat} [{variant}]", USED[variant])
+            per_step = {k: v // REMAT_STEPS for k, v in launches.items()}
+            _, busy, n_dev, _ = _profiled_device(lambda: step_fn(state, batches[-1]))
+            check(math.isfinite(float(metrics["loss"])), f"remat {remat} [{variant}]: loss")
+            out[remat] = dict(step_ms=statistics.median(walls), busy_ms=busy, kernels=n_dev,
+                              peak_gib=peak / 2**30, per_step=per_step, launches=launches,
+                              how=f"median of {REMAT_STEPS}")
+            del state, opt, step_fn
+            free_memory()
+        gap = _remat_parity(model, cfg, batches[-1])
+    finally:
+        model.cfg = cfg
+    none = out["none"]["per_step"]
+    for remat in ("full", "dots"):
+        check(out[remat]["per_step"] == {k: 2 * v for k, v in none.items()},
+              f"remat {remat} [{variant}]: launches a step {out[remat]['per_step']} != "
+              f"twice none's {none}")
+    check(out["full"]["peak_gib"] < out["none"]["peak_gib"],
+          f"remat [{variant}]: full's peak {out['full']['peak_gib']:.2f} GiB is not below "
+          f"none's {out['none']['peak_gib']:.2f}")
+    for remat, r in out.items():
+        print(f"remat {remat} [{variant}]: step {r['step_ms']:.1f} ms wall ({r['how']}), "
+              f"{r['busy_ms']:.3f} ms device busy in {r['kernels']} kernels, "
+              f"peak {r['peak_gib']:.2f} GiB, launches a step {r['per_step']}; "
+              f"{card_line()}", flush=True)
+    return dict(out, **gap)
+
+
+def _remat_parity(model, cfg, batch):
+    """f32 loss and gradients under ``full`` against ``none``, seed weights,
+    on the kernels; bound: TRAIN_SPREAD_FACTOR times ``none``'s spread."""
+    import torch
+
+    variant = path_label(cfg)
+    params = dict(model.named_parameters())
+    seed_weights = {n: p.detach().clone() for n, p in params.items()}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+
+    def run(remat):
+        model.cfg = dataclasses.replace(f32, remat=remat)
+        loss, grads = _grads(model, batch)
+        return float(loss.detach()), grads
+
+    none, full = run("none"), run("full")
+    with torch.no_grad():   # every weight one f32 ulp up or down
+        for p in params.values():
+            up = torch.rand(p.shape, generator=gen, device=DEVICE) < 0.5
+            p.copy_(torch.nextafter(p, torch.where(up, torch.inf, -torch.inf)))
+    moved = run("none")
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(seed_weights[n])
+    loss_gap = abs(full[0] - none[0]) / abs(none[0])
+    worst = _worst(_grad_gaps(full[1], none[1]))
+    spread = _worst(_grad_gaps(moved[1], none[1]))
+    bound = TRAIN_SPREAD_FACTOR * spread[1]
+    print(f"remat [{variant}] parity (f32, seed weights, kernels): full loss {full[0]:.6f} "
+          f"vs none {none[0]:.6f} (relative gap {loss_gap:.2e}); worst max-normalised grad "
+          f"gap {worst[1]:.2e} at {worst[0]}; none's spread one ulp apart {spread[1]:.2e} "
+          f"at {spread[0]}; bound {bound:.2e}", flush=True)
+    check(loss_gap <= TRAIN_LOSS_RTOL, f"remat [{variant}]: f32 loss full {full[0]} vs "
+          f"none {none[0]}")
+    check(worst[1] <= bound, f"remat [{variant}]: grad of {worst[0]} under full off none's "
+          f"by {worst[1]:.3e} > {bound:.3e}")
+    return dict(remat_loss_gap=loss_gap, remat_grad_err=worst[1], remat_spread=spread[1])
+
+
+def jamba_float_phase():
+    """Jamba smoke at f32 on the card with Mamba's ``scan_impl="float"``
+    (the conventional baseline: no diagonal-scan launch, by design) and
+    ``"goom"`` (the diagonal-scan kernel) on the same weights: logits
+    finite, float within 1e-4·std of goom's, and within 1e-5·std of the
+    float path on the CPU."""
+    import torch
+
+    from repro_torch import DecoderLM
+    from repro_torch.configs import jamba_v01
+
+    args = (64, 8, 4, 2, 128, 256, 4, "jamba-v0.1-smoke")
+    out, launches = {}, {}
+    gen = torch.Generator().manual_seed(SEED)
+    tokens = torch.randint(0, 256, (2, 40), generator=gen)
+    weights = None
+    for impl in ("float", "goom"):
+        cfg = dataclasses.replace(jamba_v01._make(*args, d_state=4, chunk=8, scan_impl=impl),
+                                  compute_dtype=torch.float32)
+        model = DecoderLM(cfg, device=DEVICE,
+                          generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+        if weights is None:
+            weights = model.state_dict()
+        model.load_state_dict(weights)
+        reset_counts()
+        with torch.no_grad():
+            out[impl] = model(tokens.to(DEVICE)).float()
+        torch.cuda.synchronize()
+        launches[impl] = read_counts()[0]
+        if impl == "float":
+            cpu = DecoderLM(cfg, device="cpu")
+            cpu.load_state_dict({k: v.cpu() for k, v in weights.items()})
+            with torch.no_grad():
+                ref = cpu(tokens)
+    std = float(out["goom"].std())
+    vs_goom = float((out["float"] - out["goom"]).abs().max()) / std
+    vs_cpu = float((out["float"].cpu() - ref).abs().max()) / std
+    check(all(bool(torch.isfinite(v).all()) for v in out.values()), "jamba float: logits")
+    check(launches["float"]["diag_scan"] == 0 and launches["goom"]["diag_scan"] > 0,
+          f"jamba float: diagonal-scan launches {launches}")
+    check(vs_goom <= 1e-4 and vs_cpu <= 1e-5, f"jamba float: {vs_goom:.2e}·std from goom, "
+          f"{vs_cpu:.2e}·std from the CPU")
+    print(f"jamba float (smoke, f32, on the card): logits {vs_goom:.2e}·std from the goom "
+          f"scan's, {vs_cpu:.2e}·std from the float path on the CPU; diagonal-scan launches "
+          f"float {launches['float']['diag_scan']}, goom {launches['goom']['diag_scan']}",
+          flush=True)
+    return launches["goom"]
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: DTensor layouts on the card
+# ---------------------------------------------------------------------------
+def layouts_phase():
+    """goom-rnn-124m's full-width f32 train step with its parameters laid
+    out as DTensors (``distribute_model``) over a 1-rank ("data", "model")
+    ``DeviceMesh`` on the card, under the rules, against the plain path on
+    the same weights and batch: the same loss and the same kernel launches,
+    both variants.  Several ranks are not run: gloo's all-gather of CUDA
+    tensors through DTensor (``Shard`` -> ``Replicate``, the parameters'
+    gather) ends the ranks with SIGSEGV under torch 2.11, and NCCL takes one
+    rank a card (PERF.md §7)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import DecoderLM, get_config
+    from repro_torch.launch.mesh import free_port, make_host_mesh
+    from repro_torch.sharding import distribute_model, make_rules, use_rules
+    from repro_torch.train import make_train_step
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    out = {}
+    try:
+        mesh = make_host_mesh(device_type="cuda")
+        rules = make_rules(mesh)
+        base = dataclasses.replace(get_config("goom-rnn-124m"), compute_dtype=torch.float32)
+        batch = next(iter(_train_batches(base, 1)))
+        for variant in ("shared_a", "generic"):
+            cfg = with_scan_variant(base, variant)
+            res = {}
+            for laid in (False, True):
+                model = DecoderLM(cfg, device=DEVICE,
+                                  generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+                if laid:
+                    distribute_model(model, rules)
+                opt, state = _train_setup(model)
+                step = make_train_step(model, opt, rules=rules if laid else None)
+                reset_counts()
+                with use_rules(rules if laid else None):
+                    state, m = step(state, batch)
+                torch.cuda.synchronize()
+                res[laid] = (float(m["loss"]), float(m["grad_norm"]), read_counts()[0])
+                del model, opt, state, step
+                free_memory()
+            (l0, g0, k0), (l1, g1, k1) = res[False], res[True]
+            check(abs(l1 - l0) <= 1e-6 * abs(l0) and k1 == k0,
+                  f"layouts [{variant}]: loss {l1!r} vs plain {l0!r}, launches {k1} vs {k0}")
+            print(f"layouts [{variant}] (1-rank DeviceMesh on the card, f32, full width, "
+                  f"remat full): loss {l1!r} vs plain {l0!r}, grad norm {g1!r} vs {g0!r}; "
+                  f"launches {k1} == plain's", flush=True)
+            out[variant] = k1
+    finally:
+        dist.destroy_process_group()
+    print("layouts: several ranks not run on the card (gloo's DTensor all-gather of "
+          "CUDA tensors ends the ranks with SIGSEGV; NCCL takes one rank a card)", flush=True)
+    return out
 
 
 def launcher_phase():
@@ -2360,7 +2584,7 @@ def _wall_s(fn) -> float:
 # ---------------------------------------------------------------------------
 # phase 13: the launcher on ranks (torch.distributed.run)
 # ---------------------------------------------------------------------------
-DIST_STEPS = 5
+DIST_STEPS = 3
 DIST_DP = dict(batch=8, seq_len=64, steps=3)     # the launcher's smoke width
 DIST_LOSS_RTOL = 1e-5
 
@@ -2389,10 +2613,11 @@ def _torchrun(nproc, argv, out_json, timeout=600):
 def dist_launcher_phase():
     """The launcher under ``torch.distributed.run`` with 2 gloo ranks on the
     card: goom-rnn-124m at full width, ``shared_a``, ``--seq-shards 2``,
-    DIST_STEPS bf16 steps with finite losses, and one f32 step against the
+    DIST_STEPS f32 steps with finite losses, the first against the
     single-process launcher on the same seed; then ``--mesh host`` data
     parallel (2, 1) at the smoke width against one process on the full
-    batch.  Returns rank 0's launches of the seq-sharded run."""
+    batch.  Gloo ranks sharing a card keep the plain layout (the launcher's
+    docstring).  Returns rank 0's launches of the seq-sharded run."""
     import numpy as np
     import torch
 
@@ -2406,28 +2631,26 @@ def dist_launcher_phase():
     tmp.mkdir(exist_ok=True)
     full = ["--arch", "goom-rnn-124m", "--task", "copy", "--seq-len", str(TRAIN["seq_len"]),
             "--batch", str(TRAIN["batch"]), "--lr", str(TRAIN["lr"]), "--log-every", "1",
-            "--dist-backend", "gloo"]
+            "--dist-backend", "gloo", "--compute-dtype", "float32"]
     t0 = time.perf_counter()
     run = _torchrun(2, full + ["--steps", str(DIST_STEPS), "--seq-shards", "2"],
                     tmp / "chip_smoke_dist.json")
     losses = [s["loss"] for s in run["steps"]]
-    check(len(losses) == DIST_STEPS and all(math.isfinite(v) for v in losses),
-          f"launcher --seq-shards 2: losses {losses}")
+    check(len(losses) == DIST_STEPS and all(math.isfinite(v) for v in losses)
+          and run["layouts"] is False, f"launcher --seq-shards 2: losses {losses}, "
+          f"layouts {run['layouts']}")
     t1 = time.perf_counter()
-    f32 = ["--compute-dtype", "float32", "--steps", "1"]
-    sharded = _torchrun(2, full + f32 + ["--seq-shards", "2"], tmp / "chip_smoke_dist32.json")
-    t2 = time.perf_counter()
-    _, _, m = launch_train.main(full[:-2] + f32)
+    _, _, m = launch_train.main(full[:-4] + ["--compute-dtype", "float32", "--steps", "1"])
     one = float(m["loss"])
-    got = sharded["steps"][0]["loss"]
+    got = losses[0]
     check(abs(got - one) <= DIST_LOSS_RTOL * abs(one),
           f"launcher f32 step: 2 seq shards {got} vs one process {one}")
-    print(f"launcher --seq-shards 2 (2 gloo ranks on one card, full width, bf16): "
+    print(f"launcher --seq-shards 2 (2 gloo ranks on one card, full width, f32): "
           f"{DIST_STEPS} steps, losses {[round(v, 4) for v in losses]}, in "
           f"{t1 - t0:.1f} s with the ranks' start; rank 0 launches {run['launches']}; "
-          f"f32 step loss {got!r} vs one process {one!r} (relative "
-          f"{abs(got - one) / abs(one):.2e}, bar {DIST_LOSS_RTOL}; {t2 - t1:.1f} s)",
-          flush=True)
+          f"first step's loss {got!r} vs one process {one!r} (relative "
+          f"{abs(got - one) / abs(one):.2e}, bar {DIST_LOSS_RTOL}; "
+          f"{time.perf_counter() - t1:.1f} s)", flush=True)
 
     dp = ["--arch", "goom-rnn-124m", "--smoke", "--task", "copy", "--seq-len",
           str(DIST_DP["seq_len"]), "--batch", str(DIST_DP["batch"]), "--steps",
@@ -2466,8 +2689,11 @@ def dist_launcher_phase():
 # phase 14: autotune on the card
 # ---------------------------------------------------------------------------
 #: DEFAULT_SHAPES, then goom-rnn's with-B decode (T=1, d=16, m=4) and its
-#: 64-token prefill chunk (T=64, d=16, m=1)
-AUTOTUNE_SHAPES = [None, {"matrix_scan": (1, 16, 4)}, {"matrix_scan": (64, 16, 1)}]
+#: 64-token prefill chunk (T=64, d=16, m=1), swept twice: the two sweeps,
+#: timed by the kernels' device time, must pick the same winner
+AUTOTUNE_CHUNK = (64, 16, 1)
+AUTOTUNE_SHAPES = [None, {"matrix_scan": (1, 16, 4)}, {"matrix_scan": AUTOTUNE_CHUNK},
+                   {"matrix_scan": AUTOTUNE_CHUNK}]
 
 
 def autotune_phase():
@@ -2500,6 +2726,14 @@ def autotune_phase():
             for row in r["table"])
         print(f"autotune [{r['op']} {tuple(r['shapes'])}] ms a call: {cells}; winner "
               f"{r['blocks'] or 'default'} {r['ms']:.4f} ms; {card}", flush=True)
+    twice = [r for r in reports if r["op"] == "matrix_scan"
+             and tuple(r["shapes"]) == AUTOTUNE_CHUNK]
+    check(len(twice) == 2 and twice[0]["blocks"] == twice[1]["blocks"],
+          f"autotune [matrix_scan {AUTOTUNE_CHUNK}]: two sweeps picked "
+          f"{[r['blocks'] for r in twice]}")
+    print(f"autotune [matrix_scan {AUTOTUNE_CHUNK}]: two sweeps on device time picked "
+          f"{twice[0]['blocks']} both ({twice[0]['ms']:.4f} and {twice[1]['ms']:.4f} ms)",
+          flush=True)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
     for r in reports:
         if r["op"] not in ("matrix_scan", "cumulative_lmme"):
@@ -2687,6 +2921,11 @@ def _near_tie(logits, i, got, want, what):
 RING_FIRST, RING_SECOND, RING_DECODE = 200, 400, 16
 
 
+#: windowed models whose rings are driven past wrapping (gemma3-1b's was cut
+#: for the script's time; mixtral's window of 4096 stays)
+RING_ARCHS = ("mixtral-8x7b",)
+
+
 def ring_phase(model, cfg):
     """At f32 compute with f32 KV: windowed layers' rolling buffers wrapping
     on the card.  One prompt of window + RING_FIRST + RING_SECOND tokens
@@ -2785,9 +3024,7 @@ def cached_vs_uncached_phase(model, cfg, reqs):
         gap = float((lg_cached - lg_full).abs().max() / lg_full.float().std())
         check(gap < 1e-4, f"{variant}: prefill logits through the caches "
               f"{gap:.3e}·std from the no-cache forward's")
-        ring = (ring_phase(model, cfg) if any(
-            b.mixer == "attention" and b.attn.window is not None for b in cfg.layer_list)
-            else None)
+        ring = ring_phase(model, cfg) if cfg.name in RING_ARCHS else None
     finally:
         model.cfg = cfg
         for m, c in zip(moes, moe_cfgs):
@@ -2821,7 +3058,7 @@ def families_phase():
         model, reqs, stats = serve_phase(cfg)
         trace = trace_phase(model, stats["per_decode"], eager=False)
         layers = layer_breakdown(model)
-        prefix = prefix_phase(model) if arch == "gemma3-1b" else None
+        prefix = None   # prefix reuse: goom-rnn, Jamba and rwkv6 (gemma3's cut for time)
         free_memory()
         cached = cached_vs_uncached_phase(model, cfg, reqs)
         n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
@@ -3223,15 +3460,22 @@ def main() -> int:
     parity_phase(model_g, cfg_g, reqs, compare_variant="shared_a")
     del model_g
     elapsed("generic")
-    train = {}
+    train, remat = {}, {}
     for variant in ("shared_a", "generic"):
-        cfg_t = with_scan_variant(cfg, variant)
+        # the forward's launch counts are train_phase's checks: remat off
+        cfg_t = dataclasses.replace(with_scan_variant(cfg, variant), remat="none")
         model_t = DecoderLM(cfg_t, device=DEVICE,
                             generator=torch.Generator(device=DEVICE).manual_seed(SEED))
         train[variant] = train_phase(cfg_t, model_t)
+        remat[variant] = remat_phase(cfg_t, model_t, train[variant])
         del model_t
+        free_memory()
     launcher_phase()
     elapsed("train")
+    jamba_float_launches = jamba_float_phase()
+    layouts = layouts_phase()
+    free_memory()
+    elapsed("remat float layouts")
     free_memory()
     sharded, _ = sharded_phase()
     elapsed("sharded")
@@ -3291,6 +3535,13 @@ def main() -> int:
               f"{fr['prefill_ms']:.3f} ms wall / {fr['prefill_busy_ms']:.3f} ms busy; peak "
               f"{fr['peak_bytes'] / 2**30:.2f} GiB; {card}",
               flush=True)
+    for variant, r in remat.items():
+        print(f"summary [remat {variant}]: goom-rnn-124m train step (B={TRAIN['batch']}, "
+              f"S={TRAIN['seq_len']}, bf16) " + "; ".join(
+                  f"{k} {r[k]['step_ms']:.1f} ms wall / {r[k]['busy_ms']:.3f} ms busy, peak "
+                  f"{r[k]['peak_gib']:.2f} GiB" for k in REMATS)
+              + f"; f32 grads full vs none {r['remat_grad_err']:.2e} (spread "
+              f"{r['remat_spread']:.2e}); {card}", flush=True)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {sum(phase_s.values()):.1f}", flush=True)
 
@@ -3304,7 +3555,11 @@ def main() -> int:
                    "serve families": sum(f["stats"]["launches"][k] for f in families.values()),
                    "serve frontends": sum(f["launches"][k] for f in frontends.values()),
                    "examples": ex_launches[k], "sharded": sharded[k],
-                   "train seq-shards 2": dist_launches[k], "autotune": tune_launches[k]}
+                   "train seq-shards 2": dist_launches[k], "autotune": tune_launches[k],
+                   **{f"train remat {r} {v}": remat[v][r]["per_step"][k]
+                      for v in remat for r in ("full", "dots")},
+                   **{f"train layouts {v}": layouts[v][k] for v in layouts},
+                   "jamba smoke goom (float: 0)": jamba_float_launches[k]}
                for k in ("lmme", "matrix_scan", "matrix_scan_zero_b", "diag_scan")}
     lmme_row = next(r for r in rows if r["shape"].startswith("decode"))
     scan_row = next(v for k, v in scan_rows.items() if k.startswith("decode"))

@@ -5,9 +5,12 @@ The fields mirror the JAX package's ``GoomSSMCfg``, ``MambaCfg``,
 ``GroupCfg`` and ``LMConfig``
 (``repro/models/{goom_layer,ssm,attention,mlp,blocks,model}.py``); dtypes
 are torch dtypes and the defaults are the JAX package's.  Left out: the JAX
-flash-attention tiles (``block_q``, ``block_kv``), ``remat`` and Mamba's
-``scan_impl``.  ``transform_blocks`` rebuilds a config block by block (for
-example to flip attention to banded sliding windows).
+flash-attention tiles (``block_q``, ``block_kv``).  ``LMConfig.remat``
+(``"none"``, ``"dots"``, ``"full"``) checkpoints each period of a group in
+training, as JAX's ``group_apply``; ``MambaCfg.scan_impl`` picks the GOOM
+scan (``"goom"``) or the conventional float baseline (``"float"``).
+``transform_blocks`` rebuilds a config block by block (for example to flip
+attention to banded sliding windows).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ class MambaCfg:
     expand: int = 2
     dt_rank: Optional[int] = None
     chunk: int = 64         # scan chunk; sequences are identity-padded to it
+    scan_impl: str = "goom"  # "goom" (paper) | "float" (baseline)
 
     @property
     def d_inner(self) -> int:
@@ -150,6 +154,7 @@ class LMConfig:
     sub_quadratic: bool = False
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: str = "full"            # none | dots | full (per period, training only)
     logit_chunk: int = 512         # the loss's CE is computed in pieces of this many tokens
 
     @property

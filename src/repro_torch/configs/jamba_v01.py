@@ -7,8 +7,9 @@ the attention layers included."""
 from .base import BlockCfg, GroupCfg, LMConfig, MambaCfg, MlpCfg, MoeCfg, attn_block
 
 
-def _make(d, layers, heads, kv, ff, vocab, n_exp, name, d_state=16, chunk=64):
-    mamba = MambaCfg(d_model=d, d_state=d_state, chunk=chunk)
+def _make(d, layers, heads, kv, ff, vocab, n_exp, name, d_state=16, chunk=64,
+          scan_impl="goom"):
+    mamba = MambaCfg(d_model=d, d_state=d_state, chunk=chunk, scan_impl=scan_impl)
     moe = MoeCfg(d_model=d, d_ff=ff, n_experts=n_exp, top_k=2)
     mlp = MlpCfg(d_model=d, d_ff=ff)
 

@@ -122,3 +122,15 @@ def params_to_jax(cfg: LMConfig, state_dict: Mapping[str, Any]) -> Dict[str, Any
                     if blk.post_norms:
                         node.setdefault(f"{part}_post_norm", {})
     return tree
+
+
+def param_axes_to_jax(cfg: LMConfig, axes: Mapping[str, Tuple[Optional[str], ...]]
+                      ) -> Dict[str, Tuple[Optional[str], ...]]:
+    """The axes tree of JAX's ``DecoderLM.init_shapes`` (flat, by dotted
+    path) from ``model.param_axes()``: a stacked group's leaves lead with
+    the ``layers`` axis, as ``stack_inits`` names it."""
+    out: Dict[str, Tuple[Optional[str], ...]] = {}
+    for name, ax in axes.items():
+        path, period = jax_path(cfg, name)
+        out[path] = tuple(ax) if period is None else ("layers",) + tuple(ax)
+    return out

@@ -43,10 +43,15 @@ this order of precedence:
      (``seq_shards="auto"`` falls back silently; an explicit count with no
      mesh raises).
 
-``use_mesh(None)`` turns sharding off in its scope.  Every rank of the seq
-group runs the same op on the same full-length operands and gets the full
-states back (see ``kernels/sharded.py`` for how that differs from JAX's
-``shard_map``).
+``use_mesh(None)`` turns sharding off in its scope.  Two forms of operands:
+
+  * plain tensors: every rank of the seq group runs the same op on the same
+    full-length operands and gets the full states back;
+  * DTensors sharded along time over the seq axis (what the models hand the
+    engine under the launcher's rules, ``sharding/layout.py``): each rank
+    holds and scans its time shard and gets its shard's states back, as
+    JAX's ``shard_map`` (``local_map`` around the dispatch-resolved local
+    implementation; the CUDA kernels see local tensors only).
 
 ``calls`` counts engine op calls, so a run can show that every one of them
 reached a kernel: ``calls["lmme"]`` against ``lmme_cuda.launches``,
@@ -64,6 +69,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
+from ..sharding.rules import is_dtensor
 from . import scan as _scan
 from .goom import Goom
 
@@ -250,10 +256,15 @@ def _impl(op: str, a: Goom, hint: Callable[[], Tuple[int, ...]]):
         cfg.backend, device_type=a.log_abs.device.type, dtype=a.dtype)
     calls[op] += 1
     shapes = hint()
+    dt = is_dtensor(a.log_abs)
+    shard = None if op == "lmme" else _resolved_shard()
+    if dt and shard is None:
+        raise ValueError(f"{op}: DTensor operands need sharding rules whose scan_seq "
+                         "maps to a mesh axis")
     return dispatch.get_impl(op, resolved,
                              blocks=_block_overrides(cfg, op, resolved, shapes),
-                             shard=None if op == "lmme" else _resolved_shard(),
-                             shapes=shapes)
+                             shard=shard, shapes=shapes, time_sharded=dt)
+
 
 
 def autotune(ops: Optional[Tuple[str, ...]] = None, *, backend: Optional[str] = None,

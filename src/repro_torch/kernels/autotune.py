@@ -29,8 +29,16 @@ The candidates are the knobs the port's kernels take at run time:
     xla_reference candidates), one candidate for the other ops.
 
 A candidate that fails to launch is recorded with its error.  On the card a
-candidate is timed with CUDA events after a warm-up call; on the CPU with
-``perf_counter``.
+candidate is timed, after a warm-up call, on the device: ``GRAPH_CALLS``
+calls captured in a CUDA graph, the median of ``GRAPH_REPLAYS`` replays
+between two events (``graph_time_ms``); a call the graph cannot capture by
+its kernels in a profiler trace of ``DEVICE_CALLS`` calls
+(``device_time_ms``: each kernel's median duration times its launches a
+call; the profiler drops records of short launches, and a plain sum of
+what it kept flipped the 64-token chunk's winner in a card run).  CUDA
+events around eager calls shorter than their launch time the host, and
+let that winner flip between runs too; they remain only as the last
+fallback.  On the CPU a candidate is timed with ``perf_counter``.
 
 Cache file (JSON)::
 
@@ -50,6 +58,7 @@ import dataclasses
 import functools
 import json
 import os
+import statistics
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -195,17 +204,99 @@ def _example_args(op: str, shapes: Tuple[int, ...], device) -> Tuple[Goom, ...]:
     raise ValueError(f"unknown op {op!r}; one of {OPS}")
 
 
-def _time_call(fn, args, reps: int, cuda: bool) -> float:
-    fn(*args)   # warm-up: builds and loads the kernel
-    if cuda:
-        torch.cuda.synchronize()
+#: calls a candidate's CUDA graph holds, and the graph's timed replays
+GRAPH_CALLS, GRAPH_REPLAYS = 20, 5
+#: calls a candidate's device time is taken over on the card
+DEVICE_CALLS = 50
+#: profiler traces taken before a sweep falls back to CUDA events
+PROFILE_TRIES = 4
+
+
+def graph_time_ms(fn, calls: int = GRAPH_CALLS, replays: int = GRAPH_REPLAYS) -> float:
+    """Device time per call of ``fn()``: ``calls`` calls captured in one CUDA
+    graph (after a warm-up call on a side stream), the median over
+    ``replays`` replays of the time between two CUDA events around one
+    replay, over ``calls``.  A replay launches every kernel from the device's
+    queue, so the host's launch rate, which leads a call of microseconds, is
+    left out; the gaps between a graph's kernels (a microsecond or two) stay
+    in.  Raises what the capture raises."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    times = []
+    for _ in range(replays):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
-            fn(*args)
+        graph.replay()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end) / reps
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def device_time_ms(fn, calls: int = DEVICE_CALLS) -> Optional[float]:
+    """Device time per call of ``fn()`` from a ``torch.profiler`` trace of
+    ``calls`` calls, so the host's launch rate, which leads at microsecond
+    shapes, is left out: for each distinct device activity (a kernel, memset
+    or copy by name) its median duration, times the launches a call makes
+    (its records over ``calls``, rounded).  Medians and the rounding keep
+    the time when the profiler drops records (it has been seen on an H100
+    to keep half of a candidate's launches) or keeps a stray one.  None
+    when the profiler kept no device event in ``PROFILE_TRIES`` traces."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_name: Dict[str, List[float]] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if by_name:
+            per_call = {n: round(len(us) / calls) for n, us in by_name.items()}
+            top = max(by_name, key=lambda n: len(by_name[n]))
+            per_call[top] = max(per_call[top], 1)   # the call's own kernel at least
+            return sum(statistics.median(by_name[n]) * k for n, k in per_call.items()) / 1e3
+    return None
+
+
+def _event_ms(fn, reps: int) -> float:
+    """CUDA events around ``reps`` calls: right only where one call is one
+    long kernel, so the launches queue up ahead of the device."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _time_call(fn, args, reps: int, cuda: bool) -> float:
+    """ms a call: on the card the device time of a replayed CUDA graph of
+    calls (``graph_time_ms``), else of its kernels in a profiler trace
+    (``device_time_ms``), else CUDA events; on the CPU the wall time of
+    ``reps`` calls."""
+    fn(*args)   # warm-up: builds and loads the kernel
+    if cuda:
+        try:
+            return graph_time_ms(lambda: fn(*args))
+        except RuntimeError:   # a call the graph cannot capture
+            torch.cuda.synchronize()
+        ms = device_time_ms(lambda: fn(*args), max(reps, DEVICE_CALLS))
+        return _event_ms(lambda: fn(*args), reps) if ms is None else ms
     t0 = time.perf_counter()
     for _ in range(reps):
         fn(*args)

@@ -187,7 +187,8 @@ def _make(op: str, resolved: str, blocks: Optional[BlockConfig],
 
 
 def get_impl(op: str, resolved: str, blocks: Optional[BlockConfig] = None,
-             shard=None, shapes: Optional[Tuple[int, ...]] = None) -> _Impl:
+             shard=None, shapes: Optional[Tuple[int, ...]] = None,
+             time_sharded: bool = False) -> _Impl:
     """The callable that runs ``op`` on the resolved backend.
 
     ``blocks`` pins the launch knobs; None reads the autotune cache for
@@ -196,21 +197,25 @@ def get_impl(op: str, resolved: str, blocks: Optional[BlockConfig] = None,
     ``kernels.sharded.ShardSpec``) wraps a scan op's local implementation
     in the sequence-sharded algebra of ``kernels/sharded.py``; ``lmme`` is
     not a scan and ignores it.  Inside a shard, the local zero-B scan runs
-    at its default L and the stitch's LMME is this backend's."""
+    at its default L and the stitch's LMME is this backend's.
+    ``time_sharded``: the operands are DTensors sharded along time over the
+    shard's seq axis, and so are the states returned (``local_map`` around
+    the local algebra, JAX's ``shard_map``); else every rank holds the
+    full-length operands and gets the full-length states back."""
     base = _make(op, resolved, blocks, shapes)
     if shard is None or op == "lmme":
         return base
     from . import sharded   # collectives only where a shard asks for them
 
     if op == "diagonal_scan":
-        return lambda a, b, x0=None: sharded.seq_sharded_diagonal_scan(
-            a, b, x0, spec=shard, local_diagonal_scan=base)
+        f = sharded.mapped_diagonal_scan if time_sharded else sharded.seq_sharded_diagonal_scan
+        return lambda a, b, x0=None: f(a, b, x0, spec=shard, local_diagonal_scan=base)
     lmme_impl = _make("lmme", resolved, None, None)
     if op == "matrix_scan":
         cum = _make("cumulative_lmme", resolved, None, None)
-        return lambda a, b, x0=None: sharded.seq_sharded_matrix_scan(
-            a, b, x0, spec=shard, local_matrix_scan=base,
-            local_cumulative_lmme=cum, lmme=lmme_impl)
+        f = sharded.mapped_matrix_scan if time_sharded else sharded.seq_sharded_matrix_scan
+        return lambda a, b, x0=None: f(a, b, x0, spec=shard, local_matrix_scan=base,
+                                       local_cumulative_lmme=cum, lmme=lmme_impl)
     assert op == "cumulative_lmme", op
-    return lambda a: sharded.seq_sharded_cumulative_lmme(
-        a, spec=shard, local_cumulative_lmme=base, lmme=lmme_impl)
+    f = sharded.mapped_cumulative_lmme if time_sharded else sharded.seq_sharded_cumulative_lmme
+    return lambda a: f(a, spec=shard, local_cumulative_lmme=base, lmme=lmme_impl)

@@ -20,16 +20,27 @@ A length that the shard count does not divide is padded with identity steps
 (A = I at log 0, B = exact zero at log -inf) and cut back; a length below
 the shard count runs locally.
 
-**Semantics, which differ from ``shard_map``.**  JAX's shard_map takes
-arrays sharded along time and returns them so.  Here every rank of the seq
-group holds the full-length operands of its own batch, scans its time shard
-and returns the full-length states, gathered from the group, so that the
-model code around the op stays as it is and runs alike on every rank of the
-group.  The data axis splits the batch at the launcher, not inside the op,
-so ``batch_axes`` adds no collective, as in JAX.
+Each step of the algebra is a per-shard body (``matrix_scan_shard``,
+``cumulative_lmme_shard``, ``diagonal_scan_shard``: JAX's ``shard_map``
+bodies), which two front ends call:
 
-**Gradients.**  Since the code around the op runs alike on every rank, the
-op's inputs and outputs are replicated over the seq group and their
+  * ``mapped_*``: the operands are DTensors sharded along time over the seq
+    axis and the states come back so (JAX's ``in_specs=t_spec``,
+    ``out_specs=t_spec``); ``local_map`` hands the body each rank's local
+    tensors.  The models take this form under the launcher's rules
+    (``sharding/layout.py``): a rank builds its shard's operands only.
+  * ``seq_sharded_*``: every rank of the seq group holds the full-length
+    operands, scans its time shard and returns the full-length states,
+    gathered from the group (``engine.use_mesh`` on plain tensors; gloo
+    ranks that share a card, whose collectives DTensor cannot run).
+
+The data axis splits the batch at the launcher, not inside the op, so
+``batch_axes`` adds no collective, as in JAX.
+
+**Gradients.**  The carries' gather (``_Gather`` with ``reduce``) sums the
+gradients over the group and takes the rank's slice, in both forms.  In
+the full-length form the code around the op runs alike on every rank, so
+the op's inputs and outputs are replicated over the seq group and their
 gradients must be whole on every rank:
 
   * the output gather's backward takes the rank's own slice of the (equal)
@@ -40,6 +51,10 @@ gradients must be whole on every rank:
     earlier shards' carries;
   * each input's gradient (a rank fills only its shard's part of it, and
     only its own share of x0's) is all-reduced to the sum.
+
+In the time-sharded form each shard's gradient stays on its rank, and
+x0's (read by every rank's stitch) is ``Partial`` over the seq axis, which
+DTensor's autograd sums.
 
 **Transport.**  Gloo takes CPU tensors (it has no ``reduce_scatter`` and no
 CUDA all-gather), so over a gloo group each collective moves its tensors
@@ -62,7 +77,9 @@ from ..core.ops import goom_add, goom_mul, lmme_reference
 from ..core.scan import associative_scan
 
 __all__ = ["ShardSpec", "seq_sharded_diagonal_scan", "seq_sharded_matrix_scan",
-           "seq_sharded_cumulative_lmme", "seq_sharded_associative_scan", "collectives"]
+           "seq_sharded_cumulative_lmme", "seq_sharded_associative_scan",
+           "mapped_diagonal_scan", "mapped_matrix_scan", "mapped_cumulative_lmme",
+           "collectives"]
 
 #: collective calls (all-gathers and all-reduces) since the last reset
 collectives = {"n": 0}
@@ -246,13 +263,26 @@ def seq_sharded_matrix_scan(a: Goom, b: Goom, x0: Optional[Goom], *, spec: Shard
     batch = tuple(torch.broadcast_shapes(a.shape[1:-2], b.shape[1:-2]))
     a = _g_expand(_replicated(a, spec), (t,) + batch + (d, d))
     b = _g_expand(_replicated(b, spec), (t,) + batch + (d, m))
-    x0g = (goom_zeros(batch + (d, m), device=dev) if x0 is None
-           else _g_expand(_replicated(x0, spec), batch + (d, m)))
+    x0g = None if x0 is None else _g_expand(_replicated(x0, spec), batch + (d, m))
     pad = (-t) % p
     a = _pad_time(a, pad, _g_eye(batch, d, dev))
     b = _pad_time(b, pad, goom_zeros(batch + (d, m), device=dev))
+    out = matrix_scan_shard(_shard(a, spec), _shard(b, spec), x0g, spec=spec,
+                            local_matrix_scan=local_matrix_scan,
+                            local_cumulative_lmme=local_cumulative_lmme, lmme=lmme)
+    return _unshard(out, spec, t)
 
-    a_l, b_l = _shard(a, spec), _shard(b, spec)
+
+def matrix_scan_shard(a_l: Goom, b_l: Goom, x0: Optional[Goom], *, spec: ShardSpec,
+                      local_matrix_scan: Callable, local_cumulative_lmme: Callable,
+                      lmme: Callable[[Goom, Goom], Goom]) -> Goom:
+    """This rank's states from its time shard (``shard_map``'s body): a_l
+    (T/P, ..., d, d) and b_l (T/P, ..., d, m) of equal batch dims, x0 (...,
+    d, m) or None (zeros), the same on every rank of the group."""
+    dev = b_l.log_abs.device
+    d, m = a_l.shape[-1], b_l.shape[-1]
+    batch = tuple(b_l.shape[1:-2])
+    x0g = goom_zeros(batch + (d, m), device=dev) if x0 is None else x0
     states0 = local_matrix_scan(a_l, b_l, None)
     astar = local_cumulative_lmme(a_l)
     ga = _g_gather(astar[-1], spec, reduce=True)
@@ -263,7 +293,7 @@ def seq_sharded_matrix_scan(a: Goom, b: Goom, x0: Optional[Goom], *, spec: Shard
     a_in = _exclusive(Goom(pa_l, pa_s), _g_eye(batch, d, dev), idx)
     b_in = _exclusive(Goom(pb_l, pb_s), goom_zeros(batch + (d, m), device=dev), idx)
     x_in = goom_add(lmme_reference(a_in, x0g), b_in)
-    return _unshard(goom_add(lmme(astar, x_in), states0), spec, t)
+    return goom_add(lmme(astar, x_in), states0)
 
 
 # ---------------------------------------------------------------------------
@@ -282,8 +312,16 @@ def seq_sharded_cumulative_lmme(a: Goom, *, spec: ShardSpec, local_cumulative_lm
     batch = tuple(a.shape[1:-2])
     pad = (-t) % p
     a = _pad_time(_replicated(a, spec), pad, _g_eye(batch, d, dev))
+    out = cumulative_lmme_shard(_shard(a, spec), spec=spec,
+                                local_cumulative_lmme=local_cumulative_lmme, lmme=lmme)
+    return _unshard(out, spec, t)
 
-    astar = local_cumulative_lmme(_shard(a, spec))
+
+def cumulative_lmme_shard(a_l: Goom, *, spec: ShardSpec, local_cumulative_lmme: Callable,
+                          lmme: Callable[[Goom, Goom], Goom]) -> Goom:
+    """This rank's prefix products from its time shard a_l (T/P, ..., d, d)."""
+    d = a_l.shape[-1]
+    astar = local_cumulative_lmme(a_l)
     g = _g_gather(astar[-1], spec, reduce=True)
 
     def combine(e, l):
@@ -291,8 +329,9 @@ def seq_sharded_cumulative_lmme(a: Goom, *, spec: ShardSpec, local_cumulative_lm
         return out.log_abs, out.sign
 
     pref = Goom(*associative_scan(combine, (g.log_abs, g.sign)))
-    p_in = _exclusive(pref, _g_eye(batch, d, dev), spec.index)
-    return _unshard(lmme(astar, p_in), spec, t)
+    p_in = _exclusive(pref, _g_eye(tuple(a_l.shape[1:-2]), d, a_l.log_abs.device),
+                      spec.index)
+    return lmme(astar, p_in)
 
 
 # ---------------------------------------------------------------------------
@@ -311,13 +350,22 @@ def seq_sharded_diagonal_scan(a: Goom, b: Goom, x0: Optional[Goom], *, spec: Sha
     trail = shape[1:]
     a = _g_expand(_replicated(a, spec), shape)
     b = _g_expand(_replicated(b, spec), shape)
-    x0g = (goom_zeros(trail, device=dev) if x0 is None
-           else _g_expand(_replicated(x0, spec), trail))
+    x0g = None if x0 is None else _g_expand(_replicated(x0, spec), trail)
     pad = (-t) % p
     a = _pad_time(a, pad, goom_ones(trail, device=dev))
     b = _pad_time(b, pad, goom_zeros(trail, device=dev))
+    out = diagonal_scan_shard(_shard(a, spec), _shard(b, spec), x0g, spec=spec,
+                              local_diagonal_scan=local_diagonal_scan)
+    return _unshard(out, spec, t)
 
-    a_l, b_l = _shard(a, spec), _shard(b, spec)
+
+def diagonal_scan_shard(a_l: Goom, b_l: Goom, x0: Optional[Goom], *, spec: ShardSpec,
+                        local_diagonal_scan: Callable) -> Goom:
+    """This rank's states from its time shard: a_l and b_l (T/P, ...) of one
+    shape, x0 (...) or None (zeros), the same on every rank of the group."""
+    dev = b_l.log_abs.device
+    trail = tuple(b_l.shape[1:])
+    x0g = goom_zeros(trail, device=dev) if x0 is None else x0
     states0 = local_diagonal_scan(a_l, b_l, None)
     astar = Goom(torch.cumsum(a_l.log_abs, 0), torch.cumprod(a_l.sign, 0))
     ga = _g_gather(astar[-1], spec, reduce=True)
@@ -336,8 +384,69 @@ def seq_sharded_diagonal_scan(a: Goom, b: Goom, x0: Optional[Goom], *, spec: Sha
     a_in = _exclusive(Goom(pa_l, pa_s), goom_ones(trail, device=dev), idx)
     b_in = _exclusive(Goom(pb_l, pb_s), goom_zeros(trail, device=dev), idx)
     x_in = goom_add(goom_mul(a_in, x0g), b_in)
-    out = goom_add(goom_mul(astar, _g_expand(x_in, astar.shape)), states0)
-    return _unshard(out, spec, t)
+    return goom_add(goom_mul(astar, _g_expand(x_in, astar.shape)), states0)
+
+
+# ---------------------------------------------------------------------------
+# DTensor operands: time shards in, time shards out (shard_map's semantics)
+# ---------------------------------------------------------------------------
+def _mapped(body: Callable, spec: ShardSpec, shards: Sequence[Goom],
+            x0: Optional[Goom]) -> Goom:
+    """``body(*shards, x0) -> Goom`` run by ``local_map`` on each rank's
+    local tensors.  ``shards`` are Gooms of DTensors whose seq mesh dim is
+    ``Shard(0)`` (time); ``x0`` is None or a Goom of DTensors replicated
+    over the seq group, whose gradient is the sum over the group (every
+    rank's stitch reads it).  The states come back placed as the last
+    shard operand (JAX's ``t_spec`` in and out)."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    seq = spec.mesh.axis_names.index(spec.seq_axis)
+    for g in shards:
+        if g.log_abs.placements[seq] != Shard(0):
+            raise ValueError(f"a sharded scan operand must be time-sharded over "
+                             f"{spec.seq_axis!r}; got {g.log_abs.placements}")
+    planes = [t for g in shards for t in (g.log_abs, g.sign)]
+    n = len(planes)
+    planes += [None, None] if x0 is None else [x0.log_abs, x0.sign]
+    in_pl = tuple(None if t is None else tuple(t.placements) for t in planes)
+    grad_pl = list(in_pl)
+    if x0 is not None:
+        grad_pl[n] = tuple(Partial() if i == seq else q for i, q in enumerate(in_pl[n]))
+
+    def local(*ts):
+        gs = [Goom(ts[i], ts[i + 1]) for i in range(0, n, 2)]
+        x = None if ts[n] is None else Goom(ts[n], ts[n + 1])
+        out = body(*gs, x)
+        return out.log_abs, out.sign
+
+    out_pl = in_pl[n - 2]
+    log, sign = local_map(local, out_placements=(out_pl, out_pl), in_placements=in_pl,
+                          in_grad_placements=tuple(grad_pl),
+                          device_mesh=spec.mesh.device_mesh)(*planes)
+    return Goom(log, sign)
+
+
+def mapped_matrix_scan(a: Goom, b: Goom, x0: Optional[Goom], *, spec: ShardSpec,
+                       **local_impls) -> Goom:
+    """:func:`matrix_scan_shard` on time-sharded DTensor operands."""
+    return _mapped(lambda a_l, b_l, x: matrix_scan_shard(a_l, b_l, x, spec=spec,
+                                                         **local_impls),
+                   spec, (a, b), x0)
+
+
+def mapped_cumulative_lmme(a: Goom, *, spec: ShardSpec, **local_impls) -> Goom:
+    """:func:`cumulative_lmme_shard` on a time-sharded DTensor operand."""
+    return _mapped(lambda a_l, _x: cumulative_lmme_shard(a_l, spec=spec, **local_impls),
+                   spec, (a,), None)
+
+
+def mapped_diagonal_scan(a: Goom, b: Goom, x0: Optional[Goom], *, spec: ShardSpec,
+                         **local_impls) -> Goom:
+    """:func:`diagonal_scan_shard` on time-sharded DTensor operands."""
+    return _mapped(lambda a_l, b_l, x: diagonal_scan_shard(a_l, b_l, x, spec=spec,
+                                                           **local_impls),
+                   spec, (a, b), x0)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,11 @@
 world of ``torch.distributed`` as a ("data", "model") mesh of shape
 (world / seq_shards, seq_shards), the "model" axis carrying the time shards
 of sequence-sharded scans (the launcher maps the ``scan_seq`` logical axis
-there).  A process that started no process group is a world of one.  JAX's
-``make_production_mesh`` (256 chips) waits for the dry-run tools.
+there).  A process that started no process group is a world of one.
+``make_production_mesh(multi_pod)`` is the target deployment: (16, 16)
+("data", "model") or (2, 16, 16) ("pod", "data", "model"), a ``DeviceMesh``
+when the world has that many ranks and an abstract mesh (sizes and names,
+as ``jax.sharding.AbstractMesh``) otherwise.
 
 ``spawn_ranks(fn, world, *args)`` starts ``world`` processes on this host
 (``spawn``), joins them into one process group over
@@ -16,33 +19,56 @@ there).  A process that started no process group is a world of one.  JAX's
 
 from __future__ import annotations
 
+import math
 import multiprocessing
 import queue as queue_mod
 import socket
 import time
 import traceback
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
 
 import torch.distributed as dist
 
 from ..sharding.mesh import NamedMesh
 
-__all__ = ["make_host_mesh", "free_port", "spawn_ranks"]
+__all__ = ["make_host_mesh", "make_production_mesh", "free_port", "spawn_ranks"]
 
 
-def make_host_mesh(*, seq_shards: int = 1) -> NamedMesh:
+def _device_mesh(sizes, names, device_type: Optional[str]) -> NamedMesh:
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if device_type is None:
+        device_type = "cuda" if "nccl" in str(dist.get_backend()) else "cpu"
+    return NamedMesh.of(init_device_mesh(device_type, tuple(sizes), mesh_dim_names=names))
+
+
+def make_host_mesh(*, seq_shards: int = 1, device_type: Optional[str] = None) -> NamedMesh:
     """The ranks of this process group as a ("data", "model") mesh of shape
-    (world / seq_shards, seq_shards); the world must divide evenly."""
+    (world / seq_shards, seq_shards); the world must divide evenly.
+    ``device_type`` is the device of the tensors DTensors over the mesh hold
+    (default: ``cuda`` under NCCL, else ``cpu``)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world % seq_shards:
         raise ValueError(f"--seq-shards {seq_shards} does not divide {world} processes")
     sizes = (world // seq_shards, seq_shards)
     if not dist.is_initialized():
         return NamedMesh(sizes, ("data", "model"))
-    from torch.distributed.device_mesh import init_device_mesh
+    return _device_mesh(sizes, ("data", "model"), device_type)
 
-    device = "cuda" if "nccl" in str(dist.get_backend()) else "cpu"
-    return NamedMesh.of(init_device_mesh(device, sizes, mesh_dim_names=("data", "model")))
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None) -> NamedMesh:
+    """256 ranks as (data=16, model=16), or with ``multi_pod`` 512 as (pod=2,
+    data=16, model=16): the pod axis is pure data parallelism across the
+    slower links between pods (``repro/launch/mesh.py``).  Over a process
+    group of exactly that world it is a ``DeviceMesh``; otherwise an
+    abstract mesh, sizes and names only (what the dry-run tools lay
+    parameters out on; the launcher refuses to train on one)."""
+    sizes = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if not dist.is_initialized() or dist.get_world_size() != math.prod(sizes):
+        return NamedMesh(sizes, names)
+    return _device_mesh(sizes, names, device_type)
 
 
 def free_port() -> int:

@@ -5,22 +5,40 @@
 
 runs on the card (``--device cuda``, the default; it raises when there is
 none) or, with ``--device cpu``, on the CPU through the kernels' plain
-versions.  The port of ``repro/launch/train.py``; its production meshes
-wait for the dry-run tools.
+versions.  The port of ``repro/launch/train.py``.
 
 **Ranks.**  Under ``python -m torch.distributed.run --nproc-per-node N -m
 repro_torch.launch.train ...`` the N ranks join one process group
 (``--dist-backend``, ``nccl`` by default; ``gloo`` moves the collectives'
-tensors through host memory) and form the host mesh ("data", "model") of
-shape (N / seq_shards, seq_shards) (``launch/mesh.py``).  Rank r runs on
-``cuda:{local_rank % device_count}``.  ``--seq-shards`` maps the
-``scan_seq`` logical axis to "model": every GOOM scan of the step is
-time-sharded over the rank's seq group (``kernels/sharded.py``), whose
-ranks hold the same batch.  The "data" axis splits the global batch: data
-rank i draws its slice with ``process_index = i`` and the gradients are
-averaged over the data group.  Rank 0 alone logs and checkpoints.  NCCL
-takes one rank a card: more ranks than cards under NCCL are refused (pass
-``--dist-backend gloo`` to share a card).
+tensors through host memory) and form a mesh: ``--mesh host`` (the
+default), this host's ranks as ("data", "model") of shape
+(N / seq_shards, seq_shards); ``--mesh production`` and
+``production-multipod``, JAX's (16, 16) and (2, 16, 16), which need a world
+of 256 and 512 ranks and refuse any other, naming the world they need
+(``launch/mesh.py``).  Rank r runs on ``cuda:{local_rank % device_count}``.
+
+On a mesh of several ranks the parameters are laid out as DTensors by the
+rules (``sharding.distribute_model``, JAX's ``param_shardings``), the
+optimizer's moments as their parameters and the step replicated
+(``state_placements``, JAX's ``state_shardings``), and the batch is split
+over the rules' batch axes (``batch_placements``, JAX's
+``batch_shardings``): the rank at index i of those axes draws slice i of
+the global batch (``process_index``).  A step gathers the parameters and
+reduce-scatters their gradients (``train/train_loop.py``).
+``--seq-shards`` maps the ``scan_seq`` logical axis to "model": every
+recurrent layer time-shards its scan over the rank's seq group, each rank
+building and holding its ⌈T/P⌉ steps (``sharding/layout.py``).
+Checkpoints hold whole tensors in the JAX layout, gathered from every
+rank and written by rank 0, and restore at any rank count.
+
+Gloo cannot carry DTensor's collectives on CUDA tensors (on an H100 under
+torch 2.11 the ranks die with SIGSEGV; PERF.md §7), so gloo ranks that
+share a card keep the plain layout: the parameters whole on every rank,
+the gradients averaged over the data group by hand, and each scan of the
+seq group run on the full-length operands (``engine.use_mesh``,
+``kernels/sharded.py``).  Rank 0 alone logs.  NCCL takes one rank a card:
+more ranks than cards under NCCL are refused (pass ``--dist-backend gloo``
+to share a card).
 
 ``--autotune`` sweeps the kernels' launch knobs on the training shapes
 before the first step (rank 0; the others read its cache).
@@ -40,13 +58,16 @@ of the last 20 is reported.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import os
 import signal
 import sys
 import time
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -55,13 +76,16 @@ import torch.distributed as dist
 from ..configs import get_config
 from ..core import engine
 from ..kernels.dispatch import BACKENDS, resolve_device
-from ..launch.mesh import make_host_mesh
+from ..launch.mesh import make_host_mesh, make_production_mesh
 from ..models.model import DecoderLM
-from ..sharding.rules import make_rules, use_rules
+from ..sharding.layout import placements
+from ..sharding.mesh import NamedMesh
+from ..sharding.rules import distribute_model, make_rules, param_placements, use_rules
 from ..train.checkpoint import CheckpointManager
 from ..train.data import DataConfig, Prefetcher, SyntheticStream
 from ..train.optimizer import AdamW, cosine_schedule
-from ..train.train_loop import init_train_state, load_state_tree, make_train_step, state_tree
+from ..train.train_loop import (TrainState, init_train_state, load_state_tree, make_train_step,
+                                state_tree)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -83,8 +107,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "kernels on the card, the plain versions on the CPU)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
-    ap.add_argument("--mesh", default="host", choices=["host"],
-                    help="the ranks of this host as a (data, model) mesh")
+    ap.add_argument("--mesh", default="host",
+                    choices=["host", "production", "production-multipod"],
+                    help="host: this host's ranks as a (data, model) mesh; production: "
+                         "(16, 16) over 256 ranks; production-multipod: (2, 16, 16) "
+                         "over 512")
     ap.add_argument("--seq-shards", type=int, default=1,
                     help="time-shard every GOOM scan over this many ranks (the "
                          "mesh's model axis); 1 = off")
@@ -139,25 +166,80 @@ def main(argv=None):
             dist.destroy_process_group()
 
 
+def _mesh(args, dev) -> NamedMesh:
+    if args.mesh == "host":
+        return make_host_mesh(seq_shards=args.seq_shards, device_type=dev.type)
+    mesh = make_production_mesh(multi_pod=args.mesh.endswith("multipod"),
+                                device_type=dev.type)
+    if mesh.device_mesh is None:   # as jax.make_mesh, refuse another world
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        raise ValueError(f"--mesh {args.mesh} {dict(mesh.shape)} needs a world of "
+                         f"{math.prod(mesh.shape.values())} ranks; this one has {world}")
+    if args.seq_shards > 1 and mesh.shape["model"] != args.seq_shards:
+        raise ValueError(f"--seq-shards {args.seq_shards} must equal the production "
+                         f"mesh's model axis ({mesh.shape['model']})")
+    return mesh
+
+
+def state_placements(rules, model, state: TrainState) -> Dict[str, Any]:
+    """JAX's ``state_shardings``: each moment laid out as its parameter
+    (``param_placements``), the optimizer's and the state's step replicated
+    (None: a Python int on every rank)."""
+    pl = param_placements(rules, model)
+    opt = {k: (None if k == "step" else dict(pl)) for k in state.opt_state}
+    return {"params": pl, "opt_state": opt, "step": None}
+
+
+def batch_placements(rules) -> tuple:
+    """JAX's ``batch_shardings`` for tokens and labels (B, S): the batch over
+    the rules' batch axes, the sequence whole."""
+    spec = rules.spec((math.prod(rules.mesh.shape.values()), 1), ("batch", None))
+    return placements(rules.mesh.axis_names, spec)
+
+
+def batch_slice(rules, mesh: NamedMesh) -> Tuple[int, int]:
+    """(index, count) of this rank's slice of the global batch under
+    :func:`batch_placements`: the rank's position over the mesh dims that
+    split dim 0, major first."""
+    idx, count = 0, 1
+    for d, pl in enumerate(batch_placements(rules)):
+        if getattr(pl, "dim", None) == 0:
+            name = mesh.axis_names[d]
+            size = mesh.shape[name]
+            idx = idx * size + (mesh.get_local_rank(name) if mesh.device_mesh else 0)
+            count *= size
+    return idx, count
+
+
 def _train(args, dev):
-    mesh = make_host_mesh(seq_shards=args.seq_shards)
+    mesh = _mesh(args, dev)
     rank = dist.get_rank() if dist.is_initialized() else 0
     multi = mesh.device_mesh is not None
+    # DTensor layouts where the process group carries their collectives
+    layouts = multi and (dev.type == "cpu" or args.dist_backend == "nccl")
     rules = make_rules(mesh, overrides={"scan_seq": "model"} if args.seq_shards > 1 else None)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.compute_dtype:
         cfg = dataclasses.replace(cfg, compute_dtype=getattr(torch, args.compute_dtype))
     model = DecoderLM(cfg, device=dev,
                       generator=torch.Generator(device=dev).manual_seed(args.seed))
+    if layouts:
+        distribute_model(model, rules)
     opt = AdamW(cosine_schedule(args.lr, args.warmup, args.steps))
     state = init_train_state(model, opt)
-    data_group = mesh.get_group("data") if mesh.shape["data"] > 1 else None
+    data_group = (mesh.get_group("data") if multi and not layouts and mesh.shape["data"] > 1
+                  else None)
     step_fn = make_train_step(model, opt, microbatches=args.microbatches,
-                              grad_compression=args.grad_compression, data_group=data_group)
+                              grad_compression=args.grad_compression, data_group=data_group,
+                              rules=rules if layouts else None)
+    index, count = batch_slice(rules, mesh)
     stream = SyntheticStream(DataConfig(
         task=args.task, vocab=cfg.vocab, seq_len=args.seq_len, global_batch=args.batch,
-        seed=args.seed, process_index=mesh.get_local_rank("data") if multi else 0,
-        process_count=mesh.shape["data"]))
+        seed=args.seed, process_index=index, process_count=count))
+    # gloo ranks sharing a card: the scans of the seq group on full-length
+    # operands, since the time shards' collectives are DTensor's
+    scans = (engine.use_mesh(mesh, seq_axis="model", batch_axis="data")
+             if multi and not layouts and args.seq_shards > 1 else contextlib.nullcontext())
 
     if args.autotune:
         if rank == 0:
@@ -177,7 +259,7 @@ def _train(args, dev):
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start_step = 0
     if mgr is not None:
-        restored = mgr.restore_latest(state_tree(cfg, state))
+        restored = mgr.restore_latest(state_tree(cfg, state))   # every rank reads
         if restored is not None:
             start_step, tree, extra = restored
             state = load_state_tree(cfg, state, tree)
@@ -192,12 +274,18 @@ def _train(args, dev):
         preempted["flag"] = True
 
     old_handler = signal.signal(signal.SIGTERM, on_sigterm)
-    mgr = mgr if rank == 0 else None   # rank 0 alone writes checkpoints
+    writer = mgr if rank == 0 else None   # rank 0 alone writes checkpoints
+
+    def save(step_no):
+        # DTensor leaves are gathered by every rank; rank 0 writes
+        tree = state_tree(cfg, state) if (writer is not None or layouts) else None
+        if writer is not None:
+            writer.save(step_no, tree, extra={"data": {"step": step_no}})
     batches = Prefetcher(itertools.islice(stream, args.steps - start_step), dev)
     metrics, times, history = None, [], []
     t_start = time.perf_counter()
     try:
-        with use_rules(rules), engine.use_backend(args.backend):
+        with use_rules(rules), engine.use_backend(args.backend), scans:
             for step, batch in zip(range(start_step, args.steps), batches):
                 t0 = time.perf_counter()
                 state, metrics = step_fn(state, batch)
@@ -216,18 +304,17 @@ def _train(args, dev):
                               f"{times[-1]:.2f}s vs median {med:.2f}s", flush=True)
                 if args.ckpt_dir and ((step + 1) % args.ckpt_every == 0
                                       or preempted["flag"]):
-                    if mgr is not None:
-                        mgr.save(step + 1, state_tree(cfg, state),
-                                 extra={"data": {"step": step + 1}})
+                    save(step + 1)
                     if preempted["flag"]:
-                        if mgr is not None:
-                            mgr.wait()
+                        if writer is not None:
+                            writer.wait()
                             print(f"preempted: checkpointed at step {step + 1}",
                                   flush=True)
                         sys.exit(0)
         if mgr is not None:
-            mgr.save(args.steps, state_tree(cfg, state), extra={"data": {"step": args.steps}})
-            mgr.wait()
+            save(args.steps)
+            if writer is not None:
+                writer.wait()
     finally:
         batches.close()
         signal.signal(signal.SIGTERM, old_handler)
@@ -236,7 +323,8 @@ def _train(args, dev):
 
         with open(args.metrics_out, "w") as f:
             json.dump({"steps": history, "launches": kernel_launches(),
-                       "world": dist.get_world_size() if multi else 1}, f)
+                       "world": dist.get_world_size() if multi else 1,
+                       "layouts": layouts}, f)
     if rank == 0:
         print(f"done: {args.steps - start_step} steps in "
               f"{time.perf_counter() - t_start:.1f}s", flush=True)

@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from ..configs.base import AttentionCfg
+from ..sharding.rules import constrain
 from .common import Dense
 from .norms import RMSNorm
 from .rope import apply_mrope, apply_rope
@@ -140,10 +141,14 @@ class Attention(nn.Module):
         self.cfg = cfg
         d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         kw = dict(device=device, dtype=dtype, generator=generator)
-        self.q = Dense(d, (h, hd), bias=cfg.qkv_bias, **kw)
-        self.k = Dense(d, (kvh, hd), bias=cfg.qkv_bias, **kw)
-        self.v = Dense(d, (kvh, hd), bias=cfg.qkv_bias, **kw)
-        self.o = Dense(h, (hd, d), std=(h * hd) ** -0.5, **kw)
+        self.q = Dense(d, (h, hd), bias=cfg.qkv_bias, in_axis="qkv_embed",
+                       out_axes=("heads", "head_dim"), **kw)
+        self.k = Dense(d, (kvh, hd), bias=cfg.qkv_bias, in_axis="qkv_embed",
+                       out_axes=("kv_heads", "head_dim"), **kw)
+        self.v = Dense(d, (kvh, hd), bias=cfg.qkv_bias, in_axis="qkv_embed",
+                       out_axes=("kv_heads", "head_dim"), **kw)
+        self.o = Dense(h, (hd, d), std=(h * hd) ** -0.5, in_axis="heads",
+                       out_axes=("head_dim", "embed"), **kw)
         if cfg.qk_norm:
             self.q_norm = RMSNorm(hd, device=device, dtype=dtype)
             self.k_norm = RMSNorm(hd, device=device, dtype=dtype)
@@ -174,6 +179,9 @@ class Attention(nn.Module):
             k = apply_rope(k, positions, theta=cfg.rope_theta,
                            rotary_fraction=cfg.rotary_fraction)
 
+        q = constrain(q, "batch", "act_seq", "act_heads", None)
+        k = constrain(k, "batch", "act_seq", "act_kv_heads", None)
+        v = constrain(v, "batch", "act_seq", "act_kv_heads", None)
         new_cache = None
         if cache is None:
             pos = positions[0]
@@ -193,7 +201,7 @@ class Attention(nn.Module):
             out, new_cache = self._prefill(q, k, v, cache, positions, scale)
         else:
             out, new_cache = self._decode(q, k, v, cache, scale)
-        out = out.to(cd).reshape(b, s, -1)
+        out = constrain(out.to(cd), "batch", "act_seq", "act_heads", None).reshape(b, s, -1)
         y = out @ self.o.w.to(cd).reshape(-1, cfg.d_model)
         return y, new_cache
 

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..configs.base import BlockCfg
+from ..sharding.rules import constrain
 from .attention import Attention, attention_init_cache, init_paged_cache
 from .goom_layer import GoomSSM, goom_ssm_init_state
 from .mlp import Mlp, Moe
@@ -84,7 +85,7 @@ class Block(nn.Module):
                 h, c = self.mixer(h, state=cache, compute_dtype=compute_dtype)
             if blk.post_norms:
                 h = self.mixer_post_norm(h)
-            x = x + h.to(x.dtype)
+            x = constrain(x + h.to(x.dtype), "batch", "act_seq", "act_embed")
         aux: Dict[str, torch.Tensor] = {}
         if blk.channel != "none":
             h = self.channel_norm(x)
@@ -101,7 +102,7 @@ class Block(nn.Module):
                 h = self.channel(h, compute_dtype=compute_dtype)
             if blk.post_norms:
                 h = self.channel_post_norm(h)
-            x = x + h.to(x.dtype)
+            x = constrain(x + h.to(x.dtype), "batch", "act_seq", "act_embed")
         return x, c, aux
 
 

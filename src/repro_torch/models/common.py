@@ -1,9 +1,14 @@
 """Shared model helpers: the scan chunk length, parameter init and the
-dense projection."""
+dense projection.
+
+Every parameter carries JAX's logical axes (``repro/models/common.py``'s
+``Param(value, axes)``) as its ``axes`` attribute, set where it is made
+(:func:`with_axes`); ``DecoderLM.param_axes()`` collects them and the
+sharding rules read them."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -35,28 +40,46 @@ def dense_apply(w: torch.Tensor, x: torch.Tensor, *,
     return y if b is None else y + b.to(cd)
 
 
-def normal_param(shape, std: float, *, device=None, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None) -> nn.Parameter:
+Axes = Tuple[Optional[str], ...]
+
+
+def with_axes(t: torch.Tensor, axes: Sequence[Optional[str]]) -> nn.Parameter:
+    """``t`` as a parameter with JAX's logical ``axes``, one name (or None) a dim."""
+    if len(axes) != t.ndim:
+        raise ValueError(f"axes {tuple(axes)} for a parameter of shape {tuple(t.shape)}")
+    p = t if isinstance(t, nn.Parameter) else nn.Parameter(t)
+    p.axes = tuple(axes)
+    return p
+
+
+def normal_param(shape, std: float, *, axes: Sequence[Optional[str]], device=None,
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None
+                 ) -> nn.Parameter:
     """A parameter drawn from N(0, std²), scaled in place (no second copy:
     the port builds multi-GiB expert weights this way)."""
     w = torch.randn(shape, generator=generator, device=device, dtype=dtype)
-    return nn.Parameter(w.mul_(std))
+    return with_axes(w.mul_(std), axes)
 
 
 class Dense(nn.Module):
     """Weight ``w`` of shape (in_dim, *out_dims), the JAX package's layout;
     initialised LeCun-normal (std 1/sqrt(in_dim), or ``std``) from
-    ``generator``; with ``bias``, a zero bias ``b`` of shape out_dims."""
+    ``generator``; with ``bias``, a zero bias ``b`` of shape out_dims.  Its
+    logical axes are ``(in_axis, *out_axes)``, the bias's ``out_axes``
+    (JAX's ``dense_init`` defaults)."""
 
     def __init__(self, in_dim: int, out_dims, *, device=None,
                  dtype=torch.float32, generator: Optional[torch.Generator] = None,
-                 std: Optional[float] = None, bias: bool = False):
+                 std: Optional[float] = None, bias: bool = False,
+                 in_axis: Optional[str] = "embed",
+                 out_axes: Sequence[Optional[str]] = ("mlp",)):
         super().__init__()
         self.w = normal_param((in_dim, *out_dims),
                               in_dim ** -0.5 if std is None else std,
+                              axes=(in_axis, *out_axes),
                               device=device, dtype=dtype, generator=generator)
-        self.b = (nn.Parameter(torch.zeros(tuple(out_dims), device=device, dtype=dtype))
-                  if bias else None)
+        self.b = (with_axes(torch.zeros(tuple(out_dims), device=device, dtype=dtype),
+                            out_axes) if bias else None)
 
     def forward(self, x: torch.Tensor, *,
                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:

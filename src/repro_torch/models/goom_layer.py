@@ -15,7 +15,10 @@ picks the scan:
   * ``generic`` is the paper-literal eq. 26: one ``engine.matrix_scan_carry``
     call per layer, on the card one launch of the fused matrix-scan kernel.
     Under an engine mesh (``engine.active_seq_shards() > 1``) ``shared_a``
-    takes this path too, so that the scan is time-sharded.
+    takes this path too, so that the scan is time-sharded.  Under rules
+    that map ``scan_seq`` to a ``DeviceMesh`` axis (``sharding.layout``),
+    a rank builds B·u, scans and applies C, D and the GLU on its time shard
+    alone, and the GLU's output is gathered along time before ``out_proj``.
 
 B·u is an ``engine.lmme`` call in both.
 """
@@ -31,7 +34,9 @@ from ..configs.base import GoomSSMCfg
 from ..core import engine
 from ..core.goom import Goom, finite_floor, to_goom
 from ..core.ops import goom_add, scaled_exp
-from .common import Dense, chunk_len
+from ..sharding.layout import TimeShards, time_shards
+from ..sharding.rules import constrain
+from .common import Dense, chunk_len, with_axes
 from .norms import LayerNorm
 
 _FLOOR = finite_floor(torch.float32)
@@ -104,13 +109,15 @@ def _scan_generic(
     a_g: Goom,            # (H, d, d) time-invariant transition
     bu_g: Goom,           # (S, B, H, d, 1) inputs B·u_t
     x0: Optional[Goom],   # (B, H, d, 1) entering state, or None
-) -> Tuple[Goom, Goom]:
+    layout: Optional[TimeShards] = None,
+) -> Tuple[Goom, Optional[Goom]]:
     """All states through the engine's matrix scan (paper eq. 26).
 
     The batch rides in the state columns, (S,B,H,d,1) → (S,H,d,B): the
     recurrence is column-independent and A is shared across the batch.  A
     goes in as a stride-0 view over S, never materialised.  Returns
-    (states (S,B,H,d,1), final state (B,H,d,1)).
+    (states (S,B,H,d,1), final state (B,H,d,1)).  With ``layout``, ``bu_g``
+    is this rank's time shard and so are the states; no final state.
     """
     s, _, h = bu_g.shape[:3]
     d = a_g.shape[-1]
@@ -120,15 +127,20 @@ def _scan_generic(
                     g.sign[..., 0].permute(0, 2, 3, 1))
 
     a_s = Goom(a_g.log_abs.expand(s, h, d, d), a_g.sign.expand(s, h, d, d))
-    x0c = None
-    if x0 is not None:   # (B,H,d,1) -> (H,d,B)
-        x0c = Goom(x0.log_abs[..., 0].permute(1, 2, 0),
-                   x0.sign[..., 0].permute(1, 2, 0))
-    states_c, carry_c = engine.matrix_scan_carry(a_s, cols(bu_g), x0c)
+    carry = None
+    if layout is not None:
+        states_c = layout.local(engine.matrix_scan(layout.wrap(a_s), layout.wrap(cols(bu_g),
+                                                                               batch=3)))
+    else:
+        x0c = None
+        if x0 is not None:   # (B,H,d,1) -> (H,d,B)
+            x0c = Goom(x0.log_abs[..., 0].permute(1, 2, 0),
+                       x0.sign[..., 0].permute(1, 2, 0))
+        states_c, carry_c = engine.matrix_scan_carry(a_s, cols(bu_g), x0c)
+        carry = Goom(carry_c.log_abs.permute(2, 0, 1)[..., None],
+                     carry_c.sign.permute(2, 0, 1)[..., None])
     states = Goom(states_c.log_abs.permute(0, 3, 1, 2)[..., None],
                   states_c.sign.permute(0, 3, 1, 2)[..., None])
-    carry = Goom(carry_c.log_abs.permute(2, 0, 1)[..., None],
-                 carry_c.sign.permute(2, 0, 1)[..., None])
     return states, carry
 
 
@@ -144,22 +156,25 @@ class GoomSSM(nn.Module):
         d, hd, h = cfg.d_model, cfg.head_dim, cfg.n_heads
         kw = dict(device=device, dtype=dtype)
 
+        ax = ("heads", "head_dim", "head_dim")
+
         def normal(std, shape):
-            return nn.Parameter(
-                std * torch.randn(shape, generator=generator, **kw))
+            return with_axes(std * torch.randn(shape, generator=generator, **kw), ax)
 
         self.ln = LayerNorm(d, **kw)
-        self.in_proj = Dense(d, (h, hd), generator=generator, **kw)
+        self.in_proj = Dense(d, (h, hd), generator=generator, out_axes=("heads", "head_dim"),
+                             **kw)
         # A near-identity with small noise: a stable start, free to grow or
         # shrink in training (the point of the paper)
         eye = torch.eye(hd, **kw)[None] * 0.9
-        self.A = nn.Parameter(
+        self.A = with_axes(
             eye + 0.1 * torch.randn((h, hd, hd), generator=generator, **kw)
-            / hd ** 0.5)
+            / hd ** 0.5, ax)
         self.B = normal(0.5 / hd ** 0.5, (h, hd, hd))
         self.C = normal(0.5 / hd ** 0.5, (h, hd, 2 * hd))
         self.D = normal(0.5 / hd ** 0.5, (h, hd, 2 * hd))
-        self.out_proj = Dense(h * hd, (d,), generator=generator, **kw)
+        self.out_proj = Dense(h * hd, (d,), generator=generator, in_axis="heads",
+                              out_axes=("embed",), **kw)
 
     def forward(self, x: torch.Tensor, *,
                 state: Optional[Dict[str, torch.Tensor]] = None,
@@ -170,9 +185,17 @@ class GoomSSM(nn.Module):
 
         xin = self.ln(x)
         u = self.in_proj(xin, compute_dtype=torch.float32)   # (B,S,H,hd)
+        u = constrain(u, "batch", "act_seq", "act_heads", None)
 
-        a_g = to_goom(self.A.float(), use_floor=True)
-        b_g = to_goom(self.B.float(), use_floor=True)
+        # under rules that time-shard the scans, each rank builds its time
+        # shard's operands and states only; the GLU's output is gathered
+        layout = time_shards() if state is None else None
+        A, B, C, D = self.A, self.B, self.C, self.D
+        if layout is not None:
+            u = layout.shard(u, 1)
+            A, B, C, D = (layout.replicated(w) for w in (A, B, C, D))
+        a_g = to_goom(A.float(), use_floor=True)
+        b_g = to_goom(B.float(), use_floor=True)
         u_g = to_goom(u, use_floor=True)
 
         # B·u_t over GOOMs: (H,hd,hd) ∘ (S,B,H,hd,1), A broadcast by strides
@@ -187,7 +210,7 @@ class GoomSSM(nn.Module):
         if self.cfg.scan_variant == "shared_a" and engine.active_seq_shards() == 1:
             states, final = _scan_shared_a(a_g, bu, x0, self.cfg.chunk)
         else:
-            states, final = _scan_generic(a_g, bu, x0)
+            states, final = _scan_generic(a_g, bu, x0, layout)
 
         # back to floats (eq. 27): one max over heads and head_dim per position
         xs = Goom(states.log_abs[..., 0].permute(1, 0, 2, 3),   # (B,S,H,hd)
@@ -195,10 +218,12 @@ class GoomSSM(nn.Module):
         vals, _ = scaled_exp(xs, dim=(-2, -1), shift=2.0)
 
         cd = compute_dtype
-        y = torch.einsum("bshd,hde->bshe", vals.to(cd), self.C.to(cd))
-        y = y + torch.einsum("bshd,hde->bshe", u.to(cd), self.D.to(cd))
+        y = torch.einsum("bshd,hde->bshe", vals.to(cd), C.to(cd))
+        y = y + torch.einsum("bshd,hde->bshe", u.to(cd), D.to(cd))
         y1, y2 = y.chunk(2, dim=-1)
-        y = (y1 * torch.sigmoid(y2)).reshape(b, s, h * hd)   # GLU
+        y = (y1 * torch.sigmoid(y2)).flatten(2)              # GLU (B,S,H·hd)
+        if layout is not None:
+            y = layout.gather(y, 1, s)
         out = self.out_proj(y, compute_dtype=cd)
 
         new_state = None

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import MlpCfg, MoeCfg
+from ..sharding.rules import constrain
 from .common import Dense, dense_apply, normal_param
 
 
@@ -58,7 +59,7 @@ class Mlp(nn.Module):
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.up = Dense(cfg.d_model, (cfg.d_ff,), **kw)
         self.gate = Dense(cfg.d_model, (cfg.d_ff,), **kw) if cfg.gated else None
-        self.down = Dense(cfg.d_ff, (cfg.d_model,), **kw)
+        self.down = Dense(cfg.d_ff, (cfg.d_model,), in_axis="mlp", out_axes=("embed",), **kw)
 
     def forward(self, x: torch.Tensor, *,
                 compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -67,6 +68,7 @@ class Mlp(nn.Module):
             h = self.act(self.gate(x, compute_dtype=compute_dtype)) * h
         else:
             h = self.act(h)
+        h = constrain(h, "batch", "act_seq", "act_mlp")
         return self.down(h, compute_dtype=compute_dtype)
 
 
@@ -89,10 +91,12 @@ class Moe(nn.Module):
         e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.router = Dense(d, (e,), device=device, dtype=torch.float32,
-                            generator=generator)
-        self.gate = normal_param((e, d, f), d ** -0.5, **kw)
-        self.up = normal_param((e, d, f), d ** -0.5, **kw)
-        self.down = normal_param((e, f, d), f ** -0.5, **kw)
+                            generator=generator, out_axes=(None,))
+        ax = ("expert", "embed", "expert_mlp")
+        self.gate = normal_param((e, d, f), d ** -0.5, axes=ax, **kw)
+        self.up = normal_param((e, d, f), d ** -0.5, axes=ax, **kw)
+        self.down = normal_param((e, f, d), f ** -0.5, axes=("expert", "expert_mlp", "embed"),
+                                 **kw)
 
     def forward(self, x: torch.Tensor, *, compute_dtype: torch.dtype = torch.bfloat16,
                 dropless: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -130,11 +134,12 @@ class Moe(nn.Module):
         dst = torch.where(keep, flat_expert * cap + slot, e * cap)
         buf = torch.zeros(b, e * cap + 1, d, dtype=cd, device=x.device)
         buf.scatter_(1, dst[..., None].expand(-1, -1, d), x.to(cd)[:, flat_token])
-        buf = buf[:, :-1].reshape(b, e, cap, d)
+        buf = constrain(buf[:, :-1].reshape(b, e, cap, d), "batch", "act_expert", None, None)
 
         g = torch.einsum("becd,edf->becf", buf, self.gate.to(cd))
         u = torch.einsum("becd,edf->becf", buf, self.up.to(cd))
-        out_buf = torch.einsum("becf,efd->becd", self.act(g) * u, self.down.to(cd))
+        h = constrain(self.act(g) * u, "batch", "act_expert", None, "act_mlp")
+        out_buf = torch.einsum("becf,efd->becd", h, self.down.to(cd))
         out_buf = out_buf.reshape(b, e * cap, d)
 
         gathered = out_buf.gather(1, dst.clamp(max=e * cap - 1)[..., None].expand(-1, -1, d))

@@ -20,7 +20,15 @@ the three streams is ``positions``.
 
 Training: ``loss(tokens, labels, **kw)``, the JAX package's next-token CE
 with the MoE's aux losses added (``repro/models/model.py::DecoderLM.loss``);
-``kw`` are the frontend inputs above.
+``kw`` are the frontend inputs above.  ``cfg.remat`` (JAX's
+``group_apply``): ``"full"`` (the default) runs each period of each group
+under non-reentrant ``torch.utils.checkpoint``, so the backward re-runs the
+period's forward, its GOOM kernels included; ``"dots"`` keeps the outputs
+of the products without batch dims (``aten.mm``, ``aten.addmm``: JAX's
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest; ``"none"``
+keeps everything.  Remat applies only with grad enabled and no caches.
+``param_axes()`` gives each parameter's JAX logical axes, which the
+sharding rules lay out (``sharding.distribute_model``).
 
 Serving API (what ``serve.Engine`` drives): ``init_caches``,
 ``init_slot_caches`` (the paged KV pool), ``prefill`` and ``decode_step``.
@@ -32,18 +40,21 @@ the recurrent layers ignore them.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from ..configs.base import LMConfig
 from ..kernels.dispatch import resolve_device
+from ..sharding.rules import constrain
 from .blocks import Block, block_init_cache
-from .common import Dense
+from .common import Dense, with_axes
 from .norms import make_norm
 from .rope import sinusoidal_embedding
 
@@ -58,21 +69,37 @@ class DecoderLM(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
-        if generator is None:
+        if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
         self.cfg = cfg
         kw = dict(device=dev, dtype=cfg.param_dtype)
-        self.embed = nn.Parameter(0.02 * torch.randn(
-            (cfg.vocab, cfg.d_model), generator=generator, **kw))
+        self.embed = with_axes(0.02 * torch.randn(
+            (cfg.vocab, cfg.d_model), generator=generator, **kw), ("vocab", "embed"))
         self.layers = nn.ModuleList(
             [Block(blk, generator=generator, **kw) for blk in cfg.layer_list])
         self.final_norm = make_norm(cfg.final_norm, cfg.d_model, **kw)
         self.lm_head = (None if cfg.tie_embeddings
-                        else Dense(cfg.d_model, (cfg.vocab,), generator=generator, **kw))
+                        else Dense(cfg.d_model, (cfg.vocab,), generator=generator,
+                                   out_axes=("vocab",), **kw))
+        if cfg.remat not in _REMAT_CONTEXT:
+            raise ValueError(f"unknown remat {cfg.remat!r}; one of {sorted(_REMAT_CONTEXT)}")
+        self._axes = {name: p.axes for name, p in self.named_parameters()}
+        # each group's periods as (first layer, end) spans of self.layers
+        self._periods, lo = [], 0
+        for g in cfg.groups:
+            for _ in range(g.n_periods):
+                self._periods.append((lo, lo + len(g.period)))
+                lo += len(g.period)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def param_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Each parameter's JAX logical axes, keyed by state-dict name (the
+        axes of JAX's ``init_shapes`` without the ``layers`` axis a stacked
+        group adds; ``convert.param_axes_to_jax`` adds it)."""
+        return dict(self._axes)
 
     def hidden_states(self, tokens: torch.Tensor,
                       caches: Optional[Caches] = None,
@@ -99,17 +126,39 @@ class DecoderLM(nn.Module):
             x = x + F.pad(prefix_embeds.to(cd), (0, 0, 0, pad))
         if self.cfg.pos_embedding == "sinusoidal":
             x = x + sinusoidal_embedding(positions, self.cfg.d_model).to(cd)
+        x = constrain(x, "batch", "act_seq", "act_embed")
         new_caches = []
         aux_tot: Dict[str, torch.Tensor] = {}
-        for i, layer in enumerate(self.layers):
-            x, c, aux = layer(x, positions=positions, mrope_positions=mrope_positions,
-                              cache=None if caches is None else caches[i],
-                              compute_dtype=cd)
-            new_caches.append(c)
+        remat = self.cfg.remat if caches is None and torch.is_grad_enabled() else "none"
+        for lo, hi in self._periods:
+            if remat == "none":
+                x, cs, aux = self._period(x, positions, mrope_positions, lo, hi, caches)
+                new_caches.extend(cs)
+            else:
+                x, aux = checkpoint(self._period_remat, x, positions, mrope_positions, lo, hi,
+                                    use_reentrant=False, context_fn=_REMAT_CONTEXT[remat])
             for k, v in aux.items():
                 aux_tot[k] = aux_tot.get(k, 0.0) + v
         return (self.final_norm(x), (new_caches if caches is not None else None),
                 aux_tot)
+
+    def _period(self, x, positions, mrope_positions, lo: int, hi: int,
+                caches: Optional[Caches]):
+        """Layers ``lo:hi`` (one period of a group) → (x, their caches, aux)."""
+        cs, aux_tot = [], {}
+        for i in range(lo, hi):
+            x, c, aux = self.layers[i](x, positions=positions,
+                                       mrope_positions=mrope_positions,
+                                       cache=None if caches is None else caches[i],
+                                       compute_dtype=self.cfg.compute_dtype)
+            cs.append(c)
+            for k, v in aux.items():
+                aux_tot[k] = aux_tot.get(k, 0.0) + v
+        return x, cs, aux_tot
+
+    def _period_remat(self, x, positions, mrope_positions, lo: int, hi: int):
+        x, _, aux = self._period(x, positions, mrope_positions, lo, hi, None)
+        return x, aux
 
     def head_weight(self) -> torch.Tensor:
         """The (d, vocab) head in the compute dtype: ``embed.T`` when tied."""
@@ -117,7 +166,7 @@ class DecoderLM(nn.Module):
         return w.to(self.cfg.compute_dtype)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        return hidden @ self.head_weight()
+        return constrain(hidden @ self.head_weight(), "batch", "act_seq", "act_vocab")
 
     def forward(self, tokens: torch.Tensor, **kw) -> torch.Tensor:
         """Full forward to logits (B, S, vocab); ``kw`` as ``hidden_states``."""
@@ -218,6 +267,22 @@ class DecoderLM(nn.Module):
         h, caches, _ = self.hidden_states(token, caches, positions,
                                           mrope_positions=mrope_positions)
         return self.logits(h), caches
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``: keep
+    the products without batch dims (``mm``, ``addmm``), recompute the rest
+    (``bmm``, einsums over heads and the GOOM kernels included)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_REMAT_CONTEXT = {
+    "none": None,
+    "full": noop_context_fn,
+    "dots": functools.partial(create_selective_checkpoint_contexts, _save_dots),
+}
 
 
 def _piece_nll(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor):

@@ -13,6 +13,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .common import with_axes
+
 
 def rmsnorm_apply(scale: torch.Tensor, x: torch.Tensor, *, eps: float = 1e-6,
                   plus_one: bool = False) -> torch.Tensor:
@@ -45,7 +47,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.plus_one = plus_one
         init = torch.zeros if plus_one else torch.ones
-        self.scale = nn.Parameter(init(dim, device=device, dtype=dtype))
+        self.scale = with_axes(init(dim, device=device, dtype=dtype), ("norm",))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm_apply(self.scale, x, plus_one=self.plus_one)
@@ -60,8 +62,8 @@ class LayerNorm(nn.Module):
         super().__init__()
         self.scale = self.bias = None
         if elementwise:
-            self.scale = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
-            self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+            self.scale = with_axes(torch.ones(dim, device=device, dtype=dtype), ("norm",))
+            self.bias = with_axes(torch.zeros(dim, device=device, dtype=dtype), ("norm",))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layernorm_apply(self.scale, self.bias, x)

@@ -14,8 +14,14 @@ of the CUDA diagonal-scan kernel.
 Numerics kept from the JAX package: the conv tail and the SSM state are
 f32; Δ goes through softplus in f32; A = -exp(a_log); chunks of
 L = min(chunk, S) are identity-padded (Δ = 0: log-decay 0 and zero input).
-Under an engine mesh the whole sequence is one chunk, one scan that the
-engine time-shards, as in JAX.
+With grad enabled each chunk step is checkpointed on its own (JAX's
+``@jax.checkpoint chunk_step``): its (B, L, d_inner, d_state) operands are
+rebuilt in the backward.  ``MambaCfg.scan_impl="float"`` is the paper's
+conventional baseline: decays exp'd up front and an associative scan of
+floats, no engine call.  Under an engine mesh the ``goom`` path makes the
+whole sequence one scan that the engine time-shards, as in JAX; under the
+launcher's rules (``sharding.layout.time_shards``) each rank builds and
+scans its own time shard.
 
 **RWKV6** (``Rwkv6Cfg``, the time mix, ``rwkv6_scan``, the channel mix,
 ``rwkv6_init_state``): token shift, the data-dependent lerp (ddlerp) of
@@ -47,29 +53,50 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import MambaCfg, Rwkv6Cfg
 from ..core import engine
 from ..core.goom import Goom, from_goom, nonzero_sign, safe_abs, safe_log
-from .common import Dense, normal_param
+from ..core.scan import associative_scan
+from ..sharding.layout import TimeShards, time_shards
+from ..sharding.rules import constrain
+from .common import Dense, normal_param, with_axes
 from .norms import RMSNorm
 
 __all__ = ["MambaCfg", "Mamba", "segment_states", "mamba_init_state", "Rwkv6Cfg",
            "Rwkv6TimeMix", "Rwkv6ChannelMix", "rwkv6_scan", "rwkv6_init_state"]
 
 
-def segment_states(log_a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def segment_states(log_a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor],
+                   impl: str = "goom", *, layout: Optional[TimeShards] = None
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """All states of h_t = exp(log_a_t)·h_{t-1} + b_t within one chunk.
 
-    log_a, b (L, ...); h0 (...).  The decays are log-native (sign +1); the
-    inputs and the state enter through safe log and leave through
-    ``from_goom``.  Returns (states (L, ...), final state (...))."""
-    a_g = Goom(log_a, torch.ones_like(log_a))
-    b_g = Goom(safe_log(safe_abs(b)), nonzero_sign(b))
-    x0_g = Goom(safe_log(safe_abs(h0)), nonzero_sign(h0))
-    states_g, carry_g = engine.diagonal_scan_carry(a_g, b_g, x0_g)
-    return from_goom(states_g), from_goom(carry_g)
+    log_a, b (L, ...); h0 (...).  ``impl="goom"``: the decays are log-native
+    (sign +1), the inputs and the state enter through safe log and leave
+    through ``from_goom``, and the scan is an engine call.  ``impl="float"``:
+    the conventional baseline, the decays exp'd up front and an associative
+    scan of (a, b) bracketed as ``jax.lax.associative_scan``.  Returns
+    (states (L, ...), final state (...)).  With ``layout`` (goom only),
+    log_a and b are this rank's time shard (L/P, B, ...), the scan starts
+    from zero and the states returned are the shard's, with no final state."""
+    if impl == "goom":
+        a_g = Goom(log_a, torch.ones_like(log_a))
+        b_g = Goom(safe_log(safe_abs(b)), nonzero_sign(b))
+        if layout is not None:
+            states_g = engine.diagonal_scan(layout.wrap(a_g, batch=1), layout.wrap(b_g, batch=1))
+            return from_goom(layout.local(states_g)), None
+        x0_g = Goom(safe_log(safe_abs(h0)), nonzero_sign(h0))
+        states_g, carry_g = engine.diagonal_scan_carry(a_g, b_g, x0_g)
+        return from_goom(states_g), from_goom(carry_g)
+
+    def combine(e, l):
+        return l[0] * e[0], l[0] * e[1] + l[1]
+
+    a_star, b_star = associative_scan(combine, (torch.exp(log_a), b))
+    states = a_star * h0[None] + b_star
+    return states, states[-1]
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -83,23 +110,25 @@ class Mamba(nn.Module):
     def __init__(self, cfg: MambaCfg, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if cfg.scan_impl not in ("goom", "float"):
+            raise ValueError(f"unknown scan_impl {cfg.scan_impl!r}; 'goom' or 'float'")
         self.cfg = cfg
         d, di, n, r = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.rank
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.in_proj = Dense(d, (2 * di,), **kw)
-        self.conv_w = normal_param((cfg.d_conv, di), 0.02, **kw)
-        self.conv_b = nn.Parameter(torch.zeros(di, device=device, dtype=dtype))
-        self.x_proj = Dense(di, (r + 2 * n,), **kw)
-        self.dt_proj = Dense(r, (di,), **kw)
+        self.conv_w = normal_param((cfg.d_conv, di), 0.02, axes=("conv", "mlp"), **kw)
+        self.conv_b = with_axes(torch.zeros(di, device=device, dtype=dtype), ("mlp",))
+        self.x_proj = Dense(di, (r + 2 * n,), in_axis="mlp", out_axes=(None,), **kw)
+        self.dt_proj = Dense(r, (di,), in_axis=None, **kw)
         # Δ's bias: softplus⁻¹ of a log-uniform draw in [1e-3, 1e-1]
         u = torch.rand(di, generator=generator, device=device)
         dt0 = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
-        self.dt_proj.b = nn.Parameter(torch.log(torch.expm1(dt0)).to(dtype))
+        self.dt_proj.b = with_axes(torch.log(torch.expm1(dt0)).to(dtype), ("mlp",))
         # S4D-real init: A[c, s] = -(s + 1)
         a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
-        self.a_log = nn.Parameter(torch.log(a).expand(di, n).to(dtype).clone())
-        self.d_skip = nn.Parameter(torch.ones(di, device=device, dtype=dtype))
-        self.out_proj = Dense(di, (d,), **kw)
+        self.a_log = with_axes(torch.log(a).expand(di, n).to(dtype).clone(), ("mlp", "state"))
+        self.d_skip = with_axes(torch.ones(di, device=device, dtype=dtype), ("mlp",))
+        self.out_proj = Dense(di, (d,), in_axis="mlp", out_axes=("embed",), **kw)
 
     def forward(self, x: torch.Tensor, *, state: Optional[Dict[str, torch.Tensor]] = None,
                 compute_dtype: torch.dtype = torch.bfloat16):
@@ -109,6 +138,7 @@ class Mamba(nn.Module):
         r, n, k = cfg.rank, cfg.d_state, cfg.d_conv
 
         xi, z = self.in_proj(x, compute_dtype=cd).chunk(2, dim=-1)   # (B,S,di)
+        xi = constrain(xi, "batch", "act_seq", "act_mlp")
 
         # depthwise causal conv over time, kernel d_conv
         if state is not None:
@@ -130,21 +160,42 @@ class Mamba(nn.Module):
              else state["ssm"])
 
         # under an engine mesh a loop of chunks would serialise the ranks:
-        # hand the engine one full-length scan, which it time-shards (as
-        # JAX's ssm.py:375-389)
-        L = s if engine.active_seq_shards() > 1 else min(cfg.chunk, s)
-        pad = -s % L
+        # the goom path hands the engine one full-length scan, which it
+        # time-shards; the float baseline scans locally and keeps the chunk
+        # loop (as JAX's ssm.py:375-389)
+        goom = cfg.scan_impl == "goom"
         dtx = dt * xc.float()
-        if pad:
-            dt, dtx, b_in, c_in = (F.pad(t, (0, 0, 0, pad)) for t in (dt, dtx, b_in, c_in))
-        ys = []
-        for c0 in range(0, s + pad, L):
-            sl = slice(c0, c0 + L)
-            la = dt[:, sl, :, None] * a                             # (B,L,di,n)
-            bb = dtx[:, sl, :, None] * b_in[:, sl, None, :]         # (B,L,di,n)
-            states, h = segment_states(la.transpose(0, 1), bb.transpose(0, 1), h)
-            ys.append(torch.einsum("lbdn,bln->bld", states, c_in[:, sl]))
-        y = torch.cat(ys, dim=1)[:, :s]
+        layout = time_shards() if goom and state is None else None
+        if layout is not None:
+            # each rank builds its time shard's (B, S/P, di, n) operands only
+            # and gets its shard's states back; the outputs are gathered
+            dt, dtx, b_in, c_in = (layout.shard(t, 1) for t in (dt, dtx, b_in, c_in))
+            la = dt[..., None] * layout.replicated(a)              # (B,S/P,di,n)
+            bb = dtx[..., None] * b_in[:, :, None, :]
+            states, _ = segment_states(la.transpose(0, 1), bb.transpose(0, 1), None,
+                                       layout=layout)
+            y = layout.gather(torch.einsum("lbdn,bln->bld", states, c_in), 1, s)
+        else:
+            L = s if goom and engine.active_seq_shards() > 1 else min(cfg.chunk, s)
+            pad = -s % L
+            if pad:
+                dt, dtx, b_in, c_in = (F.pad(t, (0, 0, 0, pad))
+                                       for t in (dt, dtx, b_in, c_in))
+            ys = []
+            for c0 in range(0, s + pad, L):
+                sl = slice(c0, c0 + L)
+                if torch.is_grad_enabled():
+                    # nested remat: the chunk's (B,L,di,n) operands and scan
+                    # intermediates are rebuilt in the backward (JAX's
+                    # @jax.checkpoint chunk_step)
+                    h, yc = checkpoint(_chunk_step, dt[:, sl], dtx[:, sl], b_in[:, sl],
+                                       c_in[:, sl], a, h, cfg.scan_impl,
+                                       use_reentrant=False)
+                else:
+                    h, yc = _chunk_step(dt[:, sl], dtx[:, sl], b_in[:, sl], c_in[:, sl],
+                                        a, h, cfg.scan_impl)
+                ys.append(yc)
+            y = torch.cat(ys, dim=1)[:, :s]
 
         y = y + xc.float() * self.d_skip.float()
         y = y.to(cd) * F.silu(z)
@@ -154,6 +205,15 @@ class Mamba(nn.Module):
         if state is not None:
             new_state = {"conv": conv_in[:, -(k - 1):].float(), "ssm": h}
         return out, new_state
+
+
+def _chunk_step(dt, dtx, b_in, c_in, a, h, impl: str):
+    """One chunk of Mamba's scan: Δ (B,L,di), Δ·x (B,L,di), B and C (B,L,n),
+    A (di, n), the entering state h (B,di,n) → (state after, y (B,L,di))."""
+    la = dt[..., None] * a                             # (B,L,di,n), Δ·A: log-native
+    bb = dtx[..., None] * b_in[:, :, None, :]          # (B,L,di,n)
+    states, h = segment_states(la.transpose(0, 1), bb.transpose(0, 1), h, impl)
+    return h, torch.einsum("lbdn,bln->bld", states, c_in)
 
 
 def mamba_init_state(batch: int, cfg: MambaCfg, *, device) -> Dict[str, torch.Tensor]:
@@ -183,9 +243,9 @@ class _Lora(nn.Module):
     def __init__(self, d: int, rank: int, out: int, *, device=None,
                  dtype=torch.float32, generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.a = normal_param((d, rank), 0.01, device=device, dtype=dtype,
-                              generator=generator)
-        self.b = nn.Parameter(torch.zeros(rank, out, device=device, dtype=dtype))
+        self.a = normal_param((d, rank), 0.01, axes=("embed", None), device=device,
+                              dtype=dtype, generator=generator)
+        self.b = with_axes(torch.zeros(rank, out, device=device, dtype=dtype), (None, "embed"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.tanh(x @ self.a.to(x.dtype)) @ self.b.to(x.dtype)
@@ -211,16 +271,19 @@ class Rwkv6TimeMix(nn.Module):
         gk = dict(kw, generator=generator)
 
         def half():
-            return nn.Parameter(torch.full((d,), 0.5, **kw))
+            return with_axes(torch.full((d,), 0.5, **kw), ("embed",))
 
         self.mu_x = half()
         self.mu = nn.ParameterDict({m: half() for m in _MIX})
         self.lora = nn.ModuleDict({m: _Lora(d, cfg.lora_mix, d, **gk) for m in _MIX})
         u = torch.rand(d, generator=generator, device=device)
-        self.decay_base = nn.Parameter((u - 5.0).to(dtype))
+        self.decay_base = with_axes((u - 5.0).to(dtype), ("embed",))
         self.decay_lora = _Lora(d, cfg.lora_decay, d, **gk)
-        self.bonus = normal_param((cfg.n_heads, cfg.head_dim), 0.1, **gk)
-        self.r, self.k, self.v, self.g, self.out = (Dense(d, (d,), **gk) for _ in range(5))
+        self.bonus = normal_param((cfg.n_heads, cfg.head_dim), 0.1, axes=("heads", "head_dim"),
+                                  **gk)
+        self.r, self.k, self.v, self.g = (Dense(d, (d,), in_axis="qkv_embed",
+                                                out_axes=("heads",), **gk) for _ in range(4))
+        self.out = Dense(d, (d,), in_axis="heads", out_axes=("embed",), **gk)
         self.ln_x = RMSNorm(d, **kw)
 
     def forward(self, x: torch.Tensor, *, state: Optional[Dict[str, torch.Tensor]] = None,
@@ -315,11 +378,11 @@ class Rwkv6ChannelMix(nn.Module):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
         kw = dict(device=device, dtype=dtype)
-        self.mu_k = nn.Parameter(torch.full((d,), 0.5, **kw))
-        self.mu_r = nn.Parameter(torch.full((d,), 0.5, **kw))
+        self.mu_k = with_axes(torch.full((d,), 0.5, **kw), ("embed",))
+        self.mu_r = with_axes(torch.full((d,), 0.5, **kw), ("embed",))
         self.k = Dense(d, (f,), generator=generator, **kw)
-        self.v = Dense(f, (d,), generator=generator, **kw)
-        self.r = Dense(d, (d,), generator=generator, **kw)
+        self.v = Dense(f, (d,), generator=generator, in_axis="mlp", out_axes=("embed",), **kw)
+        self.r = Dense(d, (d,), generator=generator, out_axes=(None,), **kw)
 
     def forward(self, x: torch.Tensor, *, x_prev: Optional[torch.Tensor] = None,
                 compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -327,7 +390,9 @@ class Rwkv6ChannelMix(nn.Module):
         dx = _token_shift(x, x_prev) - x
         xk = x + dx * self.mu_k.to(x.dtype)
         xr = x + dx * self.mu_r.to(x.dtype)
-        kv = self.v(torch.relu(self.k(xk, compute_dtype=cd)).square(), compute_dtype=cd)
+        k = constrain(torch.relu(self.k(xk, compute_dtype=cd)).square(),
+                      "batch", "act_seq", "act_mlp")
+        kv = self.v(k, compute_dtype=cd)
         return torch.sigmoid(self.r(xr, compute_dtype=cd)) * kv
 
 

@@ -5,11 +5,16 @@ from .rules import (
     DEFAULT_RULES,
     MULTIPOD_RULES,
     AxisRules,
+    constrain,
     current_rules,
+    distribute_model,
     logical_to_spec,
+    param_placements,
+    param_specs,
     make_rules,
     use_rules,
 )
 
 __all__ = ["NamedMesh", "as_named_mesh", "AxisRules", "DEFAULT_RULES", "MULTIPOD_RULES",
-           "current_rules", "logical_to_spec", "make_rules", "use_rules"]
+           "constrain", "current_rules", "distribute_model", "logical_to_spec",
+           "make_rules", "param_placements", "param_specs", "use_rules"]

@@ -18,9 +18,16 @@ Mesh axes:
   * multi-pod:   ("pod", "data", "model")     = (2, 16, 16)
 
 The engine reads ``scan_seq`` (sequence-sharded GOOM scans, opt-in) and
-``scan_batch`` from the active rules (``core/engine.py``).  JAX's
-``constrain`` and ``param_shardings`` (activation constraints and parameter
-layouts) wait for DTensor layouts.
+``scan_batch`` from the active rules (``core/engine.py``).
+
+Layouts (``sharding/layout.py`` turns a spec into DTensor placements):
+``param_placements(rules, model)`` is JAX's ``param_shardings``, a spec per
+parameter from its logical axes without ``allow_uneven`` (an indivisible
+axis drops out); ``distribute_model`` places the parameters so.
+``constrain(x, *names)`` is JAX's activation constraint: without active
+rules, or on a plain tensor, it returns ``x``; on a DTensor it
+redistributes to the spec *with* ``allow_uneven``.  The single-process
+paths (serving and its CUDA graphs among them) see plain tensors only.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ MeshAxes = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[MeshAxes, ...]
 
 __all__ = ["AxisRules", "DEFAULT_RULES", "MULTIPOD_RULES", "make_rules", "use_rules",
-           "current_rules", "logical_to_spec"]
+           "current_rules", "logical_to_spec", "constrain", "param_specs",
+           "param_placements", "distribute_model"]
 
 
 class AxisRules:
@@ -165,3 +173,63 @@ def use_rules(rules: Optional[AxisRules]):
 
 def logical_to_spec(rules: AxisRules, shape, names) -> Spec:
     return rules.spec(shape, names)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (without importing torch.distributed)."""
+    return type(x).__name__ == "DTensor"
+
+
+def constrain(x, *names: Optional[str]):
+    """Redistribute a DTensor to the active rules' spec for ``names`` (uneven
+    splits allowed); anything else, and everything without rules, as it is."""
+    rules = current_rules()
+    if rules is None or not is_dtensor(x):
+        return x
+    from .layout import placements
+
+    spec = rules.spec(x.shape, names, allow_uneven=True)
+    return x.redistribute(x.device_mesh, placements(rules.mesh.axis_names, spec))
+
+
+def param_specs(rules: AxisRules, model) -> Dict[str, Spec]:
+    """Each parameter's spec (state-dict name -> spec) from its logical axes
+    (``model.param_axes()``), indivisible axes dropped: JAX's
+    ``param_shardings``."""
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    return {n: rules.spec(shapes[n], axes) for n, axes in model.param_axes().items()}
+
+
+def param_placements(rules: AxisRules, model) -> Dict[str, tuple]:
+    """Each parameter's DTensor placements over ``rules.mesh``."""
+    from .layout import placements
+
+    return {n: placements(rules.mesh.axis_names, spec)
+            for n, spec in param_specs(rules, model).items()}
+
+
+def distribute_model(model, rules: AxisRules):
+    """Replace every parameter of ``model`` by a DTensor laid out by
+    :func:`param_placements` over ``rules.mesh``'s ``DeviceMesh`` (each rank
+    keeps its own block of the values it holds; every rank must hold the
+    same values, as a model built from one seed does).  Returns ``model``."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = rules.mesh.device_mesh
+    if mesh is None:
+        raise ValueError("distribute_model needs a NamedMesh over a DeviceMesh")
+    pl = param_placements(rules, model)
+    for name, p in list(model.named_parameters()):
+        owner, leaf = _owner(model, name)
+        dt = distribute_tensor(p.detach(), mesh, pl[name])
+        setattr(owner, leaf, torch.nn.Parameter(dt, requires_grad=p.requires_grad))
+    return model
+
+
+def _owner(model, name: str):
+    *path, leaf = name.split(".")
+    mod = model
+    for k in path:
+        mod = getattr(mod, k) if not k.isdigit() else mod[int(k)]
+    return mod, leaf

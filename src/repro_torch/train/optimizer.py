@@ -12,7 +12,9 @@ with c_i = 1 - b_i^step in f32, the step counted from 1 and lr = schedule(step).
 A state holds f32 moments keyed like the parameters and the step as an int.
 Parameters, gradients and moments are dicts keyed by the port's parameter
 names, updated in place with ``torch._foreach_*`` (a few launches for all
-leaves instead of a dozen a leaf).
+leaves instead of a dozen a leaf).  DTensor parameters (``sharding.
+distribute_model``) have moments laid out as they are, and the update,
+elementwise, runs on each rank's blocks; the clip's norm sums over shards.
 
 The decay mask is JAX's: a leaf decays unless its lower-cased JAX tree path
 (``convert.jax_path``, never the port's own name) holds one of
@@ -31,6 +33,7 @@ import torch
 
 from ..configs.base import LMConfig
 from .. import convert
+from ..sharding.rules import is_dtensor
 
 Schedule = Callable[[int], float]
 NO_DECAY = ("norm", "bias", "scale", "mu", "bonus")
@@ -70,10 +73,23 @@ def constant_schedule(lr: float) -> Schedule:
 # ---------------------------------------------------------------------------
 # gradient transforms
 # ---------------------------------------------------------------------------
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's block on this rank (its storage: in-place updates reach
+    the DTensor), a plain tensor as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every entry, in f32 (a 0-d tensor)."""
-    norms = torch._foreach_norm([x.float() for x in tensors])
-    return torch.stack(norms).square().sum().sqrt()
+    """sqrt of the sum of squares of every entry, in f32 (a 0-d tensor).  A
+    DTensor's sum of squares is reduced over its shards (every rank gets
+    the whole norm)."""
+    plain = [x.float() for x in tensors if not is_dtensor(x)]
+    total = (torch.stack(torch._foreach_norm(plain)).square().sum() if plain
+             else torch.zeros((), device=tensors[0].device))
+    for x in tensors:
+        if is_dtensor(x):
+            total = total + x.float().square().sum().full_tensor()
+    return total.sqrt()
 
 
 def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
@@ -82,7 +98,7 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
     and in place; returns (grads, norm before the clip)."""
     norm = global_norm(list(grads.values()))
     scale = (max_norm / norm.clamp_min(1e-9)).clamp_max(1.0)
-    torch._foreach_mul_(list(grads.values()), scale)
+    torch._foreach_mul_([_local(g) for g in grads.values()], scale)
     return grads, norm
 
 
@@ -108,6 +124,7 @@ def decompress_int8(qgrads: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 def _step_params(params: Dict[str, torch.Tensor], delta: Dict[str, torch.Tensor],
                  decay: Dict[str, bool], weight_decay: float, lr: float) -> None:
     """p ← p - lr·(Δ [+ wd·p]) in f32, in place (Δ is overwritten)."""
+    params = {n: _local(p) for n, p in params.items()}
     names = list(params)
     dec = [n for n in names if decay[n]]
     if dec:
@@ -152,9 +169,9 @@ class AdamW:
         step = state["step"] + 1
         lr = self.schedule(step)
         names = list(params)
-        g = [grads[n].float() for n in names]
-        mu = [state["mu"][n] for n in names]
-        nu = [state["nu"][n] for n in names]
+        g = [_local(grads[n]).float() for n in names]
+        mu = [_local(state["mu"][n]) for n in names]
+        nu = [_local(state["nu"][n]) for n in names]
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, g, alpha=1 - self.b1)
         torch._foreach_mul_(nu, self.b2)
@@ -195,8 +212,8 @@ class Lion:
         step = state["step"] + 1
         lr = self.schedule(step)
         names = list(params)
-        g = [grads[n].float() for n in names]
-        mu = [state["mu"][n] for n in names]
+        g = [_local(grads[n]).float() for n in names]
+        mu = [_local(state["mu"][n]) for n in names]
         direction = torch._foreach_mul(mu, self.b1)
         torch._foreach_add_(direction, g, alpha=1 - self.b1)
         torch._foreach_sign_(direction)

@@ -1,13 +1,28 @@
 """The train step: forward and backward, the global-norm clip, the
 optimizer update; with gradient accumulation over microbatches.
 
-The port of ``repro/train/train_loop.py`` without parameter sharding or bf16
-parameter casting.  Distribution is data parallel over ``data_group`` (a
-``torch.distributed`` group whose ranks hold the same parameters and each a
-slice of the global batch): the gradients are averaged over it before the
-clip.  Sequence sharding needs nothing here: the engine's sharded scans
-leave every rank of the seq group with the whole gradient
-(``kernels/sharded.py``).  ``grad_compression="int8"`` rounds the averaged
+The port of ``repro/train/train_loop.py`` without bf16 parameter casting.
+Distribution takes one of two forms:
+
+  * data parallel over ``data_group`` (a ``torch.distributed`` group whose
+    ranks hold the same plain parameters and each a slice of the global
+    batch): the gradients are averaged over it before the clip;
+  * parameters laid out as DTensors (``sharding.distribute_model``: JAX's
+    ``param_shardings``, FSDP over the data axes and the model axis's
+    splits): a step gathers every parameter whole
+    (``redistribute`` to ``Replicate``) and runs the model on the gathered
+    tensors (``torch.nn.utils.stateless``), each rank on its slice of the
+    batch.  DTensor's autograd of the gather reduce-scatters the gradients
+    over the batch axes (``Partial`` there), and the step divides by their
+    size: the mean, once, with no hand all-reduce.  The moments follow
+    their parameters (JAX's ``state_shardings``), the global-norm clip sums
+    over every shard, and the update runs on each rank's blocks.  The
+    compute along the model axis is the same on every rank of it (no
+    activation is split over heads or the MLP's width; see PERF.md).
+
+Sequence sharding needs nothing here: under the launcher's rules the
+recurrent layers time-shard their scans (``sharding/layout.py``) and sum
+the gradients of what they read over the seq group.  ``grad_compression="int8"`` rounds the averaged
 gradients through ``compress_int8`` / ``decompress_int8``, as the JAX step
 does after GSPMD's reduction.  ``make_train_step`` returns
 ``train_step(state, batch) -> (state, metrics)``; ``state.params`` are the
@@ -36,6 +51,7 @@ import torch
 from ..configs.base import LMConfig
 from ..convert import params_from_jax, params_to_jax
 from ..models.model import DecoderLM
+from ..sharding.rules import is_dtensor
 from .optimizer import clip_by_global_norm, compress_int8, decompress_int8
 
 Batch = Dict[str, torch.Tensor]
@@ -86,9 +102,33 @@ def _metrics_over(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Te
     return {k: v if k == "tokens" else v / n for k, v in zip(names, tot)}
 
 
+def _batch_dims(mesh_dim_names, rules) -> Tuple[int, ...]:
+    """The mesh dims the rules' ``batch`` axis spans (the data axes)."""
+    return tuple(i for i, a in enumerate(mesh_dim_names) if a in rules.mesh_axes_for("batch"))
+
+
+def _gather(p, batch_dims: Tuple[int, ...]) -> torch.Tensor:
+    """A DTensor parameter whole, as a plain tensor: its gradient is this
+    rank's part of a sum over the batch dims (``Partial``), the same on
+    every rank of the others."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    n = p.device_mesh.ndim
+    return p.redistribute(p.device_mesh, [Replicate()] * n).to_local(
+        grad_placements=[Partial() if i in batch_dims else Replicate() for i in range(n)])
+
+
+def _sum_over_dims(x: torch.Tensor, mesh, dims: Tuple[int, ...]) -> torch.Tensor:
+    """The sum of every rank's ``x`` over the mesh dims ``dims``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    pl = [Partial() if i in dims else Replicate() for i in range(mesh.ndim)]
+    return DTensor.from_local(x, mesh, pl, run_check=False).full_tensor()
+
+
 def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
                     microbatches: int = 1, grad_compression: Optional[str] = None,
-                    data_group=None
+                    data_group=None, rules=None
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
     """The train step over ``batch`` = {tokens, labels}, both (B, S) with B
     a multiple of ``microbatches``; any other key (a frontend's
@@ -98,15 +138,37 @@ def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
     slice), ``grad_norm`` before the clip and ``lr = schedule(step+1)``, the
     rate the update used.  ``data_group``: average the gradients over its
     ranks, and the metrics (``tokens`` summed); ``grad_compression``: None or
-    ``"int8"``."""
+    ``"int8"``.  With DTensor parameters, ``rules`` (the ones they were laid
+    out by) name the batch axes the gradients and metrics are reduced over;
+    ``data_group`` must then be None."""
     if grad_compression not in (None, "int8"):
         raise ValueError(f"unknown grad_compression {grad_compression!r}; None or 'int8'")
     decay = optimizer.decay_mask(model.cfg, [n for n, _ in model.named_parameters()])
+    sharded = any(is_dtensor(p) for p in model.parameters())
+    if sharded:
+        if rules is None or data_group is not None:
+            raise ValueError("DTensor parameters take the rules they were laid out by "
+                             "and no data_group (their gather reduces the gradients)")
+        mesh = next(iter(model.parameters())).device_mesh
+        batch_dims = _batch_dims(mesh.mesh_dim_names, rules)
+        n_batch = 1
+        for i in batch_dims:
+            n_batch *= mesh.size(i)
 
     def grads_of(params, tokens, labels, **kw):
-        loss, metrics = model.loss(tokens, labels, **kw)
         names = list(params)
-        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        if not sharded:
+            loss, metrics = model.loss(tokens, labels, **kw)
+            grads = torch.autograd.grad(loss, [params[n] for n in names])
+        else:
+            from torch.nn.utils.stateless import _reparametrize_module
+
+            whole = {n: _gather(params[n], batch_dims) for n in names}
+            # the backward stays inside: remat re-runs the forward on `whole`
+            with _reparametrize_module(model, whole):
+                loss, metrics = model.loss(tokens, labels, **kw)
+                grads = torch.autograd.grad(loss, [params[n] for n in names])
+            grads = [g / n_batch for g in grads]
         return dict(zip(names, grads)), {k: v.detach() for k, v in metrics.items()}
 
     def compute_grads(params, batch):
@@ -137,9 +199,15 @@ def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
         if data_group is not None:
             grads = mean_over(grads, data_group)
             metrics = _metrics_over(metrics, data_group)
+        if sharded and n_batch > 1:
+            names = list(metrics)
+            tot = _sum_over_dims(torch.stack([metrics[k].float() for k in names]), mesh,
+                                 batch_dims)
+            metrics = {k: v if k == "tokens" else v / n_batch for k, v in zip(names, tot)}
         if grad_compression == "int8":
-            grads = {n: g.to(state.params[n].dtype)
-                     for n, g in decompress_int8(compress_int8(grads)).items()}
+            whole = {n: g.full_tensor() if is_dtensor(g) else g for n, g in grads.items()}
+            grads = {n: _like(g.to(state.params[n].dtype), grads[n])
+                     for n, g in decompress_int8(compress_int8(whole)).items()}
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         params, opt_state = optimizer.update(grads, state.opt_state, state.params, decay)
         metrics = dict(metrics, grad_norm=gnorm, lr=optimizer.schedule(state.step + 1))
@@ -148,24 +216,46 @@ def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
     return train_step
 
 
+def _like(full: torch.Tensor, ref) -> torch.Tensor:
+    """``full`` laid out as ``ref`` (this rank's block of it, no collective)
+    when ``ref`` is a DTensor, else ``full``."""
+    if not is_dtensor(ref):
+        return full
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(full.to(ref.device), ref.device_mesh, ref.placements,
+                             src_data_rank=None)
+
+
+def _whole(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {n: v.full_tensor() if is_dtensor(v) else v for n, v in tree.items()}
+
+
 def state_tree(cfg: LMConfig, state: TrainState) -> Dict[str, Any]:
-    """The JAX TrainState's tree of ``state`` (without ``rng``), as numpy."""
-    opt = {k: (np.asarray(v, np.int32) if k == "step" else params_to_jax(cfg, v))
+    """The JAX TrainState's tree of ``state`` (without ``rng``), as numpy.
+    DTensor leaves are gathered whole first: every rank of their mesh must
+    call it (one of them then writes the checkpoint)."""
+    opt = {k: (np.asarray(v, np.int32) if k == "step" else params_to_jax(cfg, _whole(v)))
            for k, v in state.opt_state.items()}
-    return {"params": params_to_jax(cfg, state.params), "opt_state": opt,
+    return {"params": params_to_jax(cfg, _whole(state.params)), "opt_state": opt,
             "step": np.asarray(state.step, np.int32)}
 
 
 @torch.no_grad()
 def load_state_tree(cfg: LMConfig, state: TrainState, tree: Dict[str, Any]) -> TrainState:
     """Copy a JAX-layout tree (``state_tree``'s, or a JAX checkpoint's) into
-    ``state``'s tensors; returns the state at the tree's step."""
+    ``state``'s tensors (a DTensor's block from the whole leaf, so a
+    checkpoint restores at another rank count, as JAX's elastic restart
+    reshards); returns the state at the tree's step."""
     def load(dst: Dict[str, torch.Tensor], src):
         for name, v in params_from_jax(cfg, src).items():
             if tuple(v.shape) != tuple(dst[name].shape):
                 raise ValueError(f"{name}: checkpoint shape {tuple(v.shape)} != "
                                  f"{tuple(dst[name].shape)}")
-            dst[name].copy_(v)
+            if is_dtensor(dst[name]):   # this rank's block, at any rank count
+                dst[name].to_local().copy_(_like(v, dst[name]).to_local())
+            else:
+                dst[name].copy_(v)
 
     load(state.params, tree["params"])
     opt = dict(state.opt_state)

@@ -629,7 +629,7 @@ def test_diagonal_scan_kernel_raises_on_what_it_does_not_take(card):
 # ---------------------------------------------------------------------------
 # training on the card
 # ---------------------------------------------------------------------------
-def _train_model(card, variant, smoke, compute_dtype=None):
+def _train_model(card, variant, smoke, compute_dtype=None, remat=None):
     import dataclasses
 
     from repro_torch import DecoderLM, get_config
@@ -638,6 +638,8 @@ def _train_model(card, variant, smoke, compute_dtype=None):
     cfg = with_scan_variant(get_config("goom-rnn-124m", smoke=smoke), variant)
     if compute_dtype is not None:
         cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
     return cfg, DecoderLM(cfg, device=card,
                           generator=torch.Generator(device=card).manual_seed(0))
 
@@ -661,15 +663,17 @@ def _launch_counts():
 FULL_WIDTH_LAUNCHES = {"shared_a": (360, 0, 0), "generic": (24, 24, 0)}
 
 
+@pytest.mark.parametrize("remat", ["none", "full"])
 @pytest.mark.parametrize("variant", sorted(FULL_WIDTH_LAUNCHES))
-def test_full_width_train_step_launches_the_forwards_kernels(card, variant):
+def test_full_width_train_step_launches_the_forwards_kernels(card, variant, remat):
     """One train step of goom-rnn-124m at full width (B=16, S=128, bf16
     compute): a finite loss and gradient norm, and the step launches
-    exactly the forward's kernels (the backward is autograd of the plain
-    versions and launches none)."""
+    exactly the forward's kernels under ``remat="none"`` (the backward is
+    autograd of the plain versions and launches none), twice them under
+    ``"full"`` (the backward re-runs each period's forward)."""
     from repro_torch.train import AdamW, cosine_schedule, init_train_state, make_train_step
 
-    cfg, model = _train_model(card, variant, smoke=False)
+    cfg, model = _train_model(card, variant, smoke=False, remat=remat)
     opt = AdamW(cosine_schedule(3e-3, 20, 200))
     step = make_train_step(model, opt)
     batch = _copy_batch(card, cfg.vocab, 128, 16)
@@ -684,7 +688,9 @@ def test_full_width_train_step_launches_the_forwards_kernels(card, variant):
     before = _launch_counts()
     state, metrics = step(state, batch)
     torch.cuda.synchronize()
-    assert tuple(x - y for x, y in zip(_launch_counts(), before)) == forward
+    runs = 2 if remat == "full" else 1
+    assert tuple(x - y for x, y in zip(_launch_counts(), before)) == \
+        tuple(runs * v for v in forward)
     assert state.step == 1
     assert np.isfinite(float(metrics["loss"])) and np.isfinite(float(metrics["grad_norm"]))
     assert float(metrics["tokens"]) == 16 * 16

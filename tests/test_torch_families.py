@@ -50,9 +50,8 @@ torch.set_num_threads(2)
 F32 = dict(compute_dtype=jnp.float32)
 FAMILIES = ["olmo-1b", "codeqwen1.5-7b", "phi3.5-moe", "mixtral-8x7b", "glm4-9b",
             "gemma3-1b"]
-# JAX fields the port leaves out: flash-attention tiles, remat, Mamba's
-# float baseline switch
-JAX_ONLY = {"block_q", "block_kv", "remat", "scan_impl"}
+# JAX fields the port leaves out: the flash-attention tiles
+JAX_ONLY = {"block_q", "block_kv"}
 
 
 def _close(got, want, atol=1e-5):
