@@ -63,15 +63,24 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
   5. train    — train goom-rnn-124m at full width (f32 weights, bf16
                 compute) in ``shared_a`` and ``generic`` through
                 ``make_train_step``: Copy-Memory, B=16, S=128, AdamW at a
-                cosine lr of 3e-3 with 20 warm-up steps, 10 steps with finite
-                losses, launches equal to the forward's engine calls (the
-                backward, autograd of the plain versions, launches no
-                kernel); forward, backward and optimizer ms by CUDA events,
-                one step profiled (device busy, idle share, the backward's
-                device ms in the plain versions' autograd), and one f32 step
-                on the kernels held to the same step under the plain
-                versions; then ``python -m repro_torch.launch.train`` at full
-                width: a step, a checkpoint, a restart that resumes;
+                cosine lr of 3e-3 with 20 warm-up steps, 3 steps with finite
+                losses under ``remat="none"``, launches equal to the
+                forward's engine calls (the backward, autograd of the plain
+                versions, launches no kernel); forward, backward and
+                optimizer ms by CUDA events, one step profiled (device busy,
+                idle share, the backward's device ms in the plain versions'
+                autograd), and one f32 step on the kernels held to the same
+                step under the plain versions and to the same step under
+                ``remat="full"``; then each of ``none``, ``full`` and
+                ``dots`` alike from a fresh optimizer state: wall, device
+                busy, peak GiB over the floor allocated at the reset, and
+                launches a step (twice the forward's under remat); then
+                ``python -m repro_torch.launch.train`` at full width: a
+                step, a checkpoint, a restart that resumes;
+  5b. float, layouts — Jamba smoke with Mamba's ``scan_impl="float"``
+                against ``"goom"`` and the CPU; goom-rnn-124m's f32 train
+                step with DTensor parameters on a 1-rank ``DeviceMesh``
+                against the plain path (loss and launches);
   6. experiments — the paper's experiments 1 and 2 on the card: float
                 chains fail, GOOM chains complete, the parallel chain (zero-B
                 kernel) equals a loop of LMME launches; Lyapunov spectra and
@@ -141,21 +150,22 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 those of the algebra; the calls' ms at P = 1, 2, 4;
  13. launcher ranks — ``python -m torch.distributed.run --nproc-per-node 2
                 -m repro_torch.launch.train``: goom-rnn-124m at full width
-                with ``--seq-shards 2 --dist-backend gloo``, 5 bf16 steps,
+                with ``--seq-shards 2 --dist-backend gloo``, 3 bf16 steps,
                 one f32 step against the single-process launcher, and
                 ``--mesh host`` (2, 1) at the smoke width against one
-                process on the full batch;
+                process on the full batch, the three runs at once;
  14. autotune — (last) ``engine.autotune()`` on ``DEFAULT_SHAPES`` and
-                goom-rnn's with-B decode and 64-token chunk: every
-                candidate's ms; the next engine call launches with the
+                goom-rnn's with-B decode and 64-token chunk (twice, the
+                same winner): every candidate's ms (a replayed CUDA graph);
+                the next engine call launches with the
                 cached winner's L, and with no cache with the default L.
                 The run's cache is a file of its own (``AUTOTUNE_CACHE``),
                 deleted after, so no earlier cache moves a launch.
 
 Cut for the run's time (``DEPTH_CUTS``): codeqwen1.5-7b and glm4-9b run 8
 of their layers (their attention runs olmo-1b's code, which runs whole),
-phi3.5-moe and mixtral-8x7b 4, rwkv6-7b 16 of 32, training 10 steps a
-variant; RWKV6's LMME shapes are
+phi3.5-moe and mixtral-8x7b 4, rwkv6-7b 16 of 32, training 3 steps a
+variant (2 a remat setting); RWKV6's LMME shapes are
 timed once a shape, and the scans' odd signed shapes are checked, not
 timed.
 
@@ -1952,7 +1962,9 @@ def _worst(gaps):
 def _train_parity(model, cfg, batch):
     """One f32 step's loss and gradients on the kernels against the same
     under ``use_backend("torch_reference")``, same weights and batch, held to
-    each path's own spread (module constants above)."""
+    each path's own spread (module constants above); and on the kernels
+    under ``remat="full"`` against ``cfg``'s ``"none"``, held to the
+    kernels' spread (``remat_phase`` reports it)."""
     import torch
 
     from repro_torch.core import engine
@@ -1970,8 +1982,13 @@ def _train_parity(model, cfg, batch):
             out[path] = (float(loss.detach()), grads)
         return out
 
-    model.cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     try:
+        model.cfg = dataclasses.replace(f32, remat="full")
+        loss_r, g_r = _grads(model, batch)
+        remat_full = (float(loss_r.detach()), g_r)
+        del loss_r, g_r
+        model.cfg = f32
         at_seed = both()
         with torch.no_grad():   # every weight one f32 ulp up or down
             for p in params.values():
@@ -2002,8 +2019,22 @@ def _train_parity(model, cfg, batch):
           f"{loss_k} vs plain {loss_p}")
     check(worst[1] <= bound, f"train [{variant}]: grad of {worst[0]} on the kernels off "
           f"the plain version's by {worst[1]:.3e} > {bound:.3e}")
+
+    r_gap = abs(remat_full[0] - loss_k) / abs(loss_k)
+    r_worst = _worst(_grad_gaps(remat_full[1], g_k))
+    r_bound = TRAIN_SPREAD_FACTOR * spread["kernels"][1]
+    print(f"remat [{variant}] parity (f32, seed weights, kernels): full loss "
+          f"{remat_full[0]:.6f} vs none {loss_k:.6f} (relative gap {r_gap:.2e}); worst "
+          f"max-normalised grad gap {r_worst[1]:.2e} at {r_worst[0]}; none's spread one ulp "
+          f"apart {spread['kernels'][1]:.2e} at {spread['kernels'][0]}; bound {r_bound:.2e}",
+          flush=True)
+    check(r_gap <= TRAIN_LOSS_RTOL, f"remat [{variant}]: f32 loss full {remat_full[0]} vs "
+          f"none {loss_k}")
+    check(r_worst[1] <= r_bound, f"remat [{variant}]: grad of {r_worst[0]} under full off "
+          f"none's by {r_worst[1]:.3e} > {r_bound:.3e}")
     return dict(loss_gap=loss_gap, grad_err=worst[1], grad_err_at=worst[0],
-                plain_spread=spread["plain"][1], kernel_spread=spread["kernels"][1])
+                plain_spread=spread["plain"][1], kernel_spread=spread["kernels"][1],
+                remat_loss_gap=r_gap, remat_grad_err=r_worst[1])
 
 
 # ---------------------------------------------------------------------------
@@ -2014,29 +2045,47 @@ REMATS = ("none", "full", "dots")
 REMAT_STEPS = 2
 
 
-def remat_phase(cfg, model, none):
+def _busy_ms(fn):
+    """(device ms, kernels) of one call of ``fn`` from a trace of the card's
+    activity alone: goom-rnn-124m's train step (29.8k kernels) traced in
+    5.3 s this way against 15.6 s with the host's ops (``_profiled_device``),
+    busy ms within 0.2 % (``tools/train_card_probe.py``; NVIDIA H100 80GB
+    HBM3, 700.00 W).  A trace that kept no device event is taken again, as
+    ``_profiled`` does, up to PROFILE_TRIES in all."""
+    import torch
+    from torch.autograd import DeviceType
+
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    check(events, "the profiler saw no device work; device times not measured")
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3, len(events)
+
+
+def remat_phase(cfg, model, train):
     """goom-rnn-124m's train step at full width (B=16, S=128, bf16) under
-    ``full`` and ``dots`` beside ``none`` (``train_phase``'s result on the
-    same model, ``none``): wall ms a step (median of REMAT_STEPS), one
-    step's device-busy ms (profiler), the peak GiB over the timed steps
-    (``max_memory_allocated`` after a reset) and the kernels' launches a
-    step (``full`` and ``dots`` re-run the forward's GOOM kernels in the
-    backward: twice ``none``'s).  Then f32 gradients under ``full`` against
-    ``none`` on the same weights and batch, within TRAIN_SPREAD_FACTOR times
-    ``none``'s own spread (weights one f32 ulp apart), the train phase's rule."""
+    ``none``, ``full`` and ``dots``, each alike from a fresh optimizer state:
+    one warm-up step, then the memory allocated after ``free_memory`` and a
+    peak reset (the floor: weights and state), the wall ms a step (median of
+    REMAT_STEPS), the peak GiB over those steps (``max_memory_allocated``)
+    and the kernels' launches a step (``full`` and ``dots`` re-run the
+    forward's GOOM kernels in the backward: twice ``none``'s), then one
+    step's device-busy ms (``_busy_ms``).  The f32 gradients under ``full``
+    against ``none`` were held in ``train_phase`` (``train``)."""
     import torch
 
     from repro_torch.train import make_train_step
 
     variant = path_label(cfg)
-    out = {"none": dict(step_ms=none["step_ms"], busy_ms=none["busy_ms"],
-                        kernels=none["kernels"], peak_gib=none["peak_bytes"] / 2**30,
-                        per_step=none["per_step"], launches=none["launches"],
-                        how=f"mean of {TRAIN_STEPS} in train_phase; busy summed over its "
-                            "parts' profiles")}
+    out = {}
     batches = list(_train_batches(cfg, 1 + REMAT_STEPS + 1))
     try:
-        for remat in REMATS[1:]:
+        for remat in REMATS:
             model.cfg = dataclasses.replace(cfg, remat=remat)
             opt, state = _train_setup(model)
             step_fn = make_train_step(model, opt)
@@ -2044,6 +2093,7 @@ def remat_phase(cfg, model, none):
             torch.cuda.synchronize()
             free_memory()
             torch.cuda.reset_peak_memory_stats()
+            floor = torch.cuda.memory_allocated()
             reset_counts()
             walls = []
             for b in batches[1:1 + REMAT_STEPS]:
@@ -2055,17 +2105,18 @@ def remat_phase(cfg, model, none):
             launches, calls = read_counts()
             check_launches(launches, calls, f"remat {remat} [{variant}]", USED[variant])
             per_step = {k: v // REMAT_STEPS for k, v in launches.items()}
-            _, busy, n_dev, _ = _profiled_device(lambda: step_fn(state, batches[-1]))
+            busy, n_dev = _busy_ms(lambda: step_fn(state, batches[-1]))
             check(math.isfinite(float(metrics["loss"])), f"remat {remat} [{variant}]: loss")
             out[remat] = dict(step_ms=statistics.median(walls), busy_ms=busy, kernels=n_dev,
-                              peak_gib=peak / 2**30, per_step=per_step, launches=launches,
-                              how=f"median of {REMAT_STEPS}")
+                              peak_gib=peak / 2**30, floor_gib=floor / 2**30,
+                              per_step=per_step, launches=launches)
             del state, opt, step_fn
             free_memory()
-        gap = _remat_parity(model, cfg, batches[-1])
     finally:
         model.cfg = cfg
     none = out["none"]["per_step"]
+    check(none == train["per_step"], f"remat none [{variant}]: launches a step {none} != "
+          f"train_phase's {train['per_step']}")
     for remat in ("full", "dots"):
         check(out[remat]["per_step"] == {k: 2 * v for k, v in none.items()},
               f"remat {remat} [{variant}]: launches a step {out[remat]['per_step']} != "
@@ -2074,51 +2125,12 @@ def remat_phase(cfg, model, none):
           f"remat [{variant}]: full's peak {out['full']['peak_gib']:.2f} GiB is not below "
           f"none's {out['none']['peak_gib']:.2f}")
     for remat, r in out.items():
-        print(f"remat {remat} [{variant}]: step {r['step_ms']:.1f} ms wall ({r['how']}), "
-              f"{r['busy_ms']:.3f} ms device busy in {r['kernels']} kernels, "
-              f"peak {r['peak_gib']:.2f} GiB, launches a step {r['per_step']}; "
-              f"{card_line()}", flush=True)
-    return dict(out, **gap)
-
-
-def _remat_parity(model, cfg, batch):
-    """f32 loss and gradients under ``full`` against ``none``, seed weights,
-    on the kernels; bound: TRAIN_SPREAD_FACTOR times ``none``'s spread."""
-    import torch
-
-    variant = path_label(cfg)
-    params = dict(model.named_parameters())
-    seed_weights = {n: p.detach().clone() for n, p in params.items()}
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
-    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
-
-    def run(remat):
-        model.cfg = dataclasses.replace(f32, remat=remat)
-        loss, grads = _grads(model, batch)
-        return float(loss.detach()), grads
-
-    none, full = run("none"), run("full")
-    with torch.no_grad():   # every weight one f32 ulp up or down
-        for p in params.values():
-            up = torch.rand(p.shape, generator=gen, device=DEVICE) < 0.5
-            p.copy_(torch.nextafter(p, torch.where(up, torch.inf, -torch.inf)))
-    moved = run("none")
-    with torch.no_grad():
-        for n, p in params.items():
-            p.copy_(seed_weights[n])
-    loss_gap = abs(full[0] - none[0]) / abs(none[0])
-    worst = _worst(_grad_gaps(full[1], none[1]))
-    spread = _worst(_grad_gaps(moved[1], none[1]))
-    bound = TRAIN_SPREAD_FACTOR * spread[1]
-    print(f"remat [{variant}] parity (f32, seed weights, kernels): full loss {full[0]:.6f} "
-          f"vs none {none[0]:.6f} (relative gap {loss_gap:.2e}); worst max-normalised grad "
-          f"gap {worst[1]:.2e} at {worst[0]}; none's spread one ulp apart {spread[1]:.2e} "
-          f"at {spread[0]}; bound {bound:.2e}", flush=True)
-    check(loss_gap <= TRAIN_LOSS_RTOL, f"remat [{variant}]: f32 loss full {full[0]} vs "
-          f"none {none[0]}")
-    check(worst[1] <= bound, f"remat [{variant}]: grad of {worst[0]} under full off none's "
-          f"by {worst[1]:.3e} > {bound:.3e}")
-    return dict(remat_loss_gap=loss_gap, remat_grad_err=worst[1], remat_spread=spread[1])
+        print(f"remat {remat} [{variant}]: step {r['step_ms']:.1f} ms wall (median of "
+              f"{REMAT_STEPS}), {r['busy_ms']:.3f} ms device busy in {r['kernels']} kernels, "
+              f"peak {r['peak_gib']:.2f} GiB over {r['floor_gib']:.2f} allocated at the "
+              f"reset, launches a step {r['per_step']}; {card_line()}", flush=True)
+    return dict(out, remat_grad_err=train["remat_grad_err"],
+                remat_spread=train["kernel_spread"])
 
 
 def jamba_float_phase():
@@ -2589,10 +2601,9 @@ DIST_DP = dict(batch=8, seq_len=64, steps=3)     # the launcher's smoke width
 DIST_LOSS_RTOL = 1e-5
 
 
-def _torchrun(nproc, argv, out_json, timeout=600):
-    """``python -m torch.distributed.run --nproc-per-node nproc -m
-    repro_torch.launch.train argv``; returns what rank 0 wrote to
-    ``--metrics-out``."""
+def _torchrun_start(nproc, argv, out_json):
+    """Start ``python -m torch.distributed.run --nproc-per-node nproc -m
+    repro_torch.launch.train argv``; ``_torchrun_wait`` ends it."""
     import os
 
     from repro_torch.launch.mesh import free_port
@@ -2601,23 +2612,43 @@ def _torchrun(nproc, argv, out_json, timeout=600):
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
            "--master-addr", "localhost", "--master-port", str(free_port()),
            "-m", "repro_torch.launch.train", *argv, "--metrics-out", str(out_json)]
-    res = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=timeout)
-    if res.returncode != 0:
-        print(res.stdout[-4000:], res.stderr[-8000:], sep="\n", flush=True)
-    check(res.returncode == 0, f"torch.distributed.run {' '.join(argv)}: exit "
-          f"{res.returncode}")
-    with open(out_json) as f:
-        return json.load(f)
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, argv, out_json
+
+
+def _torchrun_wait(runs, timeout=600):
+    """What rank 0 of each ``_torchrun_start`` run in ``runs`` (by name)
+    wrote to ``--metrics-out``, once every run has ended; fails when one
+    does not exit 0 within ``timeout`` s (it is killed)."""
+    ended = {}
+    for name, (proc, argv, out_json) in runs.items():
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        ended[name] = (proc.returncode, out, err, argv, out_json)
+    for rc, out, err, argv, _ in ended.values():
+        if rc != 0:
+            print(out[-4000:], err[-8000:], sep="\n", flush=True)
+        check(rc == 0, f"torch.distributed.run {' '.join(argv)}: exit {rc}")
+    got = {}
+    for name, (_, _, _, _, out_json) in ended.items():
+        with open(out_json) as f:
+            got[name] = json.load(f)
+    return got
 
 
 def dist_launcher_phase():
     """The launcher under ``torch.distributed.run`` with 2 gloo ranks on the
-    card: goom-rnn-124m at full width, ``shared_a``, ``--seq-shards 2``,
-    DIST_STEPS f32 steps with finite losses, the first against the
-    single-process launcher on the same seed; then ``--mesh host`` data
-    parallel (2, 1) at the smoke width against one process on the full
-    batch.  Gloo ranks sharing a card keep the plain layout (the launcher's
-    docstring).  Returns rank 0's launches of the seq-sharded run."""
+    card, three runs at once: goom-rnn-124m at full width, ``shared_a``,
+    ``--seq-shards 2``, DIST_STEPS bf16 steps (the default dtype) with finite
+    losses, and one f32 step against the single-process launcher on the same
+    seed; and ``--mesh host`` data parallel (2, 1) at the smoke width against
+    one process on the full batch.  Gloo ranks sharing a card keep the plain
+    layout (the launcher's docstring).  Returns rank 0's launches of the
+    bf16 seq-sharded run."""
     import numpy as np
     import torch
 
@@ -2631,32 +2662,39 @@ def dist_launcher_phase():
     tmp.mkdir(exist_ok=True)
     full = ["--arch", "goom-rnn-124m", "--task", "copy", "--seq-len", str(TRAIN["seq_len"]),
             "--batch", str(TRAIN["batch"]), "--lr", str(TRAIN["lr"]), "--log-every", "1",
-            "--dist-backend", "gloo", "--compute-dtype", "float32"]
+            "--dist-backend", "gloo"]
+    f32 = ["--compute-dtype", "float32", "--steps", "1"]
+    dp = ["--arch", "goom-rnn-124m", "--smoke", "--task", "copy", "--seq-len",
+          str(DIST_DP["seq_len"]), "--batch", str(DIST_DP["batch"]), "--steps",
+          str(DIST_DP["steps"]), "--compute-dtype", "float32", "--dist-backend", "gloo"]
     t0 = time.perf_counter()
-    run = _torchrun(2, full + ["--steps", str(DIST_STEPS), "--seq-shards", "2"],
-                    tmp / "chip_smoke_dist.json")
+    runs = {"bf16": _torchrun_start(2, full + ["--steps", str(DIST_STEPS), "--seq-shards", "2"],
+                                    tmp / "chip_smoke_dist.json"),
+            "f32": _torchrun_start(2, full + f32 + ["--seq-shards", "2"],
+                                   tmp / "chip_smoke_dist32.json"),
+            "dp": _torchrun_start(2, dp + ["--mesh", "host"], tmp / "chip_smoke_dp.json")}
+    try:
+        _, _, m = launch_train.main(full[:-2] + f32)
+    finally:
+        runs = _torchrun_wait(runs)
+    ranks_s = time.perf_counter() - t0
+    run = runs["bf16"]
     losses = [s["loss"] for s in run["steps"]]
     check(len(losses) == DIST_STEPS and all(math.isfinite(v) for v in losses)
           and run["layouts"] is False, f"launcher --seq-shards 2: losses {losses}, "
           f"layouts {run['layouts']}")
-    t1 = time.perf_counter()
-    _, _, m = launch_train.main(full[:-4] + ["--compute-dtype", "float32", "--steps", "1"])
     one = float(m["loss"])
-    got = losses[0]
+    got = runs["f32"]["steps"][0]["loss"]
     check(abs(got - one) <= DIST_LOSS_RTOL * abs(one),
           f"launcher f32 step: 2 seq shards {got} vs one process {one}")
-    print(f"launcher --seq-shards 2 (2 gloo ranks on one card, full width, f32): "
-          f"{DIST_STEPS} steps, losses {[round(v, 4) for v in losses]}, in "
-          f"{t1 - t0:.1f} s with the ranks' start; rank 0 launches {run['launches']}; "
-          f"first step's loss {got!r} vs one process {one!r} (relative "
-          f"{abs(got - one) / abs(one):.2e}, bar {DIST_LOSS_RTOL}; "
-          f"{time.perf_counter() - t1:.1f} s)", flush=True)
+    print(f"launcher --seq-shards 2 (2 gloo ranks on one card, full width, bf16): "
+          f"{DIST_STEPS} steps, losses {[round(v, 4) for v in losses]}; rank 0 launches "
+          f"{run['launches']}; f32 step loss {got!r} vs one process {one!r} (relative "
+          f"{abs(got - one) / abs(one):.2e}, bar {DIST_LOSS_RTOL}); the three runs of 2 "
+          f"ranks at once in {ranks_s:.1f} s with their start", flush=True)
 
-    dp = ["--arch", "goom-rnn-124m", "--smoke", "--task", "copy", "--seq-len",
-          str(DIST_DP["seq_len"]), "--batch", str(DIST_DP["batch"]), "--steps",
-          str(DIST_DP["steps"]), "--compute-dtype", "float32", "--dist-backend", "gloo"]
+    ranks = runs["dp"]
     t3 = time.perf_counter()
-    ranks = _torchrun(2, dp + ["--mesh", "host"], tmp / "chip_smoke_dp.json")
     # one process on the full batch: both data ranks' slices, concatenated
     cfg = dataclasses.replace(get_config("goom-rnn-124m", smoke=True),
                               compute_dtype=torch.float32)
@@ -2921,11 +2959,6 @@ def _near_tie(logits, i, got, want, what):
 RING_FIRST, RING_SECOND, RING_DECODE = 200, 400, 16
 
 
-#: windowed models whose rings are driven past wrapping (gemma3-1b's was cut
-#: for the script's time; mixtral's window of 4096 stays)
-RING_ARCHS = ("mixtral-8x7b",)
-
-
 def ring_phase(model, cfg):
     """At f32 compute with f32 KV: windowed layers' rolling buffers wrapping
     on the card.  One prompt of window + RING_FIRST + RING_SECOND tokens
@@ -3024,7 +3057,9 @@ def cached_vs_uncached_phase(model, cfg, reqs):
         gap = float((lg_cached - lg_full).abs().max() / lg_full.float().std())
         check(gap < 1e-4, f"{variant}: prefill logits through the caches "
               f"{gap:.3e}·std from the no-cache forward's")
-        ring = ring_phase(model, cfg) if cfg.name in RING_ARCHS else None
+        ring = (ring_phase(model, cfg) if any(
+            b.mixer == "attention" and b.attn.window is not None for b in cfg.layer_list)
+            else None)
     finally:
         model.cfg = cfg
         for m, c in zip(moes, moe_cfgs):
@@ -3058,7 +3093,7 @@ def families_phase():
         model, reqs, stats = serve_phase(cfg)
         trace = trace_phase(model, stats["per_decode"], eager=False)
         layers = layer_breakdown(model)
-        prefix = None   # prefix reuse: goom-rnn, Jamba and rwkv6 (gemma3's cut for time)
+        prefix = prefix_phase(model) if arch == "gemma3-1b" else None
         free_memory()
         cached = cached_vs_uncached_phase(model, cfg, reqs)
         n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
@@ -3539,7 +3574,7 @@ def main() -> int:
         print(f"summary [remat {variant}]: goom-rnn-124m train step (B={TRAIN['batch']}, "
               f"S={TRAIN['seq_len']}, bf16) " + "; ".join(
                   f"{k} {r[k]['step_ms']:.1f} ms wall / {r[k]['busy_ms']:.3f} ms busy, peak "
-                  f"{r[k]['peak_gib']:.2f} GiB" for k in REMATS)
+                  f"{r[k]['peak_gib']:.2f} GiB (floor {r[k]['floor_gib']:.2f})" for k in REMATS)
               + f"; f32 grads full vs none {r['remat_grad_err']:.2e} (spread "
               f"{r['remat_spread']:.2e}); {card}", flush=True)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())

@@ -31,14 +31,12 @@ The candidates are the knobs the port's kernels take at run time:
 A candidate that fails to launch is recorded with its error.  On the card a
 candidate is timed, after a warm-up call, on the device: ``GRAPH_CALLS``
 calls captured in a CUDA graph, the median of ``GRAPH_REPLAYS`` replays
-between two events (``graph_time_ms``); a call the graph cannot capture by
-its kernels in a profiler trace of ``DEVICE_CALLS`` calls
-(``device_time_ms``: each kernel's median duration times its launches a
-call; the profiler drops records of short launches, and a plain sum of
-what it kept flipped the 64-token chunk's winner in a card run).  CUDA
-events around eager calls shorter than their launch time the host, and
-let that winner flip between runs too; they remain only as the last
-fallback.  On the CPU a candidate is timed with ``perf_counter``.
+between two events (``graph_time_ms``).  A call the graph cannot capture is
+recorded with the capture's error, as a candidate that fails to launch.
+CUDA events around eager calls shorter than their launch time the host,
+and a plain sum of a profiler trace's records loses the short launches
+the profiler drops: either let the 64-token chunk's winner flip between
+card runs.  On the CPU a candidate is timed with ``perf_counter``.
 
 Cache file (JSON)::
 
@@ -206,10 +204,6 @@ def _example_args(op: str, shapes: Tuple[int, ...], device) -> Tuple[Goom, ...]:
 
 #: calls a candidate's CUDA graph holds, and the graph's timed replays
 GRAPH_CALLS, GRAPH_REPLAYS = 20, 5
-#: calls a candidate's device time is taken over on the card
-DEVICE_CALLS = 50
-#: profiler traces taken before a sweep falls back to CUDA events
-PROFILE_TRIES = 4
 
 
 def graph_time_ms(fn, calls: int = GRAPH_CALLS, replays: int = GRAPH_REPLAYS) -> float:
@@ -241,62 +235,13 @@ def graph_time_ms(fn, calls: int = GRAPH_CALLS, replays: int = GRAPH_REPLAYS) ->
     return statistics.median(times)
 
 
-def device_time_ms(fn, calls: int = DEVICE_CALLS) -> Optional[float]:
-    """Device time per call of ``fn()`` from a ``torch.profiler`` trace of
-    ``calls`` calls, so the host's launch rate, which leads at microsecond
-    shapes, is left out: for each distinct device activity (a kernel, memset
-    or copy by name) its median duration, times the launches a call makes
-    (its records over ``calls``, rounded).  Medians and the rounding keep
-    the time when the profiler drops records (it has been seen on an H100
-    to keep half of a candidate's launches) or keeps a stray one.  None
-    when the profiler kept no device event in ``PROFILE_TRIES`` traces."""
-    from torch.autograd import DeviceType
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(PROFILE_TRIES):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        by_name: Dict[str, List[float]] = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-        if by_name:
-            per_call = {n: round(len(us) / calls) for n, us in by_name.items()}
-            top = max(by_name, key=lambda n: len(by_name[n]))
-            per_call[top] = max(per_call[top], 1)   # the call's own kernel at least
-            return sum(statistics.median(by_name[n]) * k for n, k in per_call.items()) / 1e3
-    return None
-
-
-def _event_ms(fn, reps: int) -> float:
-    """CUDA events around ``reps`` calls: right only where one call is one
-    long kernel, so the launches queue up ahead of the device."""
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _time_call(fn, args, reps: int, cuda: bool) -> float:
     """ms a call: on the card the device time of a replayed CUDA graph of
-    calls (``graph_time_ms``), else of its kernels in a profiler trace
-    (``device_time_ms``), else CUDA events; on the CPU the wall time of
-    ``reps`` calls."""
+    calls (``graph_time_ms``, raising what the capture raises); on the CPU
+    the wall time of ``reps`` calls."""
     fn(*args)   # warm-up: builds and loads the kernel
     if cuda:
-        try:
-            return graph_time_ms(lambda: fn(*args))
-        except RuntimeError:   # a call the graph cannot capture
-            torch.cuda.synchronize()
-        ms = device_time_ms(lambda: fn(*args), max(reps, DEVICE_CALLS))
-        return _event_ms(lambda: fn(*args), reps) if ms is None else ms
+        return graph_time_ms(lambda: fn(*args))
     t0 = time.perf_counter()
     for _ in range(reps):
         fn(*args)
@@ -326,7 +271,7 @@ def autotune_op(op: str, backend: str, shapes: Optional[Tuple[int, ...]] = None,
             fn = dispatch.get_impl(op, backend, blocks)
             try:
                 ms = _time_call(fn, args, reps, dev.type == "cuda")
-            except (RuntimeError, ValueError) as e:   # a knob the launch refuses
+            except (RuntimeError, ValueError) as e:   # a knob the launch (or a capture) refuses
                 table.append({"blocks": blocks.to_dict(), "error": repr(e)})
                 continue
             table.append({"blocks": blocks.to_dict(), "ms": ms})

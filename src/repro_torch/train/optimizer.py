@@ -80,16 +80,38 @@ def _local(x: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every entry, in f32 (a 0-d tensor).  A
-    DTensor's sum of squares is reduced over its shards (every rank gets
-    the whole norm)."""
+    """sqrt of the sum of squares of every entry, in f32 (a 0-d tensor).
+    DTensors' sums of squares are reduced over their shards at once
+    (``_laid_sum_of_squares``): every rank gets the whole norm."""
     plain = [x.float() for x in tensors if not is_dtensor(x)]
+    laid = [x for x in tensors if is_dtensor(x)]
     total = (torch.stack(torch._foreach_norm(plain)).square().sum() if plain
-             else torch.zeros((), device=tensors[0].device))
-    for x in tensors:
-        if is_dtensor(x):
-            total = total + x.float().square().sum().full_tensor()
+             else torch.zeros((), device=_local(tensors[0]).device))
+    if laid:
+        total = total + _laid_sum_of_squares(laid)
     return total.sqrt()
+
+
+def _laid_sum_of_squares(laid: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The sum of squares of every entry of DTensors on one mesh, in one
+    reduction over the mesh dims any of them is sharded on: each rank sums
+    its blocks' squares, a block held alike by the ranks of such a dim
+    (``Replicate`` there) counted once over them."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = laid[0].device_mesh
+    laid = [x.redistribute(mesh, [Replicate() if p.is_partial() else p for p in x.placements])
+            if any(p.is_partial() for p in x.placements) else x for x in laid]
+    dims = sorted({i for x in laid for i, p in enumerate(x.placements) if p.is_shard()})
+    held_by = torch.tensor([math.prod(mesh.size(i) for i in dims if not x.placements[i].is_shard())
+                            for x in laid], dtype=torch.float32)
+    squares = torch.stack(torch._foreach_norm([x.to_local().float() for x in laid])).square()
+    local = (squares / held_by.to(squares.device)).sum()
+    if not dims:
+        return local
+    return DTensor.from_local(local, mesh, [Partial() if i in dims else Replicate()
+                                            for i in range(mesh.ndim)],
+                              run_check=False).full_tensor()
 
 
 def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
