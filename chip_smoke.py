@@ -77,6 +77,16 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 launches a step (twice the forward's under remat); then
                 ``python -m repro_torch.launch.train`` at full width: a
                 step, a checkpoint, a restart that resumes;
+  5a. dry-run — (started before the build, in a child process with one
+                thread and no card, joined before phase 3) the dry-run of
+                goom-rnn-124m's train step at phase 5's shape on a (1, 1)
+                mesh (``launch.dryrun.lower_cell``: the port's step on fake
+                tensors) in both variants under ``none`` and ``full``; after
+                the remat measurements, the predicted GOOM launches a step
+                must equal the measured, the roofline step time must not
+                pass the measured device busy, and the predicted peak above
+                the parameters and optimizer state must be within 1.5× of
+                the measured peak above the floor;
   5b. float, layouts — Jamba smoke with Mamba's ``scan_impl="float"``
                 against ``"goom"`` and the CPU; goom-rnn-124m's f32 train
                 step with DTensor parameters on a 1-rank ``DeviceMesh``
@@ -196,11 +206,6 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside the
-# tensor cores, which is where the LMME kernel's FMAs and expf run
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
 
 SEED = 0
 # the 1-token prompt with a budget of 1 comes last: it and the 333-token
@@ -364,22 +369,12 @@ def lmme_operands(a_shape, b_shape, gen):
 
 
 def lmme_bound(a_shape, b_shape):
-    """(bound ms, bound_by): each input plane read once, each output plane
-    written once; one exp per input element, 2 flops per multiply-add and
-    one log per output element."""
-    import math
+    """(bound ms, bound_by) of one LMME call (``launch.roofline.lmme_work``:
+    each plane read or written once; an exp per input, 2 flops per
+    multiply-add, a log per output) on the H100's peaks."""
+    from repro_torch.launch.roofline import kernel_bound, lmme_work
 
-    import torch
-
-    batch = torch.broadcast_shapes(a_shape[:-2], b_shape[:-2])
-    n, d = a_shape[-2:]
-    m = b_shape[-1]
-    n_out = math.prod(batch) * n * m
-    n_in = math.prod(a_shape) + math.prod(b_shape)
-    nbytes = 4 * (2 * n_in + 2 * n_out)
-    ops = n_in + 2 * math.prod(batch) * n * d * m + n_out
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return kernel_bound(*lmme_work(a_shape, b_shape))
 
 
 def kernel_phase():
@@ -643,17 +638,11 @@ def scan_operands(t, batch, d, m, kind, gen):
 
 
 def scan_bound(t, g, d, m, *, has_b, a_fixed):
-    """(bound ms, bound_by): each input plane read once (a stride-0 A once
-    per g), each output plane written once; exps of A and of the carry, 2
-    flops per multiply-add, a log per output, and 2 exps and a log more per
-    output for the LSE with B."""
-    a_reads = (1 if a_fixed else t) * g * d * d
-    outs = t * g * d * m
-    n_in = a_reads + (outs if has_b else 0) + g * d * m
-    nbytes = 4 * 2 * (n_in + outs)
-    ops = a_reads + outs + 2 * t * g * d * d * m + outs + (3 * outs if has_b else 0)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """(bound ms, bound_by) of one matrix-scan call
+    (``launch.roofline.scan_work``) on the H100's peaks."""
+    from repro_torch.launch.roofline import kernel_bound, scan_work
+
+    return kernel_bound(*scan_work(t, g, d, m, has_b=has_b, a_fixed=a_fixed))
 
 
 def scan_kernel_phase():
@@ -849,13 +838,11 @@ def diag_operands(t, trail, kind, gen):
 
 
 def diag_bound(t, c):
-    """(bound ms, bound_by): a and b read once (log and sign, 16 B), the
-    states written once (8 B) per element, x0 read once (8 B) per channel;
-    some ten f32 operations per element (two exps, a log, adds, a max)."""
-    nbytes = 24 * t * c + 8 * c
-    ops = 10 * t * c
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """(bound ms, bound_by) of one diagonal-scan call
+    (``launch.roofline.diag_work``) on the H100's peaks."""
+    from repro_torch.launch.roofline import diag_work, kernel_bound
+
+    return kernel_bound(*diag_work(t, c))
 
 
 def diag_kernel_phase():
@@ -2133,6 +2120,142 @@ def remat_phase(cfg, model, train):
                 remat_spread=train["kernel_spread"])
 
 
+# ---------------------------------------------------------------------------
+# phase 5a: the dry-run's prediction of the train step against the card
+# ---------------------------------------------------------------------------
+#: the dry-run's train cells: goom-rnn-124m at train_phase's shape, each
+#: variant under these remat settings, on a (1, 1) mesh
+DRYRUN_REMATS = ("none", "full")
+#: the predicted peak above the parameters and optimizer state, against
+#: the measured peak above the floor: within this factor either way (the
+#: card read ratios of 0.995-1.000 at PR 22)
+DRYRUN_PEAK_FACTOR = 1.05
+#: the measured device-busy ms over the roofline step (the largest term):
+#: within this band (the card read 5.4-9.2 at PR 22: a step of some 30-46k
+#: small kernels sits well above its floor), so that a count wrong by a
+#: large factor either way fails
+DRYRUN_BUSY_BAND = (3.0, 15.0)
+DRYRUN_OUT = str(ROOT / "build" / "chip_smoke_dryrun.json")
+
+
+def dryrun_cells(out: str) -> None:
+    """The dry-run of goom-rnn-124m's train step (``launch.dryrun.lower_cell``
+    on fake tensors: no device) at train_phase's B and S, bf16 compute, on a
+    (1, 1) mesh, for both variants under ``DRYRUN_REMATS``; written to
+    ``out`` as {variant: {remat: Roofline dict}}.  Run in a process of its
+    own with one thread and no card (``start_dryrun``)."""
+    import torch
+
+    from repro_torch import get_config
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.sharding import NamedMesh
+
+    torch.set_num_threads(1)
+    cfg = get_config("goom-rnn-124m")
+    shape = ShapeCfg("chip_train", TRAIN["seq_len"], TRAIN["batch"], "train")
+    mesh = NamedMesh((1, 1), ("data", "model"))
+    res = {v: {r: lower_cell(with_scan_variant(cfg, v), shape, mesh, verbose=False,
+                             perf={"remat": r, "microbatches": 1}).to_dict()
+               for r in DRYRUN_REMATS}
+           for v in ("shared_a", "generic")}
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def start_dryrun():
+    """``dryrun_cells`` in a child process on the host alone (no card
+    visible, one thread), started before the build so that it overlaps the
+    build and kernel phases."""
+    import atexit
+    import os
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    if os.path.exists(DRYRUN_OUT):
+        os.remove(DRYRUN_OUT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    log = open(DRYRUN_OUT + ".log", "w")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-cells",
+                             DRYRUN_OUT], env=env, stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def join_dryrun(proc, timeout: float = 600.0) -> dict:
+    """The child's cells; its output goes to ours, and a failure fails here."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError(f"dryrun: the dry-run took over {timeout:.0f} s")
+    with open(DRYRUN_OUT + ".log") as f:
+        print(f.read().strip(), flush=True)
+    check(proc.returncode == 0, f"dryrun: the dry-run exited with {proc.returncode}")
+    with open(DRYRUN_OUT) as f:
+        return json.load(f)
+
+
+def dryrun_phase(dry: dict, remat: dict) -> dict:
+    """The dry-run's train cells against ``remat_phase``'s measurements, per
+    variant and remat setting: the predicted GOOM launches a step equal the
+    measured; the measured device-busy ms over the roofline step time (the
+    largest of the three terms) lies in DRYRUN_BUSY_BAND; the predicted peak
+    above the parameters and optimizer state is within DRYRUN_PEAK_FACTOR
+    either way of the measured peak above the floor.  Beside busy it prints
+    the memory term of every op's reads and writes (``hlo_bytes_upper``),
+    which the roofline's memory term (bytes written) replaced.  Returns the
+    ratios."""
+    from repro_torch.launch.roofline import HBM_BW
+
+    out = {}
+    for variant, cells in dry.items():
+        for r, cell in cells.items():
+            got = remat[variant][r]
+            where = f"dryrun {r} [{variant}]"
+            predicted = {k: int(v) for k, v in cell["launches"].items()}
+            measured = {k: int(got["per_step"].get(k, 0)) for k in predicted}
+            check(predicted == measured, f"{where}: predicted launches a step {predicted} != "
+                  f"measured {measured}")
+            roof_ms = 1e3 * max(cell["compute_s"], cell["memory_s"], cell["collective_s"])
+            upper_ms = 1e3 * cell["hlo_bytes_upper"] / (cell["chips"] * HBM_BW)
+            lo, hi = DRYRUN_BUSY_BAND
+            check(lo <= got["busy_ms"] / roof_ms <= hi,
+                  f"{where}: busy {got['busy_ms']:.3f} ms over the roofline step "
+                  f"{roof_ms:.3f} ms is {got['busy_ms'] / roof_ms:.2f}, outside [{lo}, {hi}]: "
+                  "a count is wrong")
+            above = cell["memory_per_device"]["above_state_bytes"] / 2**30
+            measured_above = got["peak_gib"] - got["floor_gib"]
+            ratio = above / measured_above
+            check(1 / DRYRUN_PEAK_FACTOR <= ratio <= DRYRUN_PEAK_FACTOR,
+                  f"{where}: predicted {above:.2f} GiB above the state against the measured "
+                  f"{measured_above:.2f} above the floor (ratio {ratio:.3f})")
+            out[(variant, r)] = dict(busy_over_roofline=got["busy_ms"] / roof_ms,
+                                     busy_over_upper=got["busy_ms"] / upper_ms,
+                                     peak_ratio=ratio)
+            print(f"{where}: roofline compute {1e3 * cell['compute_s']:.3f} ms, memory "
+                  f"{1e3 * cell['memory_s']:.3f} ms, collective {1e3 * cell['collective_s']:.3f}"
+                  f" ms -> step {roof_ms:.3f} ms ({cell['bottleneck']}) against "
+                  f"{got['busy_ms']:.3f} ms busy: busy / roofline {got['busy_ms'] / roof_ms:.2f};"
+                  f" memory of reads and writes {upper_ms:.3f} ms (busy / it "
+                  f"{got['busy_ms'] / upper_ms:.2f});"
+                  f" predicted {above:.3f} GiB above the state against {measured_above:.3f} "
+                  f"measured above the floor (ratio {ratio:.3f}); launches a step {predicted} "
+                  f"equal; dry-run host {cell['host_s']:.1f} s; {card_line()}", flush=True)
+    return out
+
+
+def dryrun_summary(ratios: dict, card: str) -> str:
+    """The summary line of ``dryrun_phase``'s ratios."""
+    return ("summary [dryrun]: goom-rnn-124m train step (B={batch}, S={seq}) against its "
+            "dry-run: ".format(batch=TRAIN["batch"], seq=TRAIN["seq_len"])
+            + "; ".join(f"{v} {r} busy / roofline {x['busy_over_roofline']:.2f} (over reads "
+                        f"and writes {x['busy_over_upper']:.2f}), predicted / "
+                        f"measured peak above the state {x['peak_ratio']:.3f}"
+                        for (v, r), x in ratios.items())
+            + f"; launches a step equal; {card}")
+
+
 def jamba_float_phase():
     """Jamba smoke at f32 on the card with Mamba's ``scan_impl="float"``
     (the conventional baseline: no diagonal-scan launch, by design) and
@@ -2864,8 +2987,9 @@ def layer_breakdown(model):
                 fn = lambda: mod(norm(x), compute_dtype=cd)  # noqa: E731
             out[kind] = count * device_ms(fn, 5)
         out["lm_head"] = device_ms(lambda: model.logits(model.final_norm(x)), 5)
-    weights_ms = 1e3 * sum(p.numel() * p.element_size() for p in model.parameters()) \
-        / HBM_BYTES_PER_S
+    from repro_torch.launch.roofline import HBM_BW
+
+    weights_ms = 1e3 * sum(p.numel() * p.element_size() for p in model.parameters()) / HBM_BW
     print(f"layers [{path_label(cfg)}]: device ms per decode step (4 slots) by kind "
           + ", ".join(f"{k} {v:.3f}" for k, v in out.items())
           + f"; sum {sum(out.values()):.3f}; reading every weight once takes "
@@ -3450,6 +3574,7 @@ def main() -> int:
     if os.path.exists(AUTOTUNE_CACHE):
         os.remove(AUTOTUNE_CACHE)
     t_start = t0 = time.perf_counter()
+    dry_proc = None if "--kernels" in sys.argv[1:] else start_dryrun()
     build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.build_logs().items():
@@ -3476,6 +3601,8 @@ def main() -> int:
     elapsed("kernels scan")
     diag_rows, diag_err = diag_kernel_phase()
     elapsed("kernels diag")
+    dry = join_dryrun(dry_proc)
+    elapsed("dry-run join")
     cfg = get_config("goom-rnn-124m")
     model, reqs, stats = serve_phase(cfg)
     traces = {"shared_a": trace_phase(model, stats["per_decode"])}
@@ -3505,6 +3632,7 @@ def main() -> int:
         remat[variant] = remat_phase(cfg_t, model_t, train[variant])
         del model_t
         free_memory()
+    dry_ratios = dryrun_phase(dry, remat)
     launcher_phase()
     elapsed("train")
     jamba_float_launches = jamba_float_phase()
@@ -3577,6 +3705,7 @@ def main() -> int:
                   f"{r[k]['peak_gib']:.2f} GiB (floor {r[k]['floor_gib']:.2f})" for k in REMATS)
               + f"; f32 grads full vs none {r['remat_grad_err']:.2e} (spread "
               f"{r['remat_spread']:.2e}); {card}", flush=True)
+    print(dryrun_summary(dry_ratios, card), flush=True)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {sum(phase_s.values()):.1f}", flush=True)
 
@@ -3642,4 +3771,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-cells"]:   # start_dryrun's child: no card
+        dryrun_cells(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

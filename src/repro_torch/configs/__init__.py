@@ -11,10 +11,14 @@ from .base import (
     MlpCfg,
     MoeCfg,
     Rwkv6Cfg,
+    SHAPES,
+    ShapeCfg,
     attn_block,
     get_config,
+    input_specs,
     list_archs,
     register,
+    shape_applicable,
     transform_blocks,
     uniform_groups,
 )
@@ -31,6 +35,14 @@ register("gemma3-1b", "repro_torch.configs.gemma3_1b")
 register("musicgen-large", "repro_torch.configs.musicgen_large")
 register("qwen2-vl-7b", "repro_torch.configs.qwen2_vl_7b")
 
-__all__ = ["AttentionCfg", "BlockCfg", "GoomSSMCfg", "GroupCfg", "LMConfig",
-           "MambaCfg", "MlpCfg", "MoeCfg", "Rwkv6Cfg", "attn_block", "get_config",
-           "list_archs", "register", "transform_blocks", "uniform_groups"]
+#: the ten assigned architectures, in JAX's order (goom-rnn-124m, the
+#: paper's own, is registered but not among them)
+ASSIGNED_ARCHS = [
+    "qwen2-vl-7b", "rwkv6-7b", "mixtral-8x7b", "phi3.5-moe", "olmo-1b",
+    "codeqwen1.5-7b", "glm4-9b", "gemma3-1b", "jamba-v0.1", "musicgen-large",
+]
+
+__all__ = ["ASSIGNED_ARCHS", "AttentionCfg", "BlockCfg", "GoomSSMCfg", "GroupCfg",
+           "LMConfig", "MambaCfg", "MlpCfg", "MoeCfg", "Rwkv6Cfg", "SHAPES", "ShapeCfg",
+           "attn_block", "get_config", "input_specs", "list_archs", "register",
+           "shape_applicable", "transform_blocks", "uniform_groups"]

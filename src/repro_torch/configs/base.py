@@ -11,6 +11,11 @@ training, as JAX's ``group_apply``; ``MambaCfg.scan_impl`` picks the GOOM
 scan (``"goom"``) or the conventional float baseline (``"float"``).
 ``transform_blocks`` rebuilds a config block by block (for example to flip
 attention to banded sliding windows).
+
+The shape registry is JAX's (``repro/configs/base.py``): ``ShapeCfg``, the
+four ``SHAPES`` of the dry-run, ``shape_applicable`` and ``input_specs``,
+whose stand-ins are tensors on the ``meta`` device of JAX's shapes and
+dtypes.
 """
 
 from __future__ import annotations
@@ -163,6 +168,59 @@ class LMConfig:
         for g in self.groups:
             out.extend(list(g.period) * g.n_periods)
         return out
+
+
+# ---------------------------------------------------------------------------
+# input shapes (the dry-run's cells)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode" | "long_decode"
+
+
+SHAPES: Dict[str, ShapeCfg] = {
+    "train_4k": ShapeCfg("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524_288, 1, "long_decode"),
+}
+
+
+def shape_applicable(cfg: "LMConfig", shape: ShapeCfg) -> Tuple[bool, str]:
+    """Whether this (arch, shape) cell runs; the reason if it is skipped."""
+    if shape.kind == "long_decode" and not cfg.sub_quadratic:
+        return False, (
+            "long_500k requires sub-quadratic attention; "
+            f"{cfg.name} is a pure full-attention arch (see DESIGN.md)"
+        )
+    return True, ""
+
+
+def input_specs(cfg: "LMConfig", shape: ShapeCfg) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors standing in for every model input of a step.
+
+    train/prefill: the full (B, S) token batch (+ frontend stubs).
+    decode/long_decode: one new token per sequence (the caches are made by
+    the serving code, not part of the input specs)."""
+    b, s = shape.global_batch, shape.seq_len
+    ids, f32 = torch.int32, torch.float32
+
+    def spec(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": spec((b, s), ids)}
+        if shape.kind == "train":
+            specs["labels"] = spec((b, s), ids)
+        if cfg.frontend in ("vlm", "audio"):
+            specs["prefix_embeds"] = spec((b, cfg.n_prefix, cfg.d_model), f32)
+        if cfg.frontend == "vlm" and cfg.mrope:
+            specs["mrope_positions"] = spec((3, b, s), ids)
+        return specs
+    return {"token": spec((b, 1), ids)}
 
 
 def attn_block(

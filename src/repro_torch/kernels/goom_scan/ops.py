@@ -24,7 +24,9 @@ is copied only when its batch dims cannot be collapsed into one stride
 (``matrix_scan_cuda.copies`` counts those copies).  T, d and m are taken as
 they are: nothing is padded.  d above 128, non-f32 planes and mixed devices
 raise.  On CPU planes it computes the plain version, because there is no
-kernel there to launch.
+kernel there to launch.  On FakeTensor operands (either op, any device) it
+copies, allocates the outputs and scratch as on the card (``copies`` moves,
+``launches`` does not) and launches nothing (``kernels/shape_only.py``).
 
 **Diagonal scan.**  ``diagonal_scan_cuda(a, b, x0)``: a and b (T, ...)
 broadcast to one shape, x0 (...) or None (exact zeros).  Returns all
@@ -48,6 +50,7 @@ from typing import Optional
 import torch
 
 from ...core.goom import Goom
+from .. import shape_only
 from .ref import goom_diag_scan_ref, matrix_scan_ref, matrix_scan_zero_b_ref
 
 __all__ = ["MAX_D", "diagonal_scan_cuda", "matrix_scan_cuda", "with_b_chunk_len",
@@ -195,14 +198,16 @@ def _launch(al, asn, bl, bsn, xl, xs, ell=None):
     x_st = (_I64 * 3)(0, 0, 0)
     if xl is not None:
         xl, xs, x_st = _strides(xl, xs, batch + (d, m), False)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     ell = ell or (with_b_chunk_len(t, d) if has_b else zero_b_chunk_len(t, d))
     if has_b:
         bl, bsn, b_st = _strides(bl, bsn, (t,) + batch + (d, m), True)
+        if shape_only.is_fake(al):   # the dry-run's cost pass: shapes, no launch
+            shape_only.record("matrix_scan", t=t, g=g, d=d, m=m, a_fixed=a_st[0] == 0)
+            return out_log, out_sign
         rc = _kernel_fn(True)(
             _ptr(al), _ptr(asn), _ptr(bl), _ptr(bsn), _ptr(xl), _ptr(xs),
             out_log.data_ptr(), out_sign.data_ptr(), t, g, d, m,
-            ell, a_st, b_st, x_st, stream)
+            ell, a_st, b_st, x_st, torch.cuda.current_stream(dev).cuda_stream)
     else:
         # scratch of the three passes: each chunk's product but the last's,
         # and the state entering each chunk, both with f64 logs
@@ -217,11 +222,15 @@ def _launch(al, asn, bl, bsn, xl, xs, ell=None):
         ta = 0 if d <= 16 else 1 if a_st[0] == 0 else t
         a_exp = torch.empty((ta, g, d, -(-d // 4) * 4), dtype=torch.float32, device=dev)
         a_rmax = torch.empty((ta, g, d), dtype=torch.float32, device=dev)
+        if shape_only.is_fake(al):   # the scratch allocated, no launch
+            shape_only.record("matrix_scan_zero_b", t=t, g=g, d=d, m=m, a_fixed=a_st[0] == 0)
+            return out_log, out_sign
         rc = _kernel_fn(False)(
             _ptr(al), _ptr(asn), _ptr(xl), _ptr(xs),
             out_log.data_ptr(), out_sign.data_ptr(), p_log.data_ptr(),
             p_sign.data_ptr(), p_rmax.data_ptr(), in_log.data_ptr(), in_sign.data_ptr(),
-            a_exp.data_ptr(), a_rmax.data_ptr(), t, g, d, m, ell, a_st, x_st, stream)
+            a_exp.data_ptr(), a_rmax.data_ptr(), t, g, d, m, ell, a_st, x_st,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"matrix-scan kernel launch failed: cudaError_t {rc}")
     if has_b:
@@ -275,7 +284,8 @@ def matrix_scan_cuda(a: Goom, b: Optional[Goom], x0: Optional[Goom] = None,
     planes = (a.log_abs, a.sign,
               None if b is None else b.log_abs, None if b is None else b.sign,
               None if x0 is None else x0.log_abs, None if x0 is None else x0.sign)
-    if all(x.device.type == "cpu" for x in planes if x is not None):
+    if all(x.device.type == "cpu" for x in planes if x is not None) \
+            and not shape_only.is_fake(a.log_abs):
         return _plain(*planes)
     return Goom(*_MatrixScanFn.apply(*planes, ell))
 
@@ -352,6 +362,9 @@ def _diag_launch(al, asn, bl, bsn, xl, xs):
     x_c = 0
     if xl is not None:
         xl, xs, (x_c,) = _channel_strides(xl, xs, trail, False)
+    if shape_only.is_fake(al):   # the dry-run's cost pass: shapes, no launch
+        shape_only.record("diag_scan", t=t, c=c)
+        return out_log, out_sign
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _diag_kernel_fn()(
         al.data_ptr(), asn.data_ptr(), a_t, a_c, bl.data_ptr(), bsn.data_ptr(),
@@ -396,7 +409,8 @@ def diagonal_scan_cuda(a: Goom, b: Goom, x0: Optional[Goom] = None) -> Goom:
     plain version on CPU planes."""
     planes = (a.log_abs, a.sign, b.log_abs, b.sign,
               None if x0 is None else x0.log_abs, None if x0 is None else x0.sign)
-    if all(x.device.type == "cpu" for x in planes if x is not None):
+    if all(x.device.type == "cpu" for x in planes if x is not None) \
+            and not shape_only.is_fake(a.log_abs):
         return _diag_plain(*planes)
     return Goom(*_DiagScanFn.apply(*planes))
 

@@ -8,7 +8,9 @@ does not take.  The kernel has two launch shapes, picked from the call's
 shape by ``batched_plan``: batched small products whose A is broadcast over
 rows of B (the serving path), and output tiles for the rest; an output gets
 the same bits from either.  On CPU planes it computes the plain version,
-because there is no kernel there to launch.
+because there is no kernel there to launch.  On FakeTensor operands, on any
+device, it allocates the outputs and launches nothing
+(``kernels/shape_only.py``).
 
 Backward, as in the JAX wrapper (``repro/kernels/lmme/ops.py``), is autograd
 of the plain ``lmme_reference`` on the saved inputs; sign planes get no
@@ -23,6 +25,7 @@ import math
 import torch
 
 from ...core.goom import Goom
+from .. import shape_only
 from .ref import lmme_ref
 
 __all__ = ["batched_plan", "lmme_cuda"]
@@ -131,6 +134,9 @@ def _launch(al, asn, bl, bsn):
     ae = al.expand(batch + (n, d))
     be = bl.expand(batch + (d, m))
     nb = len(batch)
+    if shape_only.is_fake(al):   # the dry-run's cost pass: shapes, no launch
+        shape_only.record("lmme", a_shape=tuple(al.shape), b_shape=tuple(bl.shape))
+        return out_log, out_sign
     planes = (al.data_ptr(), asn.data_ptr(), bl.data_ptr(), bsn.data_ptr(),
               out_log.data_ptr(), out_sign.data_ptr())
     mat = (ae.stride(-2), ae.stride(-1), be.stride(-2), be.stride(-1))
@@ -179,7 +185,7 @@ class _LmmeFn(torch.autograd.Function):
 def lmme_cuda(a: Goom, b: Goom) -> Goom:
     """LMME over GOOMs through the CUDA kernel (plain version on the CPU)."""
     planes = (a.log_abs, a.sign, b.log_abs, b.sign)
-    if all(x.device.type == "cpu" for x in planes):
+    if all(x.device.type == "cpu" for x in planes) and not shape_only.is_fake(a.log_abs):
         return Goom(*lmme_ref(*planes))
     return Goom(*_LmmeFn.apply(*planes))
 

@@ -1,0 +1,636 @@
+"""Dry-run of every (arch × shape × mesh) cell on fake tensors.
+
+The port of ``repro/launch/dryrun.py``.  Where JAX lowers and compiles each
+cell for 512 host devices, the port runs each cell's real step under
+``FakeTensorMode`` (``launch/cost.py``): no device is needed, nothing is
+allocated and no kernel is launched.  The fake tensors sit on the CPU (a
+CPU-only build of torch cannot index fake CUDA tensors) and the engine runs
+its ``cuda`` backend, the card's dispatch: the GOOM kernels take their card
+path up to the launch (``kernels/shape_only.py``).  For each cell it records:
+
+  * a device's FLOPs, bytes and GOOM kernel calls, traced at the device's
+    slice of the batch (rows over the rules' batch axes);
+  * its memory: the tracker's peak by category, and the bytes a device
+    holds (below);
+  * the collectives of the port's step, from the layouts (below);
+  * the three roofline terms on the H100's constants (``launch/roofline.py``),
+    and the host seconds the cell took.
+
+**What a device holds follows the port as it is.**  Train cells lay the
+parameters and moments out by ``sharding.param_specs`` (JAX's
+``param_shardings``) and ``launch.train.state_placements`` on the abstract
+production mesh: between steps a device keeps their shard shapes
+(``sharding.layout.shard_shape``).  A step gathers every parameter whole
+(``train/train_loop.py`` ``_gather``), so during it a device also holds the
+whole parameters, their whole gradients and its batch slice's activations:
+the peak is the shards plus the whole gathered parameters plus the traced
+step's peak above its parameters and state (with ``cast_params_bf16`` the
+trace holds the gathered bf16 copies there already).  The model axis splits the
+parameters but not the activations, so every rank of it repeats the
+compute of its batch slice.  Serve cells (prefill, decode) have no layout
+in the port: a device holds the whole parameters and its rows' whole
+caches; the bytes JAX's cache layout (``_CACHE_AXES``, ``cache_shardings``)
+would leave a device are reported beside them (``cache_shard_bytes``).
+Cells whose peak passes the card's 80 GB are marked ``over_hbm``.
+
+**Collectives** (train cells on more than one device), as DTensor runs
+them, one op per mesh dim: an all-gather of each parameter over each mesh
+dim it is sharded on; for each gradient, over each batch dim, a
+reduce-scatter where the parameter is sharded on it, else an all-reduce;
+an all-reduce of the metrics over each batch dim; one of the clip's sum of
+squares over each mesh dim any parameter is sharded on; and, when
+``scan_seq`` maps to a mesh axis, the recurrent layers' time shards (an
+all-gather of each one's output, an all-reduce of each gradient it reads
+replicated).  Serve steps run no collective.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--both-meshes] [--out f.json]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --serve-cache-report --all
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import dataclasses
+import json
+import math
+import os
+import sys
+import time
+import traceback
+from typing import Dict, List, Optional, Tuple, Union
+
+import torch
+
+from ..configs import ASSIGNED_ARCHS, SHAPES, ShapeCfg, get_config, input_specs, shape_applicable
+from ..configs.base import transform_blocks
+from ..core import engine
+from ..sharding.layout import shard_shape
+from ..sharding.rules import AxisRules, make_rules, param_specs
+from . import cost
+from .mesh import make_production_mesh
+from .roofline import (
+    HBM_BYTES,
+    CollectiveOp,
+    Roofline,
+    collective_bytes_per_device,
+    model_flops,
+)
+
+__all__ = ["SkipCell", "lower_cell", "serve_cache_report", "cache_specs",
+           "train_collectives", "main"]
+
+GIB = 2 ** 30
+
+
+class SkipCell(Exception):
+    pass
+
+
+# ---------------------------------------------------------------------------
+# layouts: caches, parameters, the batch
+# ---------------------------------------------------------------------------
+_CACHE_AXES = {
+    # cache leaf name -> logical names of its trailing dims
+    "k": ("batch", "cache_seq", "kv_cache_heads", None),
+    "v": ("batch", "cache_seq", "kv_cache_heads", None),
+    "index": ("batch",),  # per-slot (B,) position vector
+    "wkv": ("batch", "act_heads", None, None),
+    "x_prev": ("batch", None, "act_embed"),
+    "cm_x_prev": ("batch", None, "act_embed"),
+    "conv": ("batch", None, "act_mlp"),
+    "ssm": ("batch", "act_mlp", None),
+    "x_log": ("batch", "act_heads", None, None),
+    "x_sign": ("batch", "act_heads", None, None),
+}
+
+
+def cache_specs(rules: AxisRules, caches) -> Dict[str, tuple]:
+    """Each cache leaf's spec (``"<layer>.<leaf>"`` -> spec), JAX's
+    ``cache_shardings`` over the port's per-layer caches: a leaf's logical
+    names by its name, leading dims unnamed, unknown leaves replicated."""
+    out = {}
+    for i, layer in enumerate(caches):
+        for key, leaf in layer.items():
+            names = list(_CACHE_AXES.get(key, (None,) * leaf.ndim))
+            names = ([None] * (leaf.ndim - len(names)) + names)[-leaf.ndim:] if leaf.ndim else []
+            out[f"{i}.{key}"] = rules.spec(tuple(leaf.shape), names)
+    return out
+
+
+def _bytes(shape, dtype) -> int:
+    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+def batch_shards(rules: AxisRules, shape: ShapeCfg) -> int:
+    """The devices the global batch splits over (the rules' batch axes
+    that divide it)."""
+    spec = rules.spec((shape.global_batch,), ("batch",))
+    axes = () if not spec or spec[0] is None else (
+        (spec[0],) if isinstance(spec[0], str) else spec[0])
+    return math.prod(rules.mesh.shape[a] for a in axes)
+
+
+def _axes_of(spec) -> List[str]:
+    out = []
+    for entry in spec:
+        if entry is not None:
+            out.extend((entry,) if isinstance(entry, str) else entry)
+    return out
+
+
+def train_collectives(rules: AxisRules, params: Dict[str, Tuple[tuple, torch.dtype]],
+                      specs: Dict[str, tuple], *, cast_params_bf16: bool = False,
+                      n_metrics: int = 3, time_shards: Optional[List[Tuple[int, list]]] = None
+                      ) -> List[CollectiveOp]:
+    """The collectives of one laid-out train step (module docstring).
+    ``params``: name -> (whole shape, dtype); ``time_shards``: per
+    recurrent layer, (its output's bytes, the bytes of each gradient it
+    reads replicated), when ``scan_seq`` maps to a mesh axis."""
+    size = rules.mesh.shape
+    batch = [a for a in rules.mesh_axes_for("batch") if a in size]
+    ops: List[CollectiveOp] = []
+    sharded_dims = set()
+    for name, (shape, dtype) in params.items():
+        if cast_params_bf16 and dtype == torch.float32:
+            dtype = torch.bfloat16
+        whole = _bytes(shape, dtype)
+        axes = _axes_of(specs[name])
+        sharded_dims.update(axes)
+        left = math.prod(size[a] for a in axes)
+        for a in reversed(axes):           # gathered one mesh dim at a time
+            left //= size[a]
+            ops.append(CollectiveOp("all-gather", whole // left, size[a]))
+        local = whole                      # the gradient, whole on every rank
+        for a in batch:
+            if a in axes:
+                local //= size[a]
+                ops.append(CollectiveOp("reduce-scatter", local, size[a]))
+            else:
+                ops.append(CollectiveOp("all-reduce", local, size[a]))
+    ops.extend(CollectiveOp("all-reduce", 4 * n_metrics, size[a]) for a in batch)
+    ops.extend(CollectiveOp("all-reduce", 4, size[a]) for a in rules.mesh.axis_names
+               if a in sharded_dims)
+    seq = rules.mesh_axes_for("scan_seq")
+    if time_shards and seq and size[seq[0]] > 1:
+        for out_bytes, replicated in time_shards:
+            ops.append(CollectiveOp("all-gather", out_bytes, size[seq[0]]))
+            ops.extend(CollectiveOp("all-reduce", b, size[seq[0]]) for b in replicated)
+    return ops
+
+
+def _time_shard_bytes(cfg, rows: int, seq_len: int, cast: bool) -> List[Tuple[int, list]]:
+    """Per recurrent layer: the bytes of the output its time shards gather,
+    and of the gradients of what it reads replicated (goom layer: A, B, C,
+    D; Mamba: A)."""
+    out = []
+    pbytes = 2 if cast or cfg.param_dtype == torch.bfloat16 else 4
+    cd = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    for blk in cfg.layer_list:
+        if blk.mixer == "goom_ssm":
+            g = blk.goom
+            rep = [pbytes * g.n_heads * g.head_dim * g.head_dim] * 2 \
+                + [pbytes * g.n_heads * g.head_dim * 2 * g.head_dim] * 2
+            out.append((cd * rows * seq_len * g.d_model, rep))
+        elif blk.mixer == "mamba" and blk.mamba.scan_impl == "goom":
+            m = blk.mamba
+            out.append((4 * rows * seq_len * m.d_inner, [4 * m.d_inner * m.d_state]))
+    return out
+
+
+def _pick_microbatches(cfg, shape: ShapeCfg, mesh) -> int:
+    """Gradient accumulation so the per-device residual-stream stack
+    (n_layers × B_local × S × d_model × 2 bytes, saved once per layer under
+    full remat) stays under ~2 GiB of HBM (JAX's heuristic)."""
+    data_shards = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
+    b_local = max(1, shape.global_batch // data_shards)
+    stack = cfg.n_layers * b_local * shape.seq_len * cfg.d_model * 2
+    # hybrid (mamba state expansion) carries heavier per-layer transients
+    target = (1 if cfg.family == "hybrid" else 2) * 2**30
+    mb = 1
+    while stack / mb > target and mb < b_local:
+        mb *= 2
+    return mb
+
+
+# ---------------------------------------------------------------------------
+# the steps on fake tensors
+# ---------------------------------------------------------------------------
+class _CountedUpdate:
+    """An optimizer whose ``update`` is counted apart (``cost.optimizer_part``)."""
+
+    def __init__(self, opt):
+        self._opt = opt
+
+    def __getattr__(self, name):
+        return getattr(self._opt, name)
+
+    def update(self, *args, **kw):
+        with cost.optimizer_part():
+            return self._opt.update(*args, **kw)
+
+
+def _length_fit(cfg) -> Optional[Tuple[int, int]]:
+    """(base, step) of the lengths a long sequence's cost is fitted from
+    (``cost.lengths``), or None to trace it at its length: only the models
+    with chunked recurrent layers (Mamba, RWKV6, the goom layer) trace more
+    ops the longer the sequence; ``step`` is the least common multiple of
+    their chunks, ``base`` the least multiple of it that is no shorter than
+    any attention window (so the window's code path is the one traced)."""
+    chunks = [c for blk in cfg.layer_list for c in (
+        blk.mamba.chunk if blk.mamba is not None else None,
+        blk.rwkv.chunk if blk.rwkv is not None and blk.mixer == "rwkv6" else None,
+        blk.goom.chunk if blk.goom is not None else None) if c]
+    if not chunks:
+        return None
+    step = math.lcm(*chunks)
+    window = max((blk.attn.window or 0 for blk in cfg.layer_list if blk.attn is not None),
+                 default=0)
+    return max(step, -(-window // step) * step), step
+
+
+def _fake_inputs(cfg, shape: ShapeCfg, rows: int) -> Dict[str, torch.Tensor]:
+    """``input_specs`` at ``rows`` rows, as zero tensors."""
+    specs = input_specs(cfg, dataclasses.replace(shape, global_batch=rows))
+    return {k: torch.zeros(v.shape, dtype=v.dtype) for k, v in specs.items()}
+
+
+def _model(cfg):
+    from ..models.model import DecoderLM
+
+    return DecoderLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+
+
+def train_trace(cfg, shape: ShapeCfg, rows: int, microbatches: int = 1,
+                cast_params_bf16: bool = False, memory: bool = True) -> cost.Cost:
+    """One trace of one train step of ``cfg`` on ``rows`` rows of ``shape``
+    in ``microbatches``, AdamW as JAX's dry-run, the engine on its ``cuda``
+    backend; the cost's ``n_metrics`` is how many metrics the step reduces
+    over the batch (those of the loss)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..train import AdamW, cosine_schedule, init_train_state, make_train_step
+
+    with FakeTensorMode(), engine.use_backend("cuda"):
+        model = _model(cfg)
+        opt = _CountedUpdate(AdamW(cosine_schedule(3e-4, 100, 10_000)))
+        state = init_train_state(model, opt)
+        step = make_train_step(model, opt, microbatches=microbatches,
+                               cast_params_bf16=cast_params_bf16)
+        batch = _fake_inputs(cfg, shape, rows)
+        moments = [v for k, tree in state.opt_state.items() if k != "step"
+                   for v in tree.values()]
+        (_, metrics), c = cost.measure(lambda: step(state, batch), modules=[model],
+                                       state=moments, memory=memory)
+    c.n_metrics = len(metrics) - 2      # grad_norm and lr come after the reduction
+    return c
+
+
+def train_cost(cfg, shape: ShapeCfg, rows: int, *, microbatches: int = 1,
+               cast_params_bf16: bool = False) -> cost.Cost:
+    """The cost of one train step of ``cfg`` on ``rows`` rows of ``shape``
+    (``microbatches`` of ``rows / microbatches``; ``train_trace``) from one
+    and two periods of each group (``cost.periods``, which traces at most
+    two microbatches at once and above two extrapolates from 2 and 3).
+
+    Above two microbatches, for a long sequence of a model whose recurrent
+    layers trace more ops the longer it is (``_length_fit``), the counts
+    come from three short sequences (``cost.lengths``, no memory tracked)
+    and the memory from a trace at the full length at two microbatches
+    (the peak is the same at any count from two): three full-length
+    traces would take hours of host time for Jamba.  At one or two
+    microbatches the full-length trace is the cost, counts and memory."""
+    if rows % microbatches:
+        raise ValueError(f"{rows} rows do not split into {microbatches} microbatches")
+    per_mb = rows // microbatches
+
+    def at(sh, mb=microbatches, memory=True):
+        return cost.periods(cfg, lambda c, k: train_trace(
+            c, sh, k * per_mb, k, cast_params_bf16, memory), mb)
+
+    fit = _length_fit(cfg)
+    if microbatches <= 2 or fit is None or shape.seq_len <= fit[0] + 2 * fit[1]:
+        return at(shape)
+    out = cost.lengths(shape.seq_len,
+                       lambda n: at(dataclasses.replace(shape, seq_len=n), memory=False),
+                       base=fit[0], step=fit[1])
+    full = at(shape, 2)
+    out.memory, out.host_s = full.memory, out.host_s + full.host_s
+    return out
+
+
+def serve_trace(cfg, shape: ShapeCfg, rows: int) -> cost.Cost:
+    """One trace of the prefill step (``prefill`` shapes: ``rows`` prompts
+    of ``seq_len`` into fresh caches) or of one decode step (caches of
+    ``seq_len`` positions, the token at the last), the engine on its
+    ``cuda`` backend."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..serve.steps import make_decode_step, make_prefill_step
+
+    with FakeTensorMode():
+        model = _model(cfg)
+        caches = model.init_caches(rows, shape.seq_len)
+        leaves = [leaf for layer in caches for leaf in layer.values()]
+        inputs = _fake_inputs(cfg, shape, rows)
+        if shape.kind == "prefill":
+            step = make_prefill_step(model, backend="cuda")
+            tokens = inputs.pop("tokens")
+            fn = lambda: step(tokens, caches, **inputs)  # noqa: E731
+        else:
+            step = make_decode_step(model, backend="cuda")
+            index = torch.full((rows,), shape.seq_len - 1, dtype=torch.long)
+            fn = lambda: step(inputs["token"], caches, index)  # noqa: E731
+        _, c = cost.measure(fn, modules=[model], state=leaves)
+    return c
+
+
+def serve_cost(cfg, shape: ShapeCfg, rows: int) -> cost.Cost:
+    """The cost of a serve step (``serve_trace``) from one and two periods
+    of each group, each traced at the full length."""
+    return cost.periods(cfg, lambda c, _mb: serve_trace(c, shape, rows))
+
+
+# ---------------------------------------------------------------------------
+# a cell
+# ---------------------------------------------------------------------------
+def _cell_config(arch, perf: Dict, rules_overrides):
+    cfg = get_config(arch) if isinstance(arch, str) else arch
+    if perf.get("banded"):
+        def _banded(blk):
+            if blk.attn is not None and blk.attn.window is not None:
+                return dataclasses.replace(blk, attn=dataclasses.replace(blk.attn, use_banded=True))
+            return blk
+
+        cfg = transform_blocks(cfg, _banded)
+    if perf.get("pure_fsdp"):
+        # ZeRO-3: batch over both mesh axes, weights 2D-sharded and gathered
+        rules_overrides = dict(rules_overrides or {}, batch=("data", "model"),
+                               act_heads=None, act_kv_heads=None, act_mlp=None,
+                               act_vocab=None, act_expert=None)
+    if "remat" in perf:
+        cfg = dataclasses.replace(cfg, remat=perf["remat"])
+    if "logit_chunk" in perf:
+        cfg = dataclasses.replace(cfg, logit_chunk=perf["logit_chunk"])
+    return cfg, rules_overrides
+
+
+_PERF_TOGGLES = {"banded", "pure_fsdp", "cast_params_bf16", "microbatches", "remat",
+                 "logit_chunk"}
+_DEPARTURES = {
+    "seq_parallel": "the port's activations stay whole along time on every rank of the "
+                    "model axis, so sequence parallelism has nothing to shard",
+    "constrain_grads": "the port's step always reduce-scatters the gradients into the "
+                       "parameters' layout; there is no other behaviour to switch to",
+}
+
+
+def _check_perf(perf: Dict) -> None:
+    for key in perf:
+        if key in _DEPARTURES:
+            raise ValueError(f"perf toggle {key!r} is not supported: {_DEPARTURES[key]}")
+        if key not in _PERF_TOGGLES:
+            raise ValueError(f"unknown perf toggle {key!r}; known: {sorted(_PERF_TOGGLES)}")
+
+
+def _serve_overrides(cfg, shape: ShapeCfg, mesh, overrides: Dict) -> Dict:
+    """JAX's KV-cache rules: heads over "model" when every attention layer's
+    KV heads divide it, else the cache's sequence on "model"; long decode
+    shards the cache's sequence over "data" too (context parallelism)."""
+    overrides = dict(overrides)
+    min_kv = min((blk.attn.n_kv_heads for blk in cfg.layer_list if blk.attn is not None),
+                 default=0)
+    model_size = mesh.shape.get("model", 1)
+    kv_divisible = min_kv > 0 and min_kv % model_size == 0
+    overrides.setdefault("kv_cache_heads", "model" if kv_divisible else None)
+    if shape.kind == "long_decode":
+        overrides.setdefault("cache_seq", "data" if kv_divisible else ("data", "model"))
+    elif not kv_divisible:
+        overrides.setdefault("cache_seq", "model")
+    return overrides
+
+
+def mesh_name(mesh) -> str:
+    return "x".join(str(n) for n in mesh.shape.values())
+
+
+def lower_cell(arch, shape: Union[str, ShapeCfg], mesh, *, perf: Optional[Dict] = None,
+               rules_overrides: Optional[Dict] = None, verbose: bool = True) -> Roofline:
+    """The :class:`Roofline` of one cell; ``arch`` a registered name or an
+    ``LMConfig``, ``shape`` a name in ``SHAPES`` or a ``ShapeCfg``, ``mesh``
+    anything with ``shape`` and ``axis_names`` (the abstract production
+    mesh).
+
+    ``perf`` toggles JAX's perf options:
+      banded=True           — banded SWA for the windowed layers
+      pure_fsdp=True        — batch over both mesh axes
+      cast_params_bf16=True — bf16 copies of the f32 parameters, gathered in bf16
+      microbatches=N        — override the per-cell heuristic
+      remat=..., logit_chunk=N
+
+    Two of JAX's toggles are departures and raise ``ValueError``, since no
+    cost of the port would move with them: ``seq_parallel`` (the port's
+    activations stay whole along time on every rank of the model axis)
+    and ``constrain_grads`` (the port's step always reduce-scatters the
+    gradients into the parameters' layout).  An unknown toggle raises too.
+    """
+    t0 = time.perf_counter()
+    perf = dict(perf or {})
+    _check_perf(perf)
+    cfg, rules_overrides = _cell_config(arch, perf, rules_overrides)
+    arch = cfg.name
+    shape_cfg = SHAPES[shape] if isinstance(shape, str) else shape
+    ok, why = shape_applicable(cfg, shape_cfg)
+    if not ok:
+        raise SkipCell(why)
+    overrides = dict(rules_overrides or {})
+    if shape_cfg.kind != "train":
+        overrides = _serve_overrides(cfg, shape_cfg, mesh, overrides)
+    rules = make_rules(mesh, overrides)
+    chips = math.prod(mesh.shape.values())
+    shards = batch_shards(rules, shape_cfg)
+    rows = shape_cfg.global_batch // shards
+    cast = bool(perf.get("cast_params_bf16", False))
+
+    from ..models.model import DecoderLM
+
+    whole_model = DecoderLM(cfg, device="meta")
+    params = {n: (tuple(p.shape), p.dtype) for n, p in whole_model.named_parameters()}
+    param_bytes = sum(_bytes(s, d) for s, d in params.values())
+    mem: Dict[str, float] = {}
+    ops: List[CollectiveOp] = []
+    if shape_cfg.kind == "train":
+        mb = perf.get("microbatches", _pick_microbatches(cfg, shape_cfg, mesh))
+        mb = max(1, min(int(mb), rows))
+        c = train_cost(cfg, shape_cfg, rows, microbatches=mb, cast_params_bf16=cast)
+        laid_out = chips > 1
+        specs = param_specs(rules, whole_model)
+        shard = sum(_bytes(shard_shape(s, specs[n], mesh.shape), d)
+                    for n, (s, d) in params.items())
+        moment_shard = sum(_bytes(shard_shape(s, specs[n], mesh.shape), torch.float32)
+                           for n, (s, _) in params.items()) * 2
+        gathered = sum(_bytes(s, torch.bfloat16 if cast and d == torch.float32 else d)
+                       for s, d in params.values())
+        # the trace holds the cast parameters' bf16 copies above its state
+        # already; the others are gathered beside their blocks
+        held = sum(_bytes(s, d) for s, d in params.values()
+                   if not (cast and d == torch.float32))
+        if laid_out:
+            frac = shard / max(param_bytes, 1)
+            c.bytes -= c.update_bytes * (1 - frac)   # the update runs on the blocks
+            c.written -= c.update_written * (1 - frac)
+            ops = train_collectives(
+                rules, params, specs, cast_params_bf16=cast, n_metrics=c.n_metrics,
+                time_shards=_time_shard_bytes(cfg, rows, shape_cfg.seq_len, cast))
+            peak = shard + moment_shard + held + c.above_state
+        else:
+            peak = c.memory["peak"]
+        mem.update(param_shard_bytes=float(shard), moment_shard_bytes=float(moment_shard),
+                   gathered_param_bytes=float(gathered if laid_out else 0),
+                   microbatches=mb)
+    else:
+        c = serve_cost(cfg, shape_cfg, rows)
+        caches = whole_model.init_caches(shape_cfg.global_batch, shape_cfg.seq_len,
+                                         device="meta")
+        cspecs = cache_specs(rules, caches)
+        cache_shard = sum(_bytes(shard_shape(tuple(leaf.shape), cspecs[f"{i}.{k}"],
+                                             mesh.shape), leaf.dtype)
+                          for i, layer in enumerate(caches) for k, leaf in layer.items())
+        peak = c.memory["peak"]
+        mem.update(cache_shard_bytes=float(cache_shard),
+                   cache_bytes=float(c.memory["state"]))
+    coll_bytes, coll_by_kind = collective_bytes_per_device(ops)
+    mem.update({f"trace_{k}_bytes": float(v) for k, v in c.memory.items()})
+    mem.update(param_bytes=float(param_bytes), above_state_bytes=float(c.above_state),
+               peak_bytes=float(peak), over_hbm=bool(peak > HBM_BYTES),
+               rows=rows, batch_shards=shards)
+    rf = Roofline(
+        arch=arch, shape=shape_cfg.name, mesh=mesh_name(mesh), chips=chips,
+        hlo_flops=c.flops * chips, hlo_bytes=c.written * chips,
+        hlo_bytes_upper=c.bytes * chips,
+        collective_bytes=coll_bytes, collective_by_kind=coll_by_kind,
+        model_flops=model_flops(cfg, shape_cfg), memory_per_device=mem,
+        f32_flops=c.f32_flops * chips,
+        launches={k: int(round(v)) for k, v in c.launches.items()},
+        host_s=time.perf_counter() - t0)
+    if verbose:
+        print(f"[{arch} × {shape_cfg.name} × {rf.mesh}] costed in {rf.host_s:.1f} s "
+              f"({c.host_s:.1f} s tracing)")
+        print(f"  per-device: {rows} rows, peak {peak / GIB:.2f} GiB (HBM 80 GB"
+              f"{', OVER' if peak > HBM_BYTES else ''}); above the parameters and "
+              f"state {c.above_state / GIB:.2f} GiB")
+        print(f"  per-device FLOPs {c.flops:.3e} (f32 {c.f32_flops:.3e}), bytes "
+              f"{c.written:.3e} written ({c.bytes:.3e} read and written), collective "
+              f"ring-bytes {rf.collective_bytes:.3e}; GOOM launches {rf.launches}")
+        print(f"  roofline: compute {rf.compute_s * 1e3:.2f} ms | memory "
+              f"{rf.memory_s * 1e3:.2f} ms | collective {rf.collective_s * 1e3:.2f} ms "
+              f"→ bottleneck: {rf.bottleneck}; useful/step flops "
+              f"{rf.useful_fraction:.2f}; MFU {rf.mfu:.2%}")
+    return rf
+
+
+# ---------------------------------------------------------------------------
+# serving configs from shapes alone
+# ---------------------------------------------------------------------------
+def serve_cache_report(archs, max_slots: int, page_len: int):
+    """Bytes of the slot-managed decode state of each arch at (max_slots,
+    page_len), KV pages apart from the fixed-size recurrent state, from
+    ``meta`` shapes (``serve.slot_cache_bytes``): nothing is allocated."""
+    from ..models.model import DecoderLM
+    from ..serve import slot_cache_bytes
+
+    print(f"# serve cache report: {max_slots} slots x page {page_len}")
+    print("arch,per_slot_MiB,kv_pages_MiB,recurrent_MiB,total_GiB")
+    rows = []
+    for arch in archs:
+        model = DecoderLM(get_config(arch), device="meta")
+        sb = slot_cache_bytes(model, max_slots, page_len)
+        rows.append({"arch": arch, **sb})
+        print(f"{arch},{sb['per_slot']/2**20:.1f},{sb['kv_pages']/2**20:.1f},"
+              f"{sb['recurrent']/2**20:.1f},{sb['total']/2**30:.2f}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the sweep
+# ---------------------------------------------------------------------------
+def _run_cell(arch: str, shape: str, multi_pod: bool):
+    """One cell in a worker process: its dict, a skip or a failure."""
+    torch.set_num_threads(1)
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    name = mesh_name(mesh)
+    try:
+        return "ok", lower_cell(arch, shape, mesh).to_dict()
+    except SkipCell as e:
+        print(f"[{arch} × {shape} × {name}] SKIP: {e}", flush=True)
+        return "skip", {"arch": arch, "shape": shape, "mesh": name, "skipped": str(e)}
+    except Exception as e:  # noqa: BLE001 - reported with the cell, the sweep goes on
+        traceback.print_exc()
+        return "fail", (arch, shape, name, repr(e))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--out", default=None, help="merge JSON results into this file")
+    ap.add_argument("--serve-cache-report", action="store_true",
+                    help="print slot-cache byte costs (meta shapes only; "
+                         "nothing allocated) and exit")
+    ap.add_argument("--serve-slots", type=int, default=128)
+    ap.add_argument("--serve-page-len", type=int, default=32_768)
+    ap.add_argument("--workers", type=int, default=1,
+                    help="cells costed in parallel processes (one thread each)")
+    args = ap.parse_args(argv)
+
+    archs = ASSIGNED_ARCHS if args.all or not args.arch else [args.arch]
+    if args.serve_cache_report:
+        serve_cache_report(archs, args.serve_slots, args.serve_page_len)
+        return
+    pods = [False, True] if args.both_meshes else [args.multi_pod]
+    shapes = list(SHAPES) if args.all or not args.shape else [args.shape]
+    cells = [(arch, shape, pod) for pod in pods for arch in archs for shape in shapes]
+
+    results, failures = [], []
+    if args.workers > 1:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(args.workers, mp_context=ctx) as pool:
+            outcomes = list(pool.map(_run_cell, *zip(*cells)))
+    else:
+        outcomes = [_run_cell(*cell) for cell in cells]
+    for kind, value in outcomes:
+        if kind == "fail":
+            failures.append(value)
+        else:
+            results.append(value)
+
+    if args.out:
+        existing = []
+        if os.path.exists(args.out):
+            with open(args.out) as f:
+                existing = json.load(f)
+        keyf = lambda d: (d["arch"], d["shape"], d["mesh"])  # noqa: E731
+        keep = {keyf(d): d for d in existing}
+        for d in results:
+            keep[keyf(d)] = d
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(list(keep.values()), f, indent=1)
+        print(f"wrote {len(results)} results to {args.out}")
+
+    if failures:
+        print("FAILURES:")
+        for f_ in failures:
+            print(" ", f_)
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,13 @@
 """The train step: forward and backward, the global-norm clip, the
 optimizer update; with gradient accumulation over microbatches.
 
-The port of ``repro/train/train_loop.py`` without bf16 parameter casting.
+The port of ``repro/train/train_loop.py``.  ``cast_params_bf16`` casts
+the f32 parameters to bf16 before the forward (JAX's perf option): laid
+out as DTensors, the cast runs on each rank's blocks *before* the gather,
+so the gather moves bf16 and the gradients are reduce-scattered in bf16,
+then cast back to the parameters' f32.  ``constrain_grads`` has no switch
+here: the DTensor step always reduce-scatters the gradients into the
+parameters' layout (JAX's ``grad_shardings``).
 Distribution takes one of two forms:
 
   * data parallel over ``data_group`` (a ``torch.distributed`` group whose
@@ -128,7 +134,7 @@ def _sum_over_dims(x: torch.Tensor, mesh, dims: Tuple[int, ...]) -> torch.Tensor
 
 def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
                     microbatches: int = 1, grad_compression: Optional[str] = None,
-                    data_group=None, rules=None
+                    data_group=None, rules=None, cast_params_bf16: bool = False
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
     """The train step over ``batch`` = {tokens, labels}, both (B, S) with B
     a multiple of ``microbatches``; any other key (a frontend's
@@ -140,7 +146,8 @@ def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
     ranks, and the metrics (``tokens`` summed); ``grad_compression``: None or
     ``"int8"``.  With DTensor parameters, ``rules`` (the ones they were laid
     out by) name the batch axes the gradients and metrics are reduced over;
-    ``data_group`` must then be None."""
+    ``data_group`` must then be None.  ``cast_params_bf16``: the forward
+    runs on bf16 copies of the f32 parameters (module docstring)."""
     if grad_compression not in (None, "int8"):
         raise ValueError(f"unknown grad_compression {grad_compression!r}; None or 'int8'")
     decay = optimizer.decay_mask(model.cfg, [n for n, _ in model.named_parameters()])
@@ -155,15 +162,22 @@ def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
         for i in batch_dims:
             n_batch *= mesh.size(i)
 
+    def cast(p):
+        return p.to(torch.bfloat16) if cast_params_bf16 and p.dtype == torch.float32 else p
+
     def grads_of(params, tokens, labels, **kw):
+        from torch.nn.utils.stateless import _reparametrize_module
+
         names = list(params)
-        if not sharded:
+        if not sharded and not cast_params_bf16:
             loss, metrics = model.loss(tokens, labels, **kw)
             grads = torch.autograd.grad(loss, [params[n] for n in names])
+        elif not sharded:
+            with _reparametrize_module(model, {n: cast(params[n]) for n in names}):
+                loss, metrics = model.loss(tokens, labels, **kw)
+                grads = torch.autograd.grad(loss, [params[n] for n in names])
         else:
-            from torch.nn.utils.stateless import _reparametrize_module
-
-            whole = {n: _gather(params[n], batch_dims) for n in names}
+            whole = {n: _gather(cast(params[n]), batch_dims) for n in names}
             # the backward stays inside: remat re-runs the forward on `whole`
             with _reparametrize_module(model, whole):
                 loss, metrics = model.loss(tokens, labels, **kw)

@@ -309,3 +309,58 @@ def layouts_world4(rank, ckpt_dir):
     _one_thread()
     return {"dp_tp": _layout_run((2, 2), 1),
             "next": _layout_run((2, 2), 1, restore=ckpt_dir)["rows"]}
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's collectives against a DTensor step's
+# ---------------------------------------------------------------------------
+def dtensor_step_collectives(rank, casts):
+    """For each ``cast_params_bf16`` in ``casts``, one f32 train step of
+    goom-rnn smoke (``remat="none"``, batch 4 of 32 tokens, each rank its
+    slice) with DTensor parameters over a (2, 2) ("data", "model") mesh:
+    ``CommDebugMode``'s counts by kind, and each collective as (kind,
+    result bytes), read from the functional collectives' outputs; with the
+    parameter shapes and specs."""
+    return [_dtensor_step_collectives(cast) for cast in casts]
+
+
+def _dtensor_step_collectives(cast_params_bf16):
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core import engine as eng
+    from repro_torch.launch.mesh import _device_mesh
+    from repro_torch.sharding import distribute_model, make_rules, param_specs, use_rules
+    from repro_torch.train import init_train_state, make_train_step
+
+    _one_thread()
+    kinds = {"all_gather_into_tensor": "all-gather", "reduce_scatter_tensor": "reduce-scatter",
+             "all_reduce": "all-reduce"}
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(t is DTensor for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            name = func._overloadpacket.__name__
+            if name in kinds:
+                seen.append((kinds[name], out.numel() * out.element_size()))
+            return out
+
+    mesh = _device_mesh((2, 2), ("data", "model"), "cpu")
+    rules = make_rules(mesh)
+    model, opt = _train_model()
+    model.cfg = dataclasses.replace(model.cfg, remat="none")
+    specs = param_specs(rules, model)
+    shapes = {n: (tuple(p.shape), str(p.dtype)) for n, p in model.named_parameters()}
+    distribute_model(model, rules)
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt, rules=rules, cast_params_bf16=cast_params_bf16)
+    comm = CommDebugMode()
+    with use_rules(rules), eng.use_backend("torch_reference"), comm, Record():
+        state, metrics = step(state, _rank_batch(rules, mesh, 0))
+    counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
+    return {"counts": counts, "seen": seen, "specs": specs, "shapes": shapes,
+            "n_metrics": len(metrics) - 2}
