@@ -91,6 +91,14 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 against ``"goom"`` and the CPU; goom-rnn-124m's f32 train
                 step with DTensor parameters on a 1-rank ``DeviceMesh``
                 against the plain path (loss and launches);
+  5c. goomcheck — (started with the dry-run, in a child process with one
+                thread and the card visible, joined after phase 14)
+                ``python -m repro_torch.analysis --ci --device cuda``: the
+                port's goomcheck over fake CUDA tensors (its 16 graph
+                targets: the 8 registered engine impls and goom-rnn-124m's
+                and olmo-1b's smoke decode step and prefill under both
+                backends) and its AST rules; it must exit 0 with no active
+                finding and no skipped target;
   6. experiments — the paper's experiments 1 and 2 on the card: float
                 chains fail, GOOM chains complete, the parallel chain (zero-B
                 kernel) equals a loop of LMME launches; Lyapunov spectra and
@@ -2196,6 +2204,71 @@ def join_dryrun(proc, timeout: float = 600.0) -> dict:
         return json.load(f)
 
 
+GOOMCHECK_OUT = str(ROOT / "build" / "goomcheck_torch.json")
+#: the graph targets of goomcheck's repo mode (analysis/targets.py)
+GOOMCHECK_TARGETS = 16
+
+
+def start_goomcheck():
+    """``python -m repro_torch.analysis --ci --device cuda`` in a child
+    process (the card visible, one thread), started with the dry-run so
+    that it overlaps the build and kernel phases; it walks fake CUDA
+    tensors and launches nothing.  The process's ``started`` and, once it
+    has ended, ``ended`` are ``time.perf_counter()`` readings."""
+    import atexit
+    import os
+    import threading
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    if os.path.exists(GOOMCHECK_OUT):
+        os.remove(GOOMCHECK_OUT)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    log = open(GOOMCHECK_OUT + ".log", "w")
+    started = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.analysis", "--ci",
+                             "--device", "cuda", "--json", GOOMCHECK_OUT], cwd=ROOT,
+                            env=env, stdout=log, stderr=subprocess.STDOUT)
+    proc.started = started
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+
+    def watch():
+        proc.wait()
+        proc.ended = time.perf_counter()
+
+    threading.Thread(target=watch, daemon=True).start()
+    return proc
+
+
+def join_goomcheck(proc, timeout: float = 300.0) -> dict:
+    """The child's counts; it must exit 0 with no active finding, no skip
+    and every target walked."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError(f"goomcheck: the child took over {timeout:.0f} s")
+    with open(GOOMCHECK_OUT + ".log") as f:
+        out = f.read().strip()
+    check(proc.returncode == 0, f"goomcheck: exited with {proc.returncode}:\n{out}")
+    with open(GOOMCHECK_OUT) as f:
+        rep = json.load(f)
+    active = [x for x in rep["findings"] if not x["suppressed"]]
+    counts = {"targets": len(rep["targets"]), "findings": len(active),
+              "suppressed": len(rep["findings"]) - len(active),
+              "skips": len(rep["skips"]), "ops": sum(t["ops"] for t in rep["targets"]),
+              "seconds": getattr(proc, "ended", time.perf_counter()) - proc.started}
+    check(rep["ok"] and not active, f"goomcheck: active findings {active}")
+    check(not rep["skips"], f"goomcheck: skipped targets {rep['skips']}")
+    check(counts["targets"] == GOOMCHECK_TARGETS and
+          all(t["ops"] > 0 for t in rep["targets"]),
+          f"goomcheck: walked {rep['targets']}")
+    print("goomcheck: --device cuda, {targets} targets ({ops} aten ops walked), "
+          "{findings} findings, {suppressed} suppressed, {skips} skips, "
+          "{seconds:.1f} s".format(**counts), flush=True)
+    return counts
+
+
 def dryrun_phase(dry: dict, remat: dict) -> dict:
     """The dry-run's train cells against ``remat_phase``'s measurements, per
     variant and remat setting: the predicted GOOM launches a step equal the
@@ -3575,6 +3648,7 @@ def main() -> int:
         os.remove(AUTOTUNE_CACHE)
     t_start = t0 = time.perf_counter()
     dry_proc = None if "--kernels" in sys.argv[1:] else start_dryrun()
+    gc_child = None if "--kernels" in sys.argv[1:] else start_goomcheck()
     build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.build_logs().items():
@@ -3676,6 +3750,8 @@ def main() -> int:
     elapsed("examples")
     tune_launches, _ = autotune_phase()
     elapsed("autotune")
+    join_goomcheck(gc_child)
+    elapsed("goomcheck join")
     for (path, st), tr in zip((("shared_a", stats), ("generic", stats_g),
                                ("jamba-v0.1", stats_j), ("rwkv6-7b", stats_r)),
                               traces.values()):

@@ -18,7 +18,7 @@ import torch
 
 from ..kernels.dispatch import resolve_device
 from . import engine
-from .goom import Goom, to_goom
+from .goom import Goom, safe_log, to_goom
 
 __all__ = ["ChainResult", "chain_matrices", "goom_log_norm", "float_chain_survival",
            "goom_chain", "goom_chain_parallel"]
@@ -37,7 +37,8 @@ def _is_catastrophic(x: torch.Tensor) -> bool:
 def goom_log_norm(s: Goom) -> torch.Tensor:
     """log Frobenius norm straight from log space (no overflow possible)."""
     m = s.log_abs.amax()
-    return 0.5 * torch.log(torch.exp(2.0 * (s.log_abs - m)).sum()) + m
+    # the exp is dominated by the subtracted max (2*(x - m) <= 0); goomcheck: disable=GC202
+    return 0.5 * safe_log(torch.exp(2.0 * (s.log_abs - m)).sum()) + m
 
 
 def float_chain_survival(gen: torch.Generator, d: int, n_steps: int,
@@ -55,7 +56,7 @@ def float_chain_survival(gen: torch.Generator, d: int, n_steps: int,
             break
         s, steps = s_new, steps + 1
     fro = torch.linalg.norm(s.float())
-    return ChainResult(steps, float(torch.log(fro)))
+    return ChainResult(steps, float(safe_log(fro)))
 
 
 def chain_matrices(gen: torch.Generator, d: int, n_steps: int, dtype=torch.float32,

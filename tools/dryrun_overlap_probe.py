@@ -1,8 +1,9 @@
-"""chip_smoke.py's kernel phases with and without its dry-run child beside them.
+"""chip_smoke.py's kernel phases with and without one of its host children.
 
-``chip_smoke.py`` starts the dry-run of goom-rnn-124m's train cells
-(``start_dryrun``: a child process on the host alone, one thread, no card)
-before the build and joins it after the kernel phases.  This probe builds
+``chip_smoke.py`` starts two children before the build: the dry-run of
+goom-rnn-124m's train cells (``start_dryrun``: one thread, no card) and the
+port's goomcheck on fake CUDA tensors (``start_goomcheck``: one thread, the
+card visible, nothing launched).  This probe builds
 the kernels, then runs the kernel phases (``kernel_phase``,
 ``rwkv6_lmme_phase``, ``scan_kernel_phase``, ``max_d_phase``,
 ``diag_kernel_phase``) four times: alone, beside a freshly started child,
@@ -13,11 +14,12 @@ the rows of (beside the child) / (alone).  The child starts with the
 kernel phases here, after the build, so it overlaps more of them than in
 ``chip_smoke.py``.  Run on a machine with a card, from the repository root:
 
-    python tools/dryrun_overlap_probe.py
+    python tools/dryrun_overlap_probe.py [--child dryrun|goomcheck]
 
-The full output goes to ``chiprun_out/dryrun_overlap_probe.json``.
+The full output goes to ``chiprun_out/<child>_overlap_probe.json``.
 """
 
+import argparse
 import json
 import os
 import pathlib
@@ -65,8 +67,14 @@ def _watch(proc, t_start: float, out: dict) -> None:
     out["s"] = time.perf_counter() - t_start
 
 
-def main() -> int:
+def main(argv=None) -> int:
     from repro_torch.kernels import build
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--child", choices=("dryrun", "goomcheck"), default="dryrun")
+    which = p.parse_args(argv).child
+    start, join = ((cs.start_dryrun, cs.join_dryrun) if which == "dryrun"
+                   else (cs.start_goomcheck, cs.join_goomcheck))
 
     if not torch.cuda.is_available():
         print("dryrun_overlap_probe: no CUDA device", file=sys.stderr)
@@ -80,13 +88,13 @@ def main() -> int:
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
     runs = []
     for kind in RUNS:
-        proc = cs.start_dryrun() if kind == "child" else None
+        proc = start() if kind == "child" else None
         t_start, child = time.perf_counter(), {}
         if proc is not None:
             threading.Thread(target=_watch, args=(proc, t_start, child), daemon=True).start()
         seconds, rows = kernel_phases()
         if proc is not None:
-            cs.join_dryrun(proc)
+            join(proc)
         runs.append(dict(kind=kind, seconds=seconds, total_s=sum(seconds.values()),
                          child_s=child.get("s"), rows=rows))
         print(f"run {len(runs)} ({kind}): " + ", ".join(
@@ -108,7 +116,7 @@ def main() -> int:
                                high=max(per_row), rows=len(per_row))
     for name, vals in table.items():
         print(f"{name}: " + " / ".join(f"{v:.4f}" for v in vals), flush=True)
-    print("beside the child over alone, by row (runs 2-3 over 1 and 4): " + "; ".join(
+    print(f"beside the {which} child over alone, by row (runs 2-3 over 1 and 4): " + "; ".join(
         f"{k} median {v['median']:.3f} ({v['low']:.3f}-{v['high']:.3f}, {v['rows']} rows)"
         for k, v in ratios.items()) + f"; {card}", flush=True)
     print("phase seconds by run (" + ", ".join(RUNS) + "): " + "; ".join(
@@ -119,8 +127,8 @@ def main() -> int:
         for r in runs) + f" s; {card}", flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    with open(out / "dryrun_overlap_probe.json", "w") as f:
-        json.dump(dict(card=card, runs=[{k: v for k, v in r.items() if k != "rows"}
+    with open(out / f"{which}_overlap_probe.json", "w") as f:
+        json.dump(dict(card=card, child=which, runs=[{k: v for k, v in r.items() if k != "rows"}
                                         for r in runs], table=table, ratios=ratios), f,
                   indent=1)
     return 0
