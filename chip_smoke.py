@@ -117,7 +117,7 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 layer kind, then the parity check of phase 4 at f32 compute
                 on the same weights;
   8. rwkv6    — serve rwkv6-7b at full width (d=4096, 64 heads of 64, d_ff
-                14336, vocab 65536) cut to 16 of its 32 layers (7.9 GB in
+                14336, vocab 65536) cut to 8 of its 32 layers (3.9 GB in
                 bf16) with the phases of 7: every engine LMME
                 call (one a layer and WKV chunk, at decode too) must have
                 launched the LMME kernel, and no other GOOM op may run;
@@ -126,8 +126,8 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
   9. families — olmo-1b, codeqwen1.5-7b, phi3.5-moe, mixtral-8x7b,
                 glm4-9b and gemma3-1b at full width, bf16 weights, each at
                 full depth where its weights fit in 40 GB, else the most
-                whole layers that do (phi3.5-moe 15 of 32, mixtral-8x7b 13
-                of 32), one at a time: the closed batch through the graphed
+                whole layers that do, and cut to ``DEPTH_CUTS`` and
+                ``PERIOD_CUTS`` (below), one at a time: the closed batch through the graphed
                 Engine at horizons 8 and 1 (tokens equal), the graphed
                 decode step traced, and at f32 compute with f32 KV the
                 Engine's tokens against the argmax of a no-cache forward at
@@ -150,6 +150,23 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 a no-cache forward's argmax; then banded sliding-window
                 attention against the dense windowed path (gemma3-1b's smoke
                 config, f32, logits within 1e-5·std);
+ 10b. flash   — blockwise flash attention where it matters, no fallback:
+                gemma3-1b at full width and depth (bf16 weights) through
+                ``generate`` on 2 prompts of its published 32768-token
+                context, 8 tokens each: the fresh single-shot prefill (32
+                key blocks on each of 26 layers) timed and traced, its peak
+                above the floor held within 1.05x of the dry-run cell's
+                (computed in the dry-run child), the graphed decode step at
+                that context; at f32 a 4096-token prompt at 4 key blocks
+                against one block (last logits within 1e-4·std, tokens
+                equal but after a near tie); olmo-1b trained at its 2048-token
+                context (B=8, bf16, remat full): step wall, busy and peak,
+                one f32 step at 2 blocks against one (loss within 1e-4), and
+                its attention's output and gradients at that shape each
+                within twice one block's distance to float64; Jamba's smoke
+                config trained 3 f32 steps (capacity routing) on the card
+                against the CPU (loss, grad norm and lr within rtol 1e-3),
+                every diagonal_scan call on the kernel;
  11. examples — ``examples/quickstart_torch.py``,
                 ``lyapunov_spectra_torch.py`` and ``serve_lm_torch.py`` run
                 in-process (their ``main()``) at their default sizes, each
@@ -180,9 +197,11 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 The run's cache is a file of its own (``AUTOTUNE_CACHE``),
                 deleted after, so no earlier cache moves a launch.
 
-Cut for the run's time (``DEPTH_CUTS``): codeqwen1.5-7b and glm4-9b run 8
-of their layers (their attention runs olmo-1b's code, which runs whole),
-phi3.5-moe and mixtral-8x7b 4, rwkv6-7b 16 of 32, training 3 steps a
+Cut for the run's time (``DEPTH_CUTS``, ``PERIOD_CUTS``): codeqwen1.5-7b and
+glm4-9b run 2 of their layers (their attention runs olmo-1b's code, which
+runs whole), phi3.5-moe and mixtral-8x7b 2, rwkv6-7b 8 of 32, gemma3-1b's
+families phase one period of each group (8 of its 26 layers, which run
+whole in phase 10b), training 3 steps a
 variant (2 a remat setting); RWKV6's LMME shapes are
 timed once a shape, and the scans' odd signed shapes are checked, not
 timed.
@@ -1769,14 +1788,14 @@ def _train_setup(model):
     return opt, init_train_state(model, opt)
 
 
-def _train_batches(cfg, n):
+def _train_batches(cfg, n, batch=TRAIN["batch"], seq_len=TRAIN["seq_len"]):
+    """``n`` Copy-Memory batches of ``cfg``'s vocab on the card."""
     import itertools
 
     from repro_torch.train import DataConfig, Prefetcher, SyntheticStream
 
-    stream = SyntheticStream(DataConfig(task="copy", vocab=cfg.vocab,
-                                        seq_len=TRAIN["seq_len"],
-                                        global_batch=TRAIN["batch"], seed=SEED))
+    stream = SyntheticStream(DataConfig(task="copy", vocab=cfg.vocab, seq_len=seq_len,
+                                        global_batch=batch, seed=SEED))
     return Prefetcher(itertools.islice(stream, n), DEVICE)
 
 
@@ -2149,9 +2168,11 @@ DRYRUN_OUT = str(ROOT / "build" / "chip_smoke_dryrun.json")
 def dryrun_cells(out: str) -> None:
     """The dry-run of goom-rnn-124m's train step (``launch.dryrun.lower_cell``
     on fake tensors: no device) at train_phase's B and S, bf16 compute, on a
-    (1, 1) mesh, for both variants under ``DRYRUN_REMATS``; written to
-    ``out`` as {variant: {remat: Roofline dict}}.  Run in a process of its
-    own with one thread and no card (``start_dryrun``)."""
+    (1, 1) mesh, for both variants under ``DRYRUN_REMATS``, and of
+    ``long_attention_phase``'s prefill (``long_dryrun_cell``); written to
+    ``out`` as {"train": {variant: {remat: Roofline dict}}, "long_prefill":
+    Roofline dict}.  Run in a process of its own with one thread and no card
+    (``start_dryrun``)."""
     import torch
 
     from repro_torch import get_config
@@ -2163,10 +2184,11 @@ def dryrun_cells(out: str) -> None:
     cfg = get_config("goom-rnn-124m")
     shape = ShapeCfg("chip_train", TRAIN["seq_len"], TRAIN["batch"], "train")
     mesh = NamedMesh((1, 1), ("data", "model"))
-    res = {v: {r: lower_cell(with_scan_variant(cfg, v), shape, mesh, verbose=False,
-                             perf={"remat": r, "microbatches": 1}).to_dict()
-               for r in DRYRUN_REMATS}
-           for v in ("shared_a", "generic")}
+    train = {v: {r: lower_cell(with_scan_variant(cfg, v), shape, mesh, verbose=False,
+                               perf={"remat": r, "microbatches": 1}).to_dict()
+                 for r in DRYRUN_REMATS}
+             for v in ("shared_a", "generic")}
+    res = {"train": train, "long_prefill": long_dryrun_cell()}
     with open(out, "w") as f:
         json.dump(res, f)
 
@@ -3089,21 +3111,30 @@ def weight_bytes(cfg):
 
 #: cuts in depth for the run's time: codeqwen1.5-7b's and glm4-9b's attention
 #: runs olmo-1b's code, which runs at full depth; the MoE families' layers
-#: are all alike (4 of them still route over all 16 or 8 experts);
-#: rwkv6-7b's layers are all alike, and 16 of them read 7.9 GB a decode step
-DEPTH_CUTS = {"codeqwen1.5-7b": 8, "glm4-9b": 8, "phi3.5-moe": 4, "mixtral-8x7b": 4,
-              "rwkv6-7b": 16}
+#: are all alike (2 of them still route over all 16 or 8 experts);
+#: rwkv6-7b's layers are all alike, and 8 of them read 3.9 GB a decode step
+DEPTH_CUTS = {"codeqwen1.5-7b": 2, "glm4-9b": 2, "phi3.5-moe": 2, "mixtral-8x7b": 2,
+              "rwkv6-7b": 8}
+#: cuts in periods: gemma3-1b serves one period of each group (5 local and 1
+#: global layer, then its 2 local ones: paged global KV beside rings); its
+#: 26 layers run whole in ``long_attention_phase``
+PERIOD_CUTS = {"gemma3-1b": 1}
 
 
 def family_config(arch):
     """``arch`` at full width with bf16 weights, cut in depth to the most
     whole layers whose weights fit in ``FAMILY_WEIGHT_BYTES``, and to
-    ``DEPTH_CUTS``."""
+    ``DEPTH_CUTS``; each group to at most ``PERIOD_CUTS`` periods."""
     import torch
 
     from repro_torch import get_config
 
     cfg = dataclasses.replace(get_config(arch), param_dtype=torch.bfloat16)
+    if arch in PERIOD_CUTS:
+        groups = tuple(dataclasses.replace(g, n_periods=min(g.n_periods, PERIOD_CUTS[arch]))
+                       for g in cfg.groups)
+        cfg = dataclasses.replace(cfg, groups=groups, n_layers=sum(
+            len(g.period) * g.n_periods for g in groups))
     layers, rest = weight_bytes(cfg)
     depth = cfg.n_layers
     if rest + sum(layers) > FAMILY_WEIGHT_BYTES:
@@ -3517,6 +3548,447 @@ def banded_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 10b: flash attention at long context, and Jamba's training, on the card
+# ---------------------------------------------------------------------------
+#: gemma3-1b's published context (Gemma 3 tech report, arXiv:2503.19786):
+#: LONG_ROWS prompts of LONG_PROMPT tokens, LONG_NEW tokens each through
+#: generate (the dry-run's prefill_32k slice of a device: 2 of its 32 rows)
+LONG_ARCH, LONG_PROMPT, LONG_ROWS, LONG_NEW = "gemma3-1b", 32768, 2, 8
+#: replays of the decode graph at that context, timed by wall clock and profiled
+LONG_DECODE_ITERS = 8
+#: the f32 check: a prompt of this many tokens at the default tiles (4 key
+#: blocks) against one block of all of them (the parent's arithmetic)
+LONG_F32_PROMPT = 4096
+#: olmo-1b (arXiv:2402.00838) trained at its published context
+FLASH_TRAIN = dict(arch="olmo-1b", batch=8, seq_len=2048, steps=3, lr=3e-4, warmup=2,
+                   total=100)
+#: Jamba's smoke config trained on the card against the CPU, step by step
+JAMBA_TRAIN = dict(batch=2, seq_len=32, steps=3, rtol=1e-3)
+
+
+def long_dryrun_cell():
+    """The dry-run's cell of ``long_attention_phase``'s prefill: gemma3-1b
+    with bf16 weights, LONG_ROWS prompts of LONG_PROMPT tokens on fresh
+    caches of that length, a (1, 1) mesh (``lower_cell``, fake tensors)."""
+    import torch
+
+    from repro_torch import get_config
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.sharding import NamedMesh
+
+    cfg = dataclasses.replace(get_config(LONG_ARCH), param_dtype=torch.bfloat16)
+    shape = ShapeCfg("prefill_32k", LONG_PROMPT, LONG_ROWS, "prefill")
+    return lower_cell(cfg, shape, NamedMesh((1, 1), ("data", "model")), verbose=False).to_dict()
+
+
+@contextlib.contextmanager
+def attention_tiles(model, **tiles):
+    """Within: every attention layer of ``model`` (and its config) runs
+    flash attention with ``tiles`` (``block_q``, ``block_kv``)."""
+    def retile(blk):
+        return blk if blk.attn is None else dataclasses.replace(
+            blk, attn=dataclasses.replace(blk.attn, **tiles))
+
+    from repro_torch.configs import transform_blocks
+
+    cfg = model.cfg
+    mixers = [(layer.mixer, layer.mixer.cfg) for layer in model.layers
+              if layer.blk.mixer == "attention"]
+    model.cfg = transform_blocks(cfg, retile)
+    for mixer, c in mixers:
+        mixer.cfg = dataclasses.replace(c, **tiles)
+    try:
+        yield model
+    finally:
+        model.cfg = cfg
+        for mixer, c in mixers:
+            mixer.cfg = c
+
+
+def _prefill_step(model):
+    """The single-shot prefill on fresh caches (``generate``'s)."""
+    from repro_torch.serve import make_prefill_step
+
+    return make_prefill_step(model, fresh_caches=True)
+
+
+def _prefill_logits(model, prompt, max_len):
+    """Last logits (B, vocab) f32 of a single-shot prefill on fresh caches."""
+    logits, _ = _prefill_step(model)(prompt, model.init_caches(prompt.shape[0], max_len))
+    return logits[:, -1].float()
+
+
+def _long_context(cfg, model, dry_cell):
+    """gemma3-1b's generate at LONG_ROWS x LONG_PROMPT: the fresh prefill's
+    device busy (a trace of CUDA activity), the graphed decode step over
+    its caches, the prefill's wall and its peak over the floor at the
+    dry-run's shape (caches of the prompt's length, peak reset just
+    before), against the dry-run cell; then ``generate`` itself."""
+    import torch
+
+    from repro_torch.serve import StepGraphs, generate, make_decode_in_place
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    prompt = torch.randint(0, cfg.vocab, (LONG_ROWS, LONG_PROMPT), generator=gen,
+                           device=DEVICE)
+    attn = [b.attn for b in cfg.layer_list if b.attn is not None]
+    n_blocks = {-(-LONG_PROMPT // a.block_kv) for a in attn}
+    held = {}
+    with torch.no_grad():
+        def prefill_for_decode():
+            held["out"] = _prefill_step(model)(prompt, model.init_caches(
+                LONG_ROWS, LONG_PROMPT + LONG_NEW))
+        busy, n_kernels = _busy_ms(prefill_for_decode)
+        logits, caches = held.pop("out")
+        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        index = torch.full((LONG_ROWS,), LONG_PROMPT, dtype=torch.long, device=DEVICE)
+        graphs, step = StepGraphs(), make_decode_in_place(model)
+
+        def run():
+            graphs.run("generate_decode", step, tok, caches, index)
+
+        run()   # the capture
+        step_ms = _timed(run, LONG_DECODE_ITERS)
+        step_busy = _device_ms(_profiled(run, LONG_DECODE_ITERS)) / LONG_DECODE_ITERS
+        del caches, logits, graphs
+        free_memory()
+        caches = model.init_caches(LONG_ROWS, LONG_PROMPT)     # the dry-run's slice
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        floor = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        logits, _ = _prefill_step(model)(prompt, caches)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        check(bool(torch.isfinite(logits).all()), f"long [{LONG_ARCH}]: prefill logits")
+        del caches, logits
+        free_memory()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = generate(model, prompt, LONG_NEW, LONG_PROMPT + LONG_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches, calls = read_counts()
+    check_launches(launches, calls, f"long [{LONG_ARCH}]", set())
+    check(tuple(toks.shape) == (LONG_ROWS, LONG_NEW)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"long [{LONG_ARCH}]: generate gave {tuple(toks.shape)} tokens or ids out of vocabulary")
+    mem = dry_cell["memory_per_device"]
+    predicted = mem["above_state_bytes"] / 2**30
+    measured = (peak - floor) / 2**30
+    ratio = predicted / measured
+    check(1 / DRYRUN_PEAK_FACTOR <= ratio <= DRYRUN_PEAK_FACTOR,
+          f"long [{LONG_ARCH}]: predicted {predicted:.3f} GiB above the state against the "
+          f"measured {measured:.3f} above the floor (ratio {ratio:.3f})")
+    print(f"long [{LONG_ARCH}]: {LONG_ROWS} prompts of {LONG_PROMPT} tokens, fresh single-shot "
+          f"flash prefill ({sorted(n_blocks)} key blocks a layer, {len(attn)} layers): "
+          f"{wall:.3f} ms wall, {busy:.3f} ms device busy in {n_kernels} kernels; peak "
+          f"{peak / 2**30:.3f} GiB, {measured:.3f} above the {floor / 2**30:.3f} allocated at "
+          f"the reset; the dry-run cell (prefill_32k at {LONG_ROWS} rows, (1, 1) mesh) "
+          f"predicts {mem['peak_bytes'] / 2**30:.3f} GiB, {predicted:.3f} above the "
+          f"parameters and caches (ratio {ratio:.3f}; the parent's cell read 120.0 GiB); "
+          f"graphed decode step at {LONG_PROMPT} positions {step_ms:.3f} ms wall / "
+          f"{step_busy:.3f} ms busy; generate {LONG_NEW} tokens a row in {gen_s:.3f} s "
+          f"(its prefill included); {card_line()}", flush=True)
+    return dict(prefill_ms=wall, prefill_busy_ms=busy, kernels=n_kernels,
+                peak_gib=peak / 2**30, above_gib=measured, predicted_gib=predicted,
+                predicted_peak_gib=mem["peak_bytes"] / 2**30, ratio=ratio,
+                step_ms=step_ms, step_busy_ms=step_busy, generate_s=gen_s,
+                n_blocks=sorted(n_blocks))
+
+
+def _blocks_vs_one(cfg, model):
+    """At f32 compute on the same weights: a LONG_F32_PROMPT-token prompt at
+    the default tiles (several key blocks) against one block of all its
+    keys (``block_kv = LONG_F32_PROMPT``): last prefill logits within
+    1e-4·std, ``generate``'s tokens equal except after a near tie of the
+    one-block path's logits."""
+    import torch
+
+    from repro_torch.serve import generate
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 37)
+    prompt = torch.randint(0, cfg.vocab, (LONG_ROWS, LONG_F32_PROMPT), generator=gen,
+                           device=DEVICE)
+    max_len = LONG_F32_PROMPT + LONG_NEW
+    blocks = {-(-LONG_F32_PROMPT // b.attn.block_kv) for b in cfg.layer_list if b.attn}
+    out = {}
+    model.cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    try:
+        with torch.no_grad():
+            for label, tiles in (("blocks", {}), ("one", {"block_kv": LONG_F32_PROMPT})):
+                with attention_tiles(model, **tiles):
+                    out[label] = (_prefill_logits(model, prompt, max_len),
+                                  generate(model, prompt, LONG_NEW, max_len).tolist())
+            (lg, toks), (lg1, toks1) = out["blocks"], out["one"]
+            gap = float((lg - lg1).abs().max() / lg1.std())
+            compared, stopped = 0, []
+            with attention_tiles(model, block_kv=max_len):
+                for r in range(LONG_ROWS):
+                    for i, (x, y) in enumerate(zip(toks[r], toks1[r])):
+                        if x != y:
+                            seq = torch.cat([prompt[r:r + 1], torch.tensor(
+                                [toks1[r][:i]], device=DEVICE, dtype=torch.long)], 1)
+                            ref = _prefill_logits(model, seq, max_len)
+                            _near_tie(ref, 0, x, y, f"long f32 [{LONG_ARCH}]: row {r}")
+                            stopped.append((r, i))
+                            break
+                        compared += 1
+    finally:
+        model.cfg = cfg
+    check(gap < 1e-4, f"long f32 [{LONG_ARCH}]: last logits at {sorted(blocks)} key blocks "
+          f"{gap:.3e}·std from one block's")
+    print(f"long f32 [{LONG_ARCH}]: {LONG_ROWS} prompts of {LONG_F32_PROMPT} tokens, "
+          f"{sorted(blocks)} key blocks a layer against one block: last prefill logits "
+          f"{gap:.3e}·std apart; {compared} generate tokens equal; stopped at near ties "
+          f"{stopped or 'none'}", flush=True)
+    return dict(gap=gap, compared=compared, stopped=stopped)
+
+
+def _flash_train():
+    """olmo-1b at full width and its published context: FLASH_TRAIN's steps
+    of ``make_train_step`` (bf16 compute, f32 weights, AdamW,
+    ``remat="full"``), each key block of 1024 keys: wall, device busy and
+    peak; then one f32 step at the default tiles (2 key blocks) against one
+    block: the loss within ``_train_parity``'s TRAIN_LOSS_RTOL, and the
+    gradients' gap printed beside ``_train_parity``'s bar (twice the larger
+    of the two paths' spreads when every weight moves one ulp), which the
+    gap does not meet at this step's 16384 tokens (PERF.md §6: each
+    blocking rounds dq apart element by element, and the weights' gradients
+    sum 16384 such terms with cancellation, where the weights' one-ulp move
+    shifts dq smoothly); ``_flash_f64`` gates the attention's gradients
+    instead."""
+    import torch
+
+    from repro_torch import DecoderLM, get_config
+    from repro_torch.train import AdamW, cosine_schedule, init_train_state, make_train_step
+
+    t = FLASH_TRAIN
+    cfg = dataclasses.replace(get_config(t["arch"]), remat="full")
+    model = DecoderLM(cfg, device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    batches = list(_train_batches(cfg, t["steps"] + 2, t["batch"], t["seq_len"]))
+    opt = AdamW(cosine_schedule(t["lr"], t["warmup"], t["total"]))
+    state = init_train_state(model, opt)
+    step_fn = make_train_step(model, opt)
+    state, _ = step_fn(state, batches[0])      # warm-up: the allocator, cuBLAS
+    torch.cuda.synchronize()
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    floor = torch.cuda.memory_allocated()
+    walls, losses = [], []
+    for b in batches[1:1 + t["steps"]]:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    busy, n_kernels = _busy_ms(lambda: step_fn(state, batches[-1]))
+    check(all(map(math.isfinite, losses)), f"flash train [{t['arch']}]: losses {losses}")
+    del state, opt, step_fn
+    free_memory()
+
+    batch = batches[-1]
+    params = dict(model.named_parameters())
+    seed_weights = {n: p.detach().clone() for n, p in params.items()}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    grads, losses32 = {}, {}
+    one = {"block_kv": t["seq_len"]}
+    model.cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    try:
+        for moved in (False, True):
+            if moved:
+                with torch.no_grad():   # every weight one f32 ulp up or down
+                    for p in params.values():
+                        up = torch.rand(p.shape, generator=gen, device=DEVICE) < 0.5
+                        p.copy_(torch.nextafter(p, torch.where(up, torch.inf, -torch.inf)))
+            for path, tiles in (("one", one), ("blocks", {})):
+                with attention_tiles(model, **tiles):
+                    loss32, grads[path, moved] = _grads(model, batch)
+                if not moved:
+                    losses32[path] = float(loss32.detach())
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(seed_weights[n])
+    finally:
+        model.cfg = cfg
+    loss_gap = abs(losses32["blocks"] - losses32["one"]) / abs(losses32["one"])
+    worst = _worst(_grad_gaps(grads["blocks", False], grads["one", False]))
+    spreads = {path: _worst(_grad_gaps(grads[path, True], grads[path, False]))
+               for path in ("one", "blocks")}
+    spread = max(spreads.values(), key=lambda kv: kv[1])
+    bound = TRAIN_SPREAD_FACTOR * spread[1]
+    n_blocks = -(-t["seq_len"] // cfg.layer_list[0].attn.block_kv)
+    out = dict(step_ms=statistics.median(walls), busy_ms=busy, kernels=n_kernels,
+               peak_gib=peak / 2**30, floor_gib=floor / 2**30, losses=losses,
+               loss_gap=loss_gap, grad_err=worst[1], grad_err_at=worst[0],
+               spread=spread[1], bound=bound)
+    print(f"flash train [{t['arch']}]: B={t['batch']} S={t['seq_len']}, bf16, remat full, "
+          f"{n_blocks} key blocks a layer: step {out['step_ms']:.1f} ms wall (median of "
+          f"{t['steps']}), {busy:.3f} ms device busy in {n_kernels} kernels, peak "
+          f"{out['peak_gib']:.2f} GiB ({out['floor_gib']:.2f} allocated at the reset); loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; f32 step at {n_blocks} blocks against one: "
+          f"loss {losses32['blocks']:.6f} vs {losses32['one']:.6f} (relative gap "
+          f"{loss_gap:.2e}, bound {TRAIN_LOSS_RTOL:.0e}), grads' worst max-normalised gap "
+          f"{worst[1]:.2e} at {worst[0]}; each path's spread, "
+          f"weights one ulp apart: one block {spreads['one'][1]:.2e} at {spreads['one'][0]}, "
+          f"{n_blocks} blocks {spreads['blocks'][1]:.2e} at {spreads['blocks'][0]}; twice "
+          f"the larger {bound:.2e} (not a gate here: see the docstring); {card_line()}",
+          flush=True)
+    check(loss_gap <= TRAIN_LOSS_RTOL and all(
+        bool(torch.isfinite(g).all()) for g in grads["blocks", False].values()),
+          f"flash train [{t['arch']}]: f32 loss at {n_blocks} key blocks "
+          f"{losses32['blocks']} vs one block's {losses32['one']}, or a gradient not finite")
+    del model, grads, seed_weights
+    free_memory()
+    out["f64"] = _flash_f64(cfg)
+    return out
+
+
+def _flash_f64(cfg):
+    """Flash attention at ``cfg``'s attention shape and FLASH_TRAIN's batch
+    and length (causal), f32 on the card, at the default tiles and at one
+    key block, against a float64 dense softmax attention and its autograd
+    on the same inputs (N(0, 1) q, k, v and output gradient): the output and
+    dq, dk, dv at several blocks each within TRAIN_SPREAD_FACTOR of one
+    block's distance to float64 (max |x - exact| / max |exact|)."""
+    import torch
+
+    from repro_torch.models.attention import flash_attention
+
+    t, a = FLASH_TRAIN, cfg.layer_list[0].attn
+    b, s = t["batch"], t["seq_len"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 43)
+
+    def draw(heads):
+        return torch.randn(b, s, heads, a.head_dim, generator=gen, device=DEVICE,
+                           dtype=torch.float64)
+
+    q, k, v, dout = draw(a.n_heads), draw(a.n_kv_heads), draw(a.n_kv_heads), draw(a.n_heads)
+    scale = a.head_dim ** -0.5
+    x64 = [x.clone().requires_grad_() for x in (q, k, v)]
+    g = a.n_heads // a.n_kv_heads
+    sc = torch.einsum("bqhd,bkhd->bhqk", x64[0], x64[1].repeat_interleave(g, 2)) * scale
+    causal = torch.ones(s, s, dtype=torch.bool, device=DEVICE).tril()
+    p = torch.softmax(sc.masked_fill(~causal, -torch.inf), -1)
+    o64 = torch.einsum("bhqk,bkhd->bqhd", p, x64[2].repeat_interleave(g, 2))
+    o64.backward(dout)
+    exact = [o64.detach()] + [x.grad for x in x64]
+    del sc, p, o64, x64
+    free_memory()
+    pos = torch.arange(s, device=DEVICE)
+    dist = {}
+    for path, bk in (("one", s), ("blocks", a.block_kv)):
+        x32 = [x.float().requires_grad_() for x in (q, k, v)]
+        out = flash_attention(*x32, q_positions=pos, kv_positions=pos, window=a.window,
+                              scale=scale, block_q=a.block_q, block_kv=bk)
+        out.backward(dout.float())
+        got = [out.detach()] + [x.grad for x in x32]
+        dist[path] = [float((y.double() - e).abs().max() / e.abs().max())
+                      for y, e in zip(got, exact)]
+    names = ("out", "dq", "dk", "dv")
+    n_blocks = -(-s // a.block_kv)
+    print(f"flash f64 [{t['arch']} attention, B={b} S={s}, {a.n_heads} heads of {a.head_dim}, "
+          f"causal]: distance to float64 at {n_blocks} blocks / one block: " + ", ".join(
+              f"{n} {x:.2e} / {y:.2e}" for n, x, y in zip(names, dist["blocks"], dist["one"]))
+          + f"; bound {TRAIN_SPREAD_FACTOR} x one block's", flush=True)
+    check(all(x <= TRAIN_SPREAD_FACTOR * y for x, y in zip(dist["blocks"], dist["one"])),
+          f"flash f64: {n_blocks} blocks {dist['blocks']} against one block {dist['one']}")
+    return dict(zip(names, dist["blocks"]), one=dict(zip(names, dist["one"])))
+
+
+def _jamba_train():
+    """Jamba's smoke config (capacity routing in training, its attention
+    through flash, its Mamba scans on the diagonal-scan kernel) trained
+    JAMBA_TRAIN's f32 steps on the card and on the CPU from the same
+    weights and batches: loss, grad norm and lr within rtol; every engine
+    ``diagonal_scan`` call on the card launched the kernel."""
+    import torch
+
+    from repro_torch import DecoderLM, get_config
+    from repro_torch.train import AdamW, cosine_schedule, init_train_state, make_train_step
+
+    j = JAMBA_TRAIN
+    cfg = dataclasses.replace(get_config("jamba-v0.1", smoke=True),
+                              compute_dtype=torch.float32)
+    batches = list(_train_batches(cfg, j["steps"], j["batch"], j["seq_len"]))
+    rows = {}
+    weights = None
+    for device in (DEVICE, "cpu"):
+        model = DecoderLM(cfg, device=device,
+                          generator=torch.Generator(device=device).manual_seed(SEED))
+        if weights is None:
+            weights = {k: v.cpu() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        opt = AdamW(cosine_schedule(3e-3, 2, 10))
+        state = init_train_state(model, opt)
+        step_fn = make_train_step(model, opt)
+        reset_counts()
+        got = []
+        for b in batches:
+            state, m = step_fn(state, {k: v.to(device) for k, v in b.items()})
+            got.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
+        rows[device] = got
+        if device == DEVICE:
+            torch.cuda.synchronize()
+            launches, calls = read_counts()
+            check_launches(launches, calls, "train [jamba-v0.1 smoke]", USED["jamba-v0.1"])
+    card, cpu = rows[DEVICE], rows["cpu"]
+    gap = max(abs(a - b) / abs(b) for r, s in zip(card, cpu) for a, b in zip(r, s))
+    check(gap <= j["rtol"], f"train [jamba-v0.1 smoke]: (loss, grad norm, lr) on the card "
+          f"{card} against the CPU {cpu}")
+    print(f"train [jamba-v0.1 smoke] (f32, capacity routing, B={j['batch']} S={j['seq_len']}): "
+          f"{j['steps']} steps, (loss, grad norm, lr) on the card {card} against the CPU "
+          f"{cpu}, largest relative gap {gap:.2e} (bound {j['rtol']:.0e}); launches "
+          f"{launches} == engine calls {calls}", flush=True)
+    return dict(rows=card, cpu=cpu, gap=gap, launches=launches)
+
+
+def long_attention_phase(dry_cell):
+    """Flash attention on the card where it matters (no path falls back to
+    the CPU or to one key block when it fails): gemma3-1b at full width
+    with bf16 weights at its published context through ``generate``
+    (``_long_context``) and its f32 check of several key blocks against one
+    (``_blocks_vs_one``); olmo-1b trained at its context (``_flash_train``);
+    Jamba's smoke config trained against the CPU (``_jamba_train``)."""
+    import torch
+
+    from repro_torch import DecoderLM, get_config
+
+    free_memory()
+    cfg = dataclasses.replace(get_config(LONG_ARCH), param_dtype=torch.bfloat16)
+    model = DecoderLM(cfg, device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    out = {"long": _long_context(cfg, model, dry_cell),
+           "f32": _blocks_vs_one(cfg, model)}
+    del model
+    free_memory()
+    out["train"] = _flash_train()
+    out["jamba"] = _jamba_train()
+    free_memory()
+    return out
+
+
+def long_summary(flash: dict, card: str) -> str:
+    """The summary line of ``long_attention_phase``."""
+    lg, tr, jb = flash["long"], flash["train"], flash["jamba"]
+    return (f"summary [flash]: {LONG_ARCH} {LONG_ROWS}x{LONG_PROMPT} fresh prefill "
+            f"{lg['prefill_ms']:.3f} ms wall / {lg['prefill_busy_ms']:.3f} ms busy, peak "
+            f"{lg['peak_gib']:.3f} GiB ({lg['above_gib']:.3f} above the floor; the dry-run "
+            f"{lg['predicted_gib']:.3f}, ratio {lg['ratio']:.3f}), decode step at "
+            f"{LONG_PROMPT} {lg['step_ms']:.3f} ms wall / {lg['step_busy_ms']:.3f} ms busy; "
+            f"f32 blocks vs one {flash['f32']['gap']:.2e}·std; {FLASH_TRAIN['arch']} train "
+            f"B={FLASH_TRAIN['batch']} S={FLASH_TRAIN['seq_len']} {tr['step_ms']:.1f} ms wall / "
+            f"{tr['busy_ms']:.3f} ms busy, peak {tr['peak_gib']:.2f} GiB, f32 loss gap "
+            f"{tr['loss_gap']:.2e}, grads gap {tr['grad_err']:.2e} (twice the one-ulp spread "
+            f"{tr['bound']:.2e}), attention dq to float64 {tr['f64']['dq']:.2e} (one block "
+            f"{tr['f64']['one']['dq']:.2e}); jamba smoke train gap {jb['gap']:.2e}; {card}")
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the examples on the card
 # ---------------------------------------------------------------------------
 def load_example(name):
@@ -3706,7 +4178,7 @@ def main() -> int:
         remat[variant] = remat_phase(cfg_t, model_t, train[variant])
         del model_t
         free_memory()
-    dry_ratios = dryrun_phase(dry, remat)
+    dry_ratios = dryrun_phase(dry["train"], remat)
     launcher_phase()
     elapsed("train")
     jamba_float_launches = jamba_float_phase()
@@ -3746,6 +4218,8 @@ def main() -> int:
     frontends = frontends_phase()
     banded_phase()
     elapsed("frontends")
+    flash = long_attention_phase(dry["long_prefill"])
+    elapsed("long attention")
     ex_launches = examples_phase()
     elapsed("examples")
     tune_launches, _ = autotune_phase()
@@ -3782,6 +4256,7 @@ def main() -> int:
               + f"; f32 grads full vs none {r['remat_grad_err']:.2e} (spread "
               f"{r['remat_spread']:.2e}); {card}", flush=True)
     print(dryrun_summary(dry_ratios, card), flush=True)
+    print(long_summary(flash, card), flush=True)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {sum(phase_s.values()):.1f}", flush=True)
 
@@ -3799,7 +4274,8 @@ def main() -> int:
                    **{f"train remat {r} {v}": remat[v][r]["per_step"][k]
                       for v in remat for r in ("full", "dots")},
                    **{f"train layouts {v}": layouts[v][k] for v in layouts},
-                   "jamba smoke goom (float: 0)": jamba_float_launches[k]}
+                   "jamba smoke goom (float: 0)": jamba_float_launches[k],
+                   "train jamba smoke": flash["jamba"]["launches"][k]}
                for k in ("lmme", "matrix_scan", "matrix_scan_zero_b", "diag_scan")}
     lmme_row = next(r for r in rows if r["shape"].startswith("decode"))
     scan_row = next(v for k, v in scan_rows.items() if k.startswith("decode"))

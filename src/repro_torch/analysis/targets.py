@@ -8,7 +8,8 @@ launched), on the CPU or, with ``device="cuda"``, on fake CUDA tensors:
     ``kernels/dispatch.py`` (``registered_impls()``), on JAX's small GOOM
     operands: a ``cuda`` implementation takes its wrapper's shape-only
     branch, one opaque kernel step;
-  * ``DecoderLM.decode_step`` and ``prefill`` of a recurrent (GOOM-RNN) and
+  * ``DecoderLM.decode_step`` and ``prefill`` (on fresh caches,
+    ``fresh_caches=True``, as JAX's targets) of a recurrent (GOOM-RNN) and
     an attention (OLMo) smoke config, each under the engine's
     ``torch_reference`` backend and under ``cuda`` (on CPU tensors the
     engine is forced to ``cuda``, as ``launch/cost.py`` does).
@@ -22,6 +23,7 @@ planes, ``("goom", shape)``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib.util
 import pathlib
 import time
@@ -125,7 +127,8 @@ def _model_targets(archs: Iterable[str], device):
                    (token, caches, index), engine.use_backend(backend))
             tokens = torch.zeros((1, 8), dtype=torch.long, device=device)
             fresh = model.init_caches(1, 16)
-            yield (f"{arch}/prefill/{backend}", model.prefill, (tokens, fresh),
+            yield (f"{arch}/prefill/{backend}",
+                   functools.partial(model.prefill, fresh_caches=True), (tokens, fresh),
                    engine.use_backend(backend))
 
 

@@ -4,8 +4,8 @@ The fields mirror the JAX package's ``GoomSSMCfg``, ``MambaCfg``,
 ``Rwkv6Cfg``, ``AttentionCfg``, ``MlpCfg``, ``MoeCfg``, ``BlockCfg``,
 ``GroupCfg`` and ``LMConfig``
 (``repro/models/{goom_layer,ssm,attention,mlp,blocks,model}.py``); dtypes
-are torch dtypes and the defaults are the JAX package's.  Left out: the JAX
-flash-attention tiles (``block_q``, ``block_kv``).  ``LMConfig.remat``
+are torch dtypes and the defaults are the JAX package's, the
+flash-attention tiles (``block_q``, ``block_kv``) included.  ``LMConfig.remat``
 (``"none"``, ``"dots"``, ``"full"``) checkpoints each period of a group in
 training, as JAX's ``group_apply``; ``MambaCfg.scan_impl`` picks the GOOM
 scan (``"goom"``) or the conventional float baseline (``"float"``).
@@ -93,6 +93,8 @@ class AttentionCfg:
     qk_norm: bool = False                 # gemma3-style q/k RMSNorm
     mrope_sections: Optional[Tuple[int, ...]] = None  # M-RoPE, half-dim units
     query_scale: Optional[float] = None   # override 1/sqrt(head_dim)
+    block_q: int = 512                    # flash attention: queries padded to a multiple
+    block_kv: int = 1024                  # flash attention: keys a block
     use_banded: bool = False              # banded SWA without a cache (2·window <= S)
 
 

@@ -6,7 +6,9 @@ from .goom import (
     Goom,
     finite_floor,
     from_goom,
+    goom_from_complex,
     goom_ones,
+    goom_to_complex,
     goom_zeros,
     nonzero_sign,
     safe_abs,
@@ -16,18 +18,24 @@ from .goom import (
 )
 from .ops import (
     goom_add,
+    goom_dot,
     goom_lse,
+    goom_matmul,
     goom_mul,
+    goom_neg,
     goom_norm,
     goom_normalize_cols,
+    goom_scale,
+    goom_sub,
     lmme_naive,
     lmme_reference,
     scaled_exp,
 )
 
 __all__ = [
-    "engine", "LOG_ZERO", "Goom", "finite_floor", "from_goom", "goom_ones",
-    "goom_zeros", "nonzero_sign", "safe_abs", "safe_log", "signed_exp",
-    "to_goom", "goom_add", "goom_lse", "goom_mul", "goom_norm",
-    "goom_normalize_cols", "lmme_naive", "lmme_reference", "scaled_exp",
+    "engine", "LOG_ZERO", "Goom", "finite_floor", "from_goom", "goom_from_complex",
+    "goom_ones", "goom_to_complex", "goom_zeros", "nonzero_sign", "safe_abs",
+    "safe_log", "signed_exp", "to_goom", "goom_add", "goom_dot", "goom_lse",
+    "goom_matmul", "goom_mul", "goom_neg", "goom_norm", "goom_normalize_cols",
+    "goom_scale", "goom_sub", "lmme_naive", "lmme_reference", "scaled_exp",
 ]

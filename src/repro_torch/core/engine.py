@@ -73,7 +73,7 @@ from ..sharding.rules import is_dtensor
 from . import scan as _scan
 from .goom import Goom
 
-__all__ = ["EngineConfig", "use_backend", "use_blocks", "use_mesh", "current_backend",
+__all__ = ["EngineConfig", "set_default_backend", "use_backend", "use_blocks", "use_mesh", "current_backend",
            "get_config", "resolved_backend", "active_seq_shards", "autotune", "lmme",
            "diagonal_scan", "diagonal_scan_carry", "matrix_scan", "matrix_scan_carry",
            "cumulative_lmme", "selective_reset_scan", "calls", "reset_calls"]
@@ -126,14 +126,27 @@ def _push(cfg: EngineConfig):
         _STACK.pop()
 
 
+def _check_backend(backend: str) -> None:
+    from ..kernels.dispatch import CONCRETE_BACKENDS
+
+    if backend != "auto" and backend not in CONCRETE_BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of "
+                         f"{['auto'] + CONCRETE_BACKENDS}")
+
+
+def set_default_backend(backend: str) -> None:
+    """Set the process-wide default backend (what runs outside any
+    ``use_backend`` scope)."""
+    global _DEFAULT
+    _check_backend(backend)
+    _DEFAULT = dataclasses.replace(_DEFAULT, backend=backend)
+
+
 @contextlib.contextmanager
 def use_backend(backend: str = "auto", **overrides):
     """Scoped backend override: ``auto``, ``torch_reference`` or ``cuda``;
     ``overrides`` set other fields of the config (e.g. ``seq_shards``)."""
-    from ..kernels.dispatch import BACKENDS
-
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    _check_backend(backend)
     with _push(dataclasses.replace(get_config(), backend=backend, **overrides)) as cfg:
         yield cfg
 

@@ -29,6 +29,8 @@ __all__ = [
     "finite_floor",
     "goom_zeros",
     "goom_ones",
+    "goom_from_complex",
+    "goom_to_complex",
     "LOG_ZERO",
 ]
 
@@ -152,7 +154,11 @@ def signed_exp(log_abs: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
 
 
 def to_goom(x: torch.Tensor, *, use_floor: bool = False) -> Goom:
-    """Map a real tensor to its GOOM (paper eq. 4); bf16 is widened to f32."""
+    """Map a real tensor to its GOOM (paper eq. 4); bf16 is widened to f32.
+    A complex tensor is read as the paper's complex form
+    (``goom_from_complex``)."""
+    if x.is_complex():
+        return goom_from_complex(x)
     xf = x.float() if x.dtype == torch.bfloat16 else x
     return Goom(safe_log(safe_abs(xf), use_floor), nonzero_sign(xf))
 
@@ -160,6 +166,24 @@ def to_goom(x: torch.Tensor, *, use_floor: bool = False) -> Goom:
 def from_goom(g: Goom) -> torch.Tensor:
     """Map a GOOM back to a real tensor (paper eq. 7: the real part)."""
     return signed_exp(g.log_abs, g.sign)
+
+
+def goom_from_complex(z: torch.Tensor) -> Goom:
+    """From the paper's complex formulation: x' = log|x| + k·pi·i.  The sign
+    is +1 where cos(imag) >= 0, else -1 (snapping numerical error to the
+    convention)."""
+    re = z.real
+    sign = torch.where(torch.cos(z.imag) >= 0, 1.0, -1.0).to(re.dtype)
+    return Goom(re, sign)
+
+
+def goom_to_complex(g: Goom) -> torch.Tensor:
+    """To the paper's complex formulation, on the principal branch (imag in
+    {0, pi}): complex64 for f32 planes, else complex128."""
+    real = torch.float32 if g.dtype == torch.float32 else torch.float64
+    pi = torch.full_like(g.log_abs, math.pi)      # pi rounded to the planes' dtype
+    imag = torch.where(g.sign < 0, pi, torch.zeros_like(pi)).to(real)
+    return torch.complex(g.log_abs.to(real), imag)
 
 
 def goom_zeros(shape, dtype=torch.float32, *, device, use_floor: bool = False) -> Goom:

@@ -19,8 +19,13 @@ from .goom import Goom, from_goom, nonzero_sign, safe_abs, safe_log
 
 __all__ = [
     "goom_mul",
+    "goom_neg",
     "goom_add",
+    "goom_sub",
+    "goom_scale",
     "goom_lse",
+    "goom_dot",
+    "goom_matmul",
     "goom_norm",
     "goom_normalize_cols",
     "lmme_naive",
@@ -46,6 +51,15 @@ def goom_mul(a: Goom, b: Goom) -> Goom:
     return Goom(a.log_abs + b.log_abs, a.sign * b.sign)
 
 
+def goom_neg(a: Goom) -> Goom:
+    return Goom(a.log_abs, -a.sign)
+
+
+def goom_scale(a: Goom, log_c) -> Goom:
+    """Multiply by a positive constant exp(log_c): a shift in log space."""
+    return Goom(a.log_abs + log_c, a.sign)
+
+
 def goom_lse(a: Goom, dim: Dims = None, keepdim: bool = False) -> Goom:
     """Signed log-sum-exp over ``dim``: log|sum(sign*exp(log_abs))| + sign.
 
@@ -67,6 +81,15 @@ def goom_add(a: Goom, b: Goom) -> Goom:
     """x+y over R == signed LSE of the two GOOMs (Example 2 with d=2)."""
     return goom_lse(Goom(torch.stack([a.log_abs, b.log_abs]),
                          torch.stack([a.sign, b.sign])), dim=0)
+
+
+def goom_sub(a: Goom, b: Goom) -> Goom:
+    return goom_add(a, goom_neg(b))
+
+
+def goom_dot(a: Goom, b: Goom) -> Goom:
+    """Dot product of two 1-D GOOM vectors (Example 2)."""
+    return goom_lse(goom_mul(a, b), dim=-1)
 
 
 def lmme_naive(a: Goom, b: Goom) -> Goom:
@@ -97,6 +120,12 @@ def lmme_reference(a: Goom, b: Goom, *, clip_at_zero: bool = False) -> Goom:
     prod = torch.matmul(ar, br)
     out_log = safe_log(safe_abs(prod)) + ai + bk  # eq. 10 un-scaling
     return Goom(out_log, nonzero_sign(prod))
+
+
+def goom_matmul(a: Goom, b: Goom) -> Goom:
+    """The default LMME entry point: the compromise (the engine's ``lmme``
+    runs the kernel)."""
+    return lmme_reference(a, b)
 
 
 def goom_norm(a: Goom, dim: Dims = -1, keepdim: bool = False) -> torch.Tensor:

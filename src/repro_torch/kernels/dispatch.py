@@ -19,7 +19,9 @@ caller's ``use_backend("torch_reference")`` puts it there.
 **Registry**: implementations are registered per ``(op, backend)`` with
 :func:`register_impl` as factories of the launch knobs (a
 ``blocks.BlockConfig``): ``lmme``, ``diagonal_scan``, ``matrix_scan`` and
-``cumulative_lmme``, each on both backends.  :func:`get_impl` resolves the
+``cumulative_lmme``, each on both backends.  :func:`register_backend` adds
+a concrete backend at run time (an experimental one), which must cover
+every op.  :func:`get_impl` resolves the
 knobs (``use_blocks`` overrides, the autotune cache, the defaults) and,
 under a mesh, wraps a scan in its sequence-sharded form.  Both ``diagonal_scan``
 implementations broadcast ``a`` and ``b`` to a common shape, as the JAX
@@ -40,7 +42,7 @@ import torch
 from ..core import scan
 from ..core.goom import Goom
 from ..core.ops import lmme_reference
-from .blocks import BlockConfig
+from .blocks import DEFAULTS, OPS, BlockConfig
 from .goom_scan import (
     REF_CHUNK,
     diagonal_scan_cuda,
@@ -51,11 +53,13 @@ from .goom_scan import (
 from .lmme import lmme_cuda
 
 __all__ = ["BACKENDS", "CONCRETE_BACKENDS", "current_platform", "resolve_device",
-           "resolve_backend", "register_impl", "registered_backends",
+           "resolve_backend", "register_backend", "register_impl", "registered_backends",
            "registered_impls", "get_impl"]
 
-CONCRETE_BACKENDS = ("torch_reference", "cuda")
-BACKENDS = ("auto",) + CONCRETE_BACKENDS
+#: the backends a name resolves to; ``register_backend`` appends to it
+CONCRETE_BACKENDS = ["torch_reference", "cuda"]
+#: the built-in names (the launcher's choices)
+BACKENDS = ("auto",) + tuple(CONCRETE_BACKENDS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,7 +84,8 @@ def resolve_backend(requested: str, *, device_type: str,
     if requested in CONCRETE_BACKENDS:
         return requested
     if requested != "auto":
-        raise ValueError(f"unknown backend {requested!r}; one of {BACKENDS}")
+        raise ValueError(f"unknown backend {requested!r}; one of "
+                         f"{['auto'] + CONCRETE_BACKENDS}")
     if device_type == "cpu":
         return "torch_reference"
     if device_type == "cuda":
@@ -106,6 +111,21 @@ def register_impl(op: str, *backends: str):
         return factory
 
     return deco
+
+
+def register_backend(name: str, impls: Dict[str, Callable[[BlockConfig], _Impl]]) -> None:
+    """Add the concrete backend ``name`` at run time (an experimental one):
+    ``impls`` maps every engine op to its ``factory(blocks)``.  A backend
+    that misses an op is refused, so that resolution never lands on a hole;
+    its launch knobs default to an empty ``BlockConfig``."""
+    missing = set(OPS) - set(impls)
+    if missing:
+        raise ValueError(f"backend {name!r} missing impls for {sorted(missing)}")
+    if name not in CONCRETE_BACKENDS:
+        CONCRETE_BACKENDS.append(name)
+    for op, factory in impls.items():
+        _REGISTRY[(op, name)] = factory
+        DEFAULTS.setdefault((op, name), BlockConfig())
 
 
 def registered_backends(op: str) -> Tuple[str, ...]:

@@ -39,11 +39,13 @@ memory combines the same way: persistent state, plus each period's saved
 activations times the periods, plus one period's transients.
 Microbatches (identical too) combine alike: a trace at 2 and one at 3,
 linear beyond.  :func:`lengths` makes a long sequence's counts from three
-short ones: the recurrent layers' chunks are identical too, and attention
-is quadratic in the length, so every count is a polynomial of degree two
-in it, fitted exactly by three traces at lengths spaced by a whole number
-of chunks.  The peak memory is not: a short sequence's peak may sit at
-another point of the step than a long one's.
+short ones: the recurrent layers' chunks are identical too, and flash
+attention runs S / block_kv key blocks of work linear in S when S is a
+multiple of its tiles, so at lengths that are multiples of the chunks and
+the tiles every count is a polynomial of degree two in the length, fitted
+exactly by three traces spaced by such a step.  The peak memory is not: a
+short sequence's peak may sit at another point of the step than a long
+one's.
 """
 
 from __future__ import annotations

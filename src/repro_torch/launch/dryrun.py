@@ -234,20 +234,23 @@ class _CountedUpdate:
 
 def _length_fit(cfg) -> Optional[Tuple[int, int]]:
     """(base, step) of the lengths a long sequence's cost is fitted from
-    (``cost.lengths``), or None to trace it at its length: only the models
-    with chunked recurrent layers (Mamba, RWKV6, the goom layer) trace more
-    ops the longer the sequence; ``step`` is the least common multiple of
-    their chunks, ``base`` the least multiple of it that is no shorter than
-    any attention window (so the window's code path is the one traced)."""
+    (``cost.lengths``), or None to trace it at its length: the models with
+    chunked recurrent layers (Mamba, RWKV6, the goom layer), whose full
+    traces would take hours of host time.  ``step`` is the least common
+    multiple of their chunks and of the flash-attention tiles (``block_q``,
+    ``block_kv``: at a multiple of both nothing is padded and a layer runs
+    S / block_kv key blocks), ``base`` the least multiple of it that is no
+    shorter than any attention window (so the window's code path is the
+    one traced)."""
     chunks = [c for blk in cfg.layer_list for c in (
         blk.mamba.chunk if blk.mamba is not None else None,
         blk.rwkv.chunk if blk.rwkv is not None and blk.mixer == "rwkv6" else None,
         blk.goom.chunk if blk.goom is not None else None) if c]
     if not chunks:
         return None
-    step = math.lcm(*chunks)
-    window = max((blk.attn.window or 0 for blk in cfg.layer_list if blk.attn is not None),
-                 default=0)
+    attn = [blk.attn for blk in cfg.layer_list if blk.attn is not None]
+    step = math.lcm(*chunks, *(t for a in attn for t in (a.block_q, a.block_kv)))
+    window = max((a.window or 0 for a in attn), default=0)
     return max(step, -(-window // step) * step), step
 
 
@@ -311,7 +314,8 @@ def train_cost(cfg, shape: ShapeCfg, rows: int, *, microbatches: int = 1,
             c, sh, k * per_mb, k, cast_params_bf16, memory), mb)
 
     fit = _length_fit(cfg)
-    if microbatches <= 2 or fit is None or shape.seq_len <= fit[0] + 2 * fit[1]:
+    if (microbatches <= 2 or fit is None or shape.seq_len <= fit[0] + 2 * fit[1]
+            or shape.seq_len % fit[1]):
         return at(shape)
     out = cost.lengths(shape.seq_len,
                        lambda n: at(dataclasses.replace(shape, seq_len=n), memory=False),
@@ -323,7 +327,8 @@ def train_cost(cfg, shape: ShapeCfg, rows: int, *, microbatches: int = 1,
 
 def serve_trace(cfg, shape: ShapeCfg, rows: int) -> cost.Cost:
     """One trace of the prefill step (``prefill`` shapes: ``rows`` prompts
-    of ``seq_len`` into fresh caches) or of one decode step (caches of
+    of ``seq_len`` into fresh caches, ``fresh_caches=True``: the single-shot
+    prefill attends over the prompt) or of one decode step (caches of
     ``seq_len`` positions, the token at the last), the engine on its
     ``cuda`` backend."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -336,7 +341,7 @@ def serve_trace(cfg, shape: ShapeCfg, rows: int) -> cost.Cost:
         leaves = [leaf for layer in caches for leaf in layer.values()]
         inputs = _fake_inputs(cfg, shape, rows)
         if shape.kind == "prefill":
-            step = make_prefill_step(model, backend="cuda")
+            step = make_prefill_step(model, backend="cuda", fresh_caches=True)
             tokens = inputs.pop("tokens")
             fn = lambda: step(tokens, caches, **inputs)  # noqa: E731
         else:

@@ -8,24 +8,28 @@ M-RoPE (``mrope_sections``: q and k rotate by three position streams,
 ``mrope_positions`` (3, B, S), each stream ``positions`` when none are
 given) and sliding windows.  Four paths, each the JAX package's arithmetic:
 
-  * no cache: causal (and windowed) self-attention over the sequence
-    (``flash_attention``, which for one KV block is this masked softmax),
-    or, for a windowed layer with ``use_banded`` and at least two windows
-    of sequence, the two-block band (:func:`banded_attention`);
-  * a cache and S > 1: chunked prefill (``_prefill_attention``).  Global:
-    the chunk's K/V are written into the cache at the row's ``index`` and
-    the chunk attends over everything cached so far.  Windowed: the cache
-    is a rolling buffer of ``min(max_len, window)`` rows; the chunk attends
-    over [buffer ; chunk] (each buffer row at the absolute position it
-    holds, the chunk's own K/V unrounded), then the chunk is written at
-    ``(start + i) % length``, or, when its tail fills the buffer, rolled in
-    so that position p sits in row p % length;
-  * a cache and S == 1: decode (``_decode_attention``): each row writes at
-    its own ``index`` (``index % length`` in a rolling buffer) and attends
-    over its cache row (positions in ``(index - window, index]``);
+  * no cache: causal (and windowed) self-attention over the sequence by
+    :func:`flash_attention`, or, for a windowed layer with ``use_banded``
+    and at least two windows of sequence, the two-block band
+    (:func:`banded_attention`);
+  * a cache and S > 1: prefill of one prompt chunk (``_prefill``, JAX's
+    ``_prefill_attention``), each branch through :func:`flash_attention`
+    with the layer's tiles.  ``fresh`` (static) promises an empty cache:
+    the chunk attends over itself, so the work scales with the prompt and
+    not with the cache.  Global: a prompt no shorter than the cache keeps
+    its last ``length`` tokens; else the chunk's K/V are written at the
+    row's ``index`` and the chunk attends over everything cached so far.
+    Windowed: the cache is a rolling buffer of ``min(max_len, window)``
+    rows; the chunk attends over [buffer ; chunk] (each buffer row at the
+    absolute position it holds, the chunk's own K/V unrounded), then the
+    chunk is written at ``(start + i) % length``, or, when its tail fills
+    the buffer, rolled in so that position p sits in row p % length;
+  * a cache and S == 1: decode (``_decode``): each row writes at its own
+    ``index`` (``index % length`` in a rolling buffer) and attends over its
+    cache row (positions in ``(index - window, index]``);
   * a paged cache (one with ``pages``) and S == 1: decode against the
-    shared page pool (``_paged_decode_attention``, see
-    :func:`init_paged_cache`); global layers only.
+    shared page pool (``_paged_decode``, see :func:`init_paged_cache`);
+    global layers only.
 
 Scores and the softmax are f32; ``p`` is cast to the value dtype before
 the product and the sum is divided out after the f32 accumulation.  The KV
@@ -39,9 +43,11 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import AttentionCfg
+from ..core.goom import safe_log
 from ..sharding.rules import constrain
 from .common import Dense
 from .norms import RMSNorm
@@ -53,23 +59,150 @@ Cache = Dict[str, torch.Tensor]
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
-            scale: float, *, fill: float, p_dtype: torch.dtype) -> torch.Tensor:
-    """Masked softmax attention, GQA by head groups.
-
-    q (B, Sq, H, D); k, v (B, Sk, KVH, D); ``valid`` broadcasts to (B, Sq, Sk).
-    Masked scores become ``fill``; ``p`` is rounded to ``p_dtype`` before the
-    product.  Returns (B, Sq, H, D) in f32."""
+            scale: float) -> torch.Tensor:
+    """Decode's masked softmax over a whole cache row, GQA by head groups
+    (JAX's ``_decode_attention``): q (B, 1, H, D); k, v (B, L, KVH, D);
+    ``valid`` broadcasts to (B, 1, L).  Masked scores are ``NEG_INF``; ``p``
+    is rounded to v's dtype before the product.  Returns (B, 1, H, D) f32."""
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     qg = q.float().reshape(b, sq, kvh, h // kvh, d)
     s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.float()) * scale
-    s = s.masked_fill(~valid[:, :, None, None, :], fill)
-    m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.exp(s - m)   # max-rescaled softmax; goomcheck: disable=GC202
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bqhgk,bkhd->bqhgd", p.to(p_dtype).float(), v.float())
-    return (acc / l).reshape(b, sq, h, d)
+    s = s.masked_fill(~valid[:, :, None, None, :], NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))   # max-rescaled softmax; goomcheck: disable=GC202
+    acc = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return (acc / p.sum(dim=-1, keepdim=True)).reshape(b, sq, h, d)
+
+
+# ---------------------------------------------------------------------------
+# blockwise flash attention (train, prefill)
+# ---------------------------------------------------------------------------
+#: padded keys sit at this position: after every query
+_PAD_KV_POS = 2 ** 30
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                    window: Optional[int], scale: float, block_q: int,
+                    block_kv: int) -> torch.Tensor:
+    """Online-softmax attention over blocks of ``block_kv`` keys,
+    ``repro/models/attention.py::flash_attention`` step for step: q (B, Sq,
+    H, D) at ``q_positions`` (Sq,), k and v (B, Skv, KVH, D) at
+    ``kv_positions`` (Skv,), causal and, with ``window``, windowed.
+
+    q is padded to a multiple of ``min(block_q, Sq)`` (positions -1: rows
+    that see no key) and k, v to a multiple of ``min(block_kv, Skv)``
+    (positions 2**30: keys no query sees).  The whole query set stays
+    resident; a Python loop over the key blocks carries the running max,
+    denominator and f32 accumulator, so the scores alive at a time are one
+    block's, (B, Sq, H, block_kv) f32, exponentiated and rounded in place.
+    The backward (:class:`_Flash`) recomputes each block's ``p = exp(s -
+    lse)`` from q, k, v and the per-row log-sum-exp instead of saving
+    scores.  No value is read on the host: a CUDA graph captures it.
+    Returns (B, Sq, H, D) in q's dtype."""
+    sq, skv = q.shape[1], k.shape[1]
+    block_q, block_kv = min(block_q, sq), min(block_kv, skv)
+    pad_q = -(-sq // block_q) * block_q - sq
+    pad_k = -(-skv // block_kv) * block_kv - skv
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_positions = torch.cat([q_positions, q_positions.new_full((pad_q,), -1)])
+    if pad_k:
+        k, v = (F.pad(x, (0, 0, 0, 0, 0, pad_k)) for x in (k, v))
+        kv_positions = torch.cat([kv_positions, kv_positions.new_full((pad_k,), _PAD_KV_POS)])
+    out = _Flash.apply(q, k, v, q_positions, kv_positions,
+                       -1 if window is None else window, scale, block_kv)
+    return out[:, :sq].to(q.dtype)
+
+
+def _grouped(x: torch.Tensor, kvh: int) -> torch.Tensor:
+    """(B, S, H, D) -> (B, KVH, S·G, D) f32, each KV head's query rows in
+    (position, group) order: one batched product per block over them."""
+    b, s, h, d = x.shape
+    return (x.float().reshape(b, s, kvh, h // kvh, d).transpose(1, 2)
+            .reshape(b, kvh, s * (h // kvh), d).contiguous())
+
+
+def _ungrouped(x: torch.Tensor, s: int) -> torch.Tensor:
+    """(B, KVH, S·G, D) -> (B, S, H, D)."""
+    b, kvh, _, d = x.shape
+    return x.reshape(b, kvh, s, -1, d).transpose(1, 2).reshape(b, s, -1, d)
+
+
+def _block_scores(qg, k_blk, qpos, kp, window: int, scale: float, sq: int):
+    """One block's f32 scores (B, KVH, Sq·G, Bk) times ``scale``, -inf
+    where the causal (and window) mask drops a key (JAX's ``_mask_block``)."""
+    b, kvh, rows, _ = qg.shape
+    s = torch.matmul(qg, k_blk.float().permute(0, 2, 3, 1)).mul_(scale)
+    keep = kp[None, :] <= qpos[:, None]
+    if window >= 0:
+        keep = keep & (kp[None, :] > qpos[:, None] - window)
+    s.view(b, kvh, sq, rows // sq, -1).masked_fill_(~keep[:, None, :], -torch.inf)
+    return s
+
+
+class _Flash(torch.autograd.Function):
+    """JAX's ``_flash`` custom VJP (FlashAttention-2 style) on padded
+    operands: the forward saves q, k, v, the positions, the f32 output and
+    the per-row LSE, never a block's scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, window: int, scale: float, block_kv: int):
+        sq, kvh = q.shape[1], k.shape[2]
+        qg = _grouped(q, kvh)
+        shape = qg.shape[:3]
+        m = torch.full(shape, -torch.inf, device=q.device)
+        l = torch.zeros(shape, device=q.device)
+        acc = torch.zeros(qg.shape, device=q.device)
+        for lo in range(0, k.shape[1], block_kv):
+            s = _block_scores(qg, k[:, lo:lo + block_kv], qpos, kpos[lo:lo + block_kv],
+                              window, scale, sq)
+            m_new = torch.maximum(m, s.amax(-1))
+            # guards: a row masked so far keeps p == 0, never NaN
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)  # online-softmax rescale; goomcheck: disable=GC202
+            p = s.sub_(m_safe[..., None]).exp_()  # max-rescaled softmax, in place; goomcheck: disable=GC202
+            l = l * alpha + p.sum(-1)
+            if v.dtype != p.dtype:
+                p.copy_(p.to(v.dtype))      # p rounded to v's dtype, in place
+            v_blk = v[:, lo:lo + block_kv].float().transpose(1, 2)
+            acc = acc * alpha[..., None] + torch.matmul(p, v_blk)
+            m = m_new
+        l_safe = l.clamp_min(1e-30)
+        out = acc / l_safe[..., None]
+        # the +1e30 sentinel of an empty row keeps the backward's p = 0
+        lse = torch.where(l > 0, torch.where(torch.isfinite(m), m, 0.0) + safe_log(l_safe),
+                          1e30)
+        out = _ungrouped(out, sq)
+        ctx.save_for_backward(q, k, v, qpos, kpos, out, lse)
+        ctx.cfg = (window, scale, block_kv)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, qpos, kpos, out, lse = ctx.saved_tensors
+        window, scale, block_kv = ctx.cfg
+        sq, kvh = q.shape[1], k.shape[2]
+        dout = _grouped(dout, kvh)
+        delta = (dout * _grouped(out, kvh)).sum(-1)     # rowsum(dO ⊙ O)
+        qg = _grouped(q, kvh)
+        dq = torch.zeros_like(qg)
+        dk = torch.empty(k.shape, device=k.device)
+        dv = torch.empty(v.shape, device=v.device)
+        for lo in range(0, k.shape[1], block_kv):
+            k_blk = k[:, lo:lo + block_kv].float().transpose(1, 2)
+            v_blk = v[:, lo:lo + block_kv].float().transpose(1, 2)
+            s = _block_scores(qg, k[:, lo:lo + block_kv], qpos, kpos[lo:lo + block_kv],
+                              window, scale, sq)
+            p = s.sub_(lse[..., None]).exp_()  # exact probabilities, lse-rescaled; goomcheck: disable=GC202
+            dv[:, lo:lo + block_kv] = torch.matmul(p.transpose(-1, -2), dout).transpose(1, 2)
+            dp = torch.matmul(dout, v_blk.transpose(-1, -2))
+            ds = p.mul_(dp.sub_(delta[..., None])).mul_(scale)
+            del p, dp
+            dq += torch.matmul(ds, k_blk)
+            dk[:, lo:lo + block_kv] = torch.matmul(ds.transpose(-1, -2), qg).transpose(1, 2)
+        return (_ungrouped(dq, sq).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None)
 
 
 def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -156,10 +289,13 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 mrope_positions: Optional[torch.Tensor] = None,
                 cache: Optional[Cache] = None,
-                compute_dtype: torch.dtype = torch.bfloat16
+                compute_dtype: torch.dtype = torch.bfloat16,
+                fresh_cache: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
         """x (B, S, d) at absolute ``positions`` (B, S), and for M-RoPE at
-        ``mrope_positions`` (3, B, S) → (y (B, S, d), new cache or None)."""
+        ``mrope_positions`` (3, B, S) → (y (B, S, d), new cache or None).
+        ``fresh_cache`` (static) promises that ``cache`` holds nothing yet:
+        a prompt then attends over itself (single-shot prefill)."""
         cfg, cd = self.cfg, compute_dtype
         b, s, _ = x.shape
         scale = cfg.query_scale if cfg.query_scale is not None else cfg.head_dim ** -0.5
@@ -189,63 +325,70 @@ class Attention(nn.Module):
                 out = banded_attention(q, k, v, positions=pos, window=cfg.window,
                                        scale=scale)
             else:
-                out = _attend(q, k, v, self._mask(pos, pos)[None], scale,
-                              fill=-torch.inf, p_dtype=cd)
+                out = flash_attention(q, k, v, q_positions=pos, kv_positions=pos,
+                                      window=cfg.window, scale=scale,
+                                      block_q=cfg.block_q, block_kv=cfg.block_kv)
         elif "pages" in cache:
             if s != 1:
                 raise ValueError("a paged KV cache takes one token per row")
             out, new_cache = self._paged_decode(q, k, v, cache, scale)
-        elif s > 1 and cfg.window is not None:
-            out, new_cache = self._prefill_window(q, k, v, cache, positions, scale)
         elif s > 1:
-            out, new_cache = self._prefill(q, k, v, cache, positions, scale)
+            out, new_cache = self._prefill(q, k, v, cache, positions, scale,
+                                           fresh=fresh_cache)
         else:
             out, new_cache = self._decode(q, k, v, cache, scale)
         out = constrain(out.to(cd), "batch", "act_seq", "act_heads", None).reshape(b, s, -1)
         y = out @ self.o.w.to(cd).reshape(-1, cfg.d_model)
         return y, new_cache
 
-    def _mask(self, q_pos: torch.Tensor, kv_pos: torch.Tensor) -> torch.Tensor:
-        """(Sq, Sk) causal mask, also windowed when the layer is."""
-        m = kv_pos[None, :] <= q_pos[:, None]
-        if self.cfg.window is not None:
-            m = m & (kv_pos[None, :] > q_pos[:, None] - self.cfg.window)
-        return m
+    def _flash(self, q, k, v, q_pos, kv_pos, scale, window):
+        return flash_attention(q, k, v, q_positions=q_pos, kv_positions=kv_pos,
+                               window=window, scale=scale, block_q=self.cfg.block_q,
+                               block_kv=self.cfg.block_kv)
 
-    @staticmethod
-    def _prefill(q, k_new, v_new, cache: Cache, positions, scale):
+    def _prefill(self, q, k_new, v_new, cache: Cache, positions, scale, *, fresh: bool):
         """One prompt chunk from row 0's ``index`` (a prefill batch shares
-        its positions): write the chunk's K/V there, attend over the cache up
-        to the chunk's last position."""
-        b, s = q.shape[:2]
-        length = cache["k"].shape[1]
-        slots = torch.arange(length, device=q.device)
-        start = cache["index"][0]
-        at = start + torch.arange(s, device=q.device)
-        k = cache["k"].index_copy(1, at, k_new.to(cache["k"].dtype))
-        v = cache["v"].index_copy(1, at, v_new.to(cache["v"].dtype))
-        kv_pos = torch.where(slots <= start + (s - 1), slots, 2 ** 30)
-        valid = (kv_pos[None, :] <= positions[0][:, None])[None]
-        out = _attend(q, k.to(q.dtype), v.to(q.dtype), valid, scale,
-                      fill=-torch.inf, p_dtype=q.dtype)
-        return out, {"k": k, "v": v, "index": cache["index"] + s}
-
-    def _prefill_window(self, q, k_new, v_new, cache: Cache, positions, scale):
-        """One prompt chunk against a rolling buffer, from row 0's
-        ``index``: attend over [buffer ; chunk] (a buffer row at the absolute
-        position it holds, 2**30 where never written), then write the chunk
-        into the buffer."""
+        its positions), JAX's ``_prefill_attention`` branch for branch (the
+        module docstring); ``fresh`` (static) takes the index as 0."""
         s = q.shape[1]
+        window = self.cfg.window
         length = cache["k"].shape[1]
-        start = cache["index"][0]
-        abs_prev = _ring_positions(start - 1, length)
-        kv_pos = torch.where(abs_prev >= 0, abs_prev, 2 ** 30)
-        k_cat = torch.cat([cache["k"].to(q.dtype), k_new], dim=1)
-        v_cat = torch.cat([cache["v"].to(q.dtype), v_new], dim=1)
-        pos = positions[0]
-        valid = self._mask(pos, torch.cat([kv_pos, pos]))[None]
-        out = _attend(q, k_cat, v_cat, valid, scale, fill=-torch.inf, p_dtype=q.dtype)
         dt = cache["k"].dtype
+        pos = positions[0]
+        start = 0 if fresh else cache["index"][0]
+        new_index = cache["index"] + s
+        if fresh:   # nothing cached: the chunk is all there is to attend to
+            out = self._flash(q, k_new, v_new, pos, pos, scale, window)
+
+        if window is None:
+            if s >= length:
+                # the whole prompt at the cache's length or beyond (start 0):
+                # keep its last `length` tokens, each in its row
+                if not fresh:
+                    out = self._flash(q, k_new, v_new, pos, pos, scale, None)
+                return out, {"k": k_new[:, s - length:].to(dt),
+                             "v": v_new[:, s - length:].to(dt), "index": new_index}
+            # the chunk's rows from `start`, clamped into the cache as JAX's
+            # dynamic_update_slice clamps (the Engine keeps start + s <= length)
+            first = start if fresh else start.clamp(max=length - s)
+            at = first + torch.arange(s, device=q.device)
+            k = cache["k"].index_copy(1, at, k_new.to(dt))
+            v = cache["v"].index_copy(1, at, v_new.to(dt))
+            if not fresh:
+                # row i holds position i once written (up to the chunk's last)
+                slots = torch.arange(length, device=q.device)
+                kv_pos = torch.where(slots <= start + (s - 1), slots, _PAD_KV_POS)
+                out = self._flash(q, k.to(q.dtype), v.to(q.dtype), pos, kv_pos, scale, None)
+            return out, {"k": k, "v": v, "index": new_index}
+
+        if not fresh:
+            # a rolling buffer: the window's earlier tokens sit in it, each row
+            # at the absolute position it holds; attend over [buffer ; chunk]
+            abs_prev = _ring_positions(start - 1, length)
+            kv_pos = torch.where(abs_prev >= 0, abs_prev, _PAD_KV_POS)
+            k_cat = torch.cat([cache["k"].to(q.dtype), k_new], dim=1)
+            v_cat = torch.cat([cache["v"].to(q.dtype), v_new], dim=1)
+            out = self._flash(q, k_cat, v_cat, pos, torch.cat([kv_pos, pos]), scale, window)
         if s >= length:
             # the chunk's tail fills the buffer: position p goes to row p % length
             shift = (start + s - length) % length
@@ -255,7 +398,7 @@ class Attention(nn.Module):
             at = (start + torch.arange(s, device=q.device)) % length
             k = cache["k"].index_copy(1, at, k_new.to(dt))
             v = cache["v"].index_copy(1, at, v_new.to(dt))
-        return out, {"k": k, "v": v, "index": cache["index"] + s}
+        return out, {"k": k, "v": v, "index": new_index}
 
     def _decode(self, q, k_new, v_new, cache: Cache, scale):
         """One token per row, written at the row's own ``index`` (a write
@@ -280,7 +423,7 @@ class Attention(nn.Module):
             v[rows, at] = v_new[:, 0].to(v.dtype)
             abs_pos = _ring_positions(index, length)
             valid = (abs_pos >= 0) & (abs_pos > index[:, None] - window)
-        out = _attend(q, k, v, valid[:, None, :], scale, fill=NEG_INF, p_dtype=v.dtype)
+        out = _attend(q, k, v, valid[:, None, :], scale)
         return out, {"k": k, "v": v, "index": index + 1}
 
     @staticmethod
@@ -310,7 +453,7 @@ class Attention(nn.Module):
         vg = pool_v[pages].reshape((b, length) + pool_v.shape[2:])
         slots = torch.arange(length, device=q.device)
         valid = (slots[None, :] <= index[:, None])[:, None, :]
-        out = _attend(q, kg, vg, valid, scale, fill=NEG_INF, p_dtype=vg.dtype)
+        out = _attend(q, kg, vg, valid, scale)
         return out, {"k": pool_k, "v": pool_v, "pages": pages, "index": index + 1}
 
 

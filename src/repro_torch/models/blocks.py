@@ -69,10 +69,13 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 mrope_positions: Optional[torch.Tensor] = None,
                 cache: Optional[Cache] = None,
-                compute_dtype: torch.dtype = torch.bfloat16):
+                compute_dtype: torch.dtype = torch.bfloat16,
+                fresh_caches: bool = False):
         """Returns (x, new cache or None, aux losses); residual adds are in
         x's dtype.  ``mrope_positions`` (3, B, S) go to an attention mixer;
-        the other mixers take no positions."""
+        the other mixers take no positions.  ``fresh_caches`` (static)
+        promises an empty cache: an attention mixer's single-shot prefill
+        then attends over the prompt alone."""
         blk = self.blk
         c = None
         if blk.mixer != "none":
@@ -80,7 +83,7 @@ class Block(nn.Module):
             if blk.mixer == "attention":
                 h, c = self.mixer(h, positions=positions,
                                   mrope_positions=mrope_positions, cache=cache,
-                                  compute_dtype=compute_dtype)
+                                  compute_dtype=compute_dtype, fresh_cache=fresh_caches)
             else:
                 h, c = self.mixer(h, state=cache, compute_dtype=compute_dtype)
             if blk.post_norms:

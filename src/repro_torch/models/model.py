@@ -105,11 +105,13 @@ class DecoderLM(nn.Module):
                       caches: Optional[Caches] = None,
                       positions: Optional[torch.Tensor] = None, *,
                       prefix_embeds: Optional[torch.Tensor] = None,
-                      mrope_positions: Optional[torch.Tensor] = None):
+                      mrope_positions: Optional[torch.Tensor] = None,
+                      fresh_caches: bool = False):
         """tokens (B, S) at ``positions`` (B, S; default 0..S-1) → (final-normed
         hidden (B, S, d), new caches or None, aux losses summed over layers).
         ``prefix_embeds`` (B, P <= S, d) are added onto the first P
-        positions; ``mrope_positions`` (3, B, S) go to M-RoPE layers."""
+        positions; ``mrope_positions`` (3, B, S) go to M-RoPE layers;
+        ``fresh_caches`` (static) promises empty caches (see ``prefill``)."""
         cd = self.cfg.compute_dtype
         b, s = tokens.shape
         if positions is None:
@@ -132,7 +134,8 @@ class DecoderLM(nn.Module):
         remat = self.cfg.remat if caches is None and torch.is_grad_enabled() else "none"
         for lo, hi in self._periods:
             if remat == "none":
-                x, cs, aux = self._period(x, positions, mrope_positions, lo, hi, caches)
+                x, cs, aux = self._period(x, positions, mrope_positions, lo, hi, caches,
+                                          fresh_caches)
                 new_caches.extend(cs)
             else:
                 x, aux = checkpoint(self._period_remat, x, positions, mrope_positions, lo, hi,
@@ -143,14 +146,15 @@ class DecoderLM(nn.Module):
                 aux_tot)
 
     def _period(self, x, positions, mrope_positions, lo: int, hi: int,
-                caches: Optional[Caches]):
+                caches: Optional[Caches], fresh_caches: bool = False):
         """Layers ``lo:hi`` (one period of a group) → (x, their caches, aux)."""
         cs, aux_tot = [], {}
         for i in range(lo, hi):
             x, c, aux = self.layers[i](x, positions=positions,
                                        mrope_positions=mrope_positions,
                                        cache=None if caches is None else caches[i],
-                                       compute_dtype=self.cfg.compute_dtype)
+                                       compute_dtype=self.cfg.compute_dtype,
+                                       fresh_caches=fresh_caches)
             cs.append(c)
             for k, v in aux.items():
                 aux_tot[k] = aux_tot.get(k, 0.0) + v
@@ -246,13 +250,17 @@ class DecoderLM(nn.Module):
                                 kv_pages=(ps, n_pages, max_blocks), device=device)
 
     def prefill(self, tokens: torch.Tensor, caches: Caches,
-                positions: Optional[torch.Tensor] = None, **kw
-                ) -> Tuple[torch.Tensor, Caches]:
+                positions: Optional[torch.Tensor] = None, *, fresh_caches: bool = False,
+                **kw) -> Tuple[torch.Tensor, Caches]:
         """Ingest a prompt chunk (B, S) from the caches' state at absolute
         ``positions`` (B, S; default 0..S-1: a fresh cache), with ``kw``'s
         frontend inputs; returns the last position's logits (B, 1, vocab)
-        and the advanced caches."""
-        h, caches, _ = self.hidden_states(tokens, caches, positions, **kw)
+        and the advanced caches.  ``fresh_caches`` (static) promises that
+        the caches are empty: the single-shot prefill then attends over the
+        prompt itself, so its work scales with the prompt and not with the
+        caches' length (chunked callers leave it False)."""
+        h, caches, _ = self.hidden_states(tokens, caches, positions,
+                                          fresh_caches=fresh_caches, **kw)
         return self.logits(h[:, -1:]), caches
 
     def decode_step(self, token: torch.Tensor, caches: Caches,

@@ -45,18 +45,22 @@ def _engine_scope(backend: str, mesh, seq_shards, blocks: Blocks = None):
 
 
 def make_prefill_step(model: DecoderLM, *, backend: str = "auto", mesh=None,
-                      seq_shards="auto", blocks: Blocks = None) -> Callable:
+                      seq_shards="auto", fresh_caches: bool = False,
+                      blocks: Blocks = None) -> Callable:
     """``prefill_step(tokens (B, S), caches, positions=None, **kw) -> (last
     logits (B, 1, vocab), caches)`` in ``_engine_scope(backend, mesh,
     seq_shards, blocks)``: under a mesh the prompt's scans are time-sharded
     over its seq group; ``blocks`` (e.g. ``{"matrix_scan": {"block_t":
     8}}``) pins launch knobs.  ``kw`` are the frontend inputs
-    (``prefix_embeds``, ``mrope_positions``)."""
+    (``prefix_embeds``, ``mrope_positions``).  ``fresh_caches`` promises
+    that every call feeds empty caches: the single-shot prefill then scales
+    with the prompt, not the caches' length (a chunked prefill leaves it
+    False)."""
 
     @torch.no_grad()
     def prefill_step(tokens, caches, **kw):
         with _engine_scope(backend, mesh, seq_shards, blocks):
-            return model.prefill(tokens, caches, **kw)
+            return model.prefill(tokens, caches, fresh_caches=fresh_caches, **kw)
 
     return prefill_step
 
@@ -134,7 +138,8 @@ def generate(model: DecoderLM, prompt: torch.Tensor, n_tokens: int, max_len: int
     """Greedy lockstep-batch generation: prompt (B, P) -> (B, n_tokens).
 
     ``kw`` go to the single-shot prefill (``prefix_embeds`` (B, n_prefix,
-    d), ``mrope_positions`` (3, B, P)), as in JAX's ``generate``; decode
+    d), ``mrope_positions`` (3, B, P)), which runs on fresh caches
+    (``fresh_caches=True``), as in JAX's ``generate``; decode
     positions continue at P, P + 1, ... on every M-RoPE stream.  On the card
     the decode step is captured once as a CUDA graph over static token,
     index and cache tensors and replayed for each token; a failed capture
@@ -143,7 +148,7 @@ def generate(model: DecoderLM, prompt: torch.Tensor, n_tokens: int, max_len: int
     batching use ``serve.Engine``."""
     b, p = prompt.shape
     prefill = make_prefill_step(model, backend=backend, mesh=mesh, seq_shards=seq_shards,
-                                blocks=blocks)
+                                fresh_caches=True, blocks=blocks)
     logits, caches = prefill(prompt, model.init_caches(b, max_len), **kw)
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
     out = [tok.clone()]

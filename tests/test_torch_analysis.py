@@ -380,7 +380,10 @@ def test_live_repo_is_goomcheck_clean(repo_result):
     for name, t in targets.items():
         assert t["ops"] > 0, name
         if name.startswith("olmo-1b/"):     # attention only: no GOOM op
-            assert t["log_values"] == t["kernel_steps"] == 0, name
+            assert t["kernel_steps"] == 0, name
+            # the prefill's flash attention keeps each row's LSE (safe_log,
+            # as JAX's); decode has no log value
+            assert (t["log_values"] > 0) == ("/prefill/" in name), name
             continue
         assert t["log_values"] > 0, name
         if name.endswith("/cuda"):

@@ -16,7 +16,9 @@
   launches exactly, bytes within 1 % (goom-rnn smoke, one layer, three
   microbatches); its memory is traced at the full length at two
   microbatches, and its peak is within 0.1 % of three's (the per-microbatch
-  scalars differ); at one microbatch the cost is the full-length trace;
+  scalars differ); at one microbatch the cost is the full-length trace; the
+  same fit across flash attention's key blocks (a Mamba and an attention
+  layer, lengths a multiple of the chunk and the tiles);
 * a smoke train cell and a decode cell through ``lower_cell`` on the
   abstract (16, 16) mesh: the bytes a device keeps are the shard shapes of
   the specs that ``tests/test_torch_layouts.py`` holds to JAX's; under
@@ -188,6 +190,33 @@ def test_lengths_fit_a_long_sequence(microbatches):
     assert got.bytes == pytest.approx(whole.bytes, rel=0.01)
     assert got.written == pytest.approx(whole.written, rel=0.01)
     assert got.memory["peak"] == pytest.approx(whole.memory["peak"], rel=1e-3)
+
+
+def test_lengths_fit_across_flash_key_blocks():
+    """A Mamba layer and an attention layer (Jamba smoke's first and fifth,
+    Mamba's chunk 16, flash tiles of 8 queries and 16 keys): the lengths
+    step by the chunks' and tiles' multiple, so the key blocks grow with S
+    and nothing is padded, and the fit from 16, 32, 48 gives the trace at
+    64: FLOPs and launches exactly, bytes within 0.1 % (the fit's
+    standard above)."""
+    cfg = _smoke_train("jamba-v0.1", remat="none")
+    mamba, attn = cfg.layer_list[0], cfg.layer_list[4]
+    period = (dataclasses.replace(mamba, mamba=dataclasses.replace(mamba.mamba, chunk=16)),
+              dataclasses.replace(attn, attn=dataclasses.replace(attn.attn, block_q=8,
+                                                                 block_kv=16)))
+    cfg = dataclasses.replace(cfg, n_layers=2, groups=(
+        dataclasses.replace(cfg.groups[0], period=period, n_periods=1),))
+    assert dryrun._length_fit(cfg) == (16, 16)
+
+    def at(n):
+        return dryrun.train_trace(cfg, ShapeCfg("t", n, 1, "train"), 1, memory=False)
+
+    whole = at(64)
+    got = cost.lengths(64, at, base=16, step=16)
+    assert got.flops == whole.flops and got.f32_flops == whole.f32_flops
+    assert got.launches == whole.launches and whole.launches["diag_scan"] > 0
+    assert got.bytes == pytest.approx(whole.bytes, rel=1e-3)
+    assert got.written == pytest.approx(whole.written, rel=1e-3)
 
 
 def _shard_bytes(shapes_dtypes, specs, mesh_shape, dtype=None):

@@ -50,8 +50,8 @@ torch.set_num_threads(2)
 F32 = dict(compute_dtype=jnp.float32)
 FAMILIES = ["olmo-1b", "codeqwen1.5-7b", "phi3.5-moe", "mixtral-8x7b", "glm4-9b",
             "gemma3-1b"]
-# JAX fields the port leaves out: the flash-attention tiles
-JAX_ONLY = {"block_q", "block_kv"}
+# JAX fields the port leaves out: none (the flash-attention tiles are ported)
+JAX_ONLY = set()
 
 
 def _close(got, want, atol=1e-5):
@@ -203,7 +203,8 @@ def test_attention_chunks_and_decode_match_jax_dense_cache(variant):
     """Over a cache of 16 positions: a window of 5 or 6 keeps a rolling
     buffer of that many rows, fed chunks of 3, 4, 1, the buffer's length (a
     roll) and 9 (longer than the buffer), then single tokens, wrapping it
-    many times; the global layer chunks of 3, 4, 1, 6, then tokens.
+    many times; the global layer chunks of 3, 4, 1, 6, then tokens, on past
+    the cache's 16 positions (a write past the end is dropped, as JAX's).
     Outputs, the bf16 buffer bits and the index equal JAX's."""
     jcfg, p, layer = _attn_pair(VARIANTS[variant])
     x = _x((2, 30, 32), 11)
@@ -213,8 +214,8 @@ def test_attention_chunks_and_decode_match_jax_dense_cache(variant):
              "index": torch.zeros(2, dtype=torch.long)}
     length = cache["k"].shape[1]
     assert length == min(16, jcfg.window or 16)
-    if jcfg.window is None:     # a global cache of 16 positions takes 16 tokens
-        bounds = [0, 3, 7, 8, 14, 15, 16]
+    if jcfg.window is None:     # a global cache of 16 positions, then decode past it
+        bounds = [0, 3, 7, 8, 14, 15, 16, 17, 18]
     else:
         bounds = [0, 3, 7, 8, 8 + length, 17 + length, 18 + length, 19 + length]
     for lo, hi in zip(bounds, bounds[1:]):

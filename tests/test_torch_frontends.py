@@ -134,7 +134,8 @@ def test_sinusoidal_embedding_matches_jax(dim):
 @pytest.mark.parametrize("s,w", [(64, 8), (96, 16), (64, 16), (80, 8), (70, 8)])
 def test_banded_attention_matches_jax_and_the_dense_window(s, w):
     """The two-block band equals JAX's and the port's dense windowed softmax
-    (the no-cache path with ``use_banded`` off); S = 70 pads the last block."""
+    (the no-cache path with ``use_banded`` off: flash attention, here in one
+    key block); S = 70 pads the last block."""
     h, kvh, d = 4, 2, 8
     q, k, v = _x((2, s, h, d), 4), _x((2, s, kvh, d), 5), _x((2, s, kvh, d), 6)
     pos = np.arange(s, dtype=np.int32)
@@ -143,13 +144,11 @@ def test_banded_attention_matches_jax_and_the_dense_window(s, w):
     got = banded_attention(t(q), t(k), t(v), positions=t(pos, torch.long), window=w,
                            scale=d ** -0.5)
     _close(got, want)
-    layer = Attention(AttentionCfg(d_model=8, n_heads=h, n_kv_heads=kvh, head_dim=d,
-                                   window=w), device="cpu")
-    from repro_torch.models.attention import _attend
+    from repro_torch.models.attention import flash_attention
 
-    dense = _attend(t(q), t(k), t(v), layer._mask(t(pos, torch.long),
-                                                  t(pos, torch.long))[None],
-                    d ** -0.5, fill=-torch.inf, p_dtype=torch.float32)
+    dense = flash_attention(t(q), t(k), t(v), q_positions=t(pos, torch.long),
+                            kv_positions=t(pos, torch.long), window=w, scale=d ** -0.5,
+                            block_q=s, block_kv=s)
     _close(got, n(dense))
 
 
