@@ -61,9 +61,10 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 For ``generic`` also the prefill-logit gap to ``shared_a`` on
                 the same weights;
   5. train    — train goom-rnn-124m at full width (f32 weights, bf16
-                compute) in ``shared_a`` and ``generic`` through
+                compute) in ``shared_a`` and ``generic`` (8 of its 24
+                layers, ``TRAIN_LAYERS``) through
                 ``make_train_step``: Copy-Memory, B=16, S=128, AdamW at a
-                cosine lr of 3e-3 with 20 warm-up steps, 3 steps with finite
+                cosine lr of 3e-3 with 20 warm-up steps, 2 steps with finite
                 losses under ``remat="none"``, launches equal to the
                 forward's engine calls (the backward, autograd of the plain
                 versions, launches no kernel); forward, backward and
@@ -74,14 +75,13 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 ``remat="full"``; then each of ``none``, ``full`` and
                 ``dots`` alike from a fresh optimizer state: wall, device
                 busy, peak GiB over the floor allocated at the reset, and
-                launches a step (twice the forward's under remat); then
-                ``python -m repro_torch.launch.train`` at full width: a
-                step, a checkpoint, a restart that resumes;
+                launches a step (twice the forward's under remat);
   5a. dry-run — (started before the build, in a child process with one
                 thread and no card, joined before phase 3) the dry-run of
                 goom-rnn-124m's train step at phase 5's shape on a (1, 1)
                 mesh (``launch.dryrun.lower_cell``: the port's step on fake
-                tensors) in both variants under ``none`` and ``full``; after
+                tensors) in both variants under ``none`` and ``full``, and
+                on (2, 1) and (4, 1) meshes for phase 13's ranks; after
                 the remat measurements, the predicted GOOM launches a step
                 must equal the measured, the roofline step time must not
                 pass the measured device busy, and the predicted peak above
@@ -90,7 +90,8 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
   5b. float, layouts — Jamba smoke with Mamba's ``scan_impl="float"``
                 against ``"goom"`` and the CPU; goom-rnn-124m's f32 train
                 step with DTensor parameters on a 1-rank ``DeviceMesh``
-                against the plain path (loss and launches);
+                against the plain path (loss and launches; several ranks
+                run in phase 13);
   5c. goomcheck — (started with the dry-run, in a child process with one
                 thread and the card visible, joined after phase 14)
                 ``python -m repro_torch.analysis --ci --device cuda``: the
@@ -182,13 +183,32 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 twice the single-process kernel call's or plain version's
                 distance to float64 (the reset scan: within 1e-4 of the plain
                 version at the same P, flags equal), each rank's launches
-                those of the algebra; the calls' ms at P = 1, 2, 4;
- 13. launcher ranks — ``python -m torch.distributed.run --nproc-per-node 2
-                -m repro_torch.launch.train``: goom-rnn-124m at full width
-                with ``--seq-shards 2 --dist-backend gloo``, 3 bf16 steps,
-                one f32 step against the single-process launcher, and
-                ``--mesh host`` (2, 1) at the smoke width against one
-                process on the full batch, the three runs at once;
+                those of the algebra; the calls' ms at P = 1, 2, 4 (the
+                least of a rank's 3 timed calls);
+ 13. launcher ranks — ``python -m torch.distributed.run --nproc-per-node P
+                -m repro_torch.launch.train``, all runs at once, gloo ranks
+                sharing the card, goom-rnn-124m at full width:
+                ``--seq-shards 2`` on 2 ranks, 3 bf16 steps; ``--seq-shards
+                2`` on 4 ranks ((2, 2): data parallel beside the
+                full-length scans), 3 f32 steps, each step's loss within
+                1e-5 and the first gradient norm within 1e-4 of one
+                process on both data ranks' slices (later ones 1e-3), each
+                leaf's first-step gradient (its
+                first moment in the launcher's checkpoint) within 1e-2 of
+                the one process's; FSDP, ``--mesh host`` on (P, 1), its
+                parameters laid out and gathered a period at a time: 2 bf16
+                steps (remat full, B=16, S=128) at P = 1, 2 and 4, each
+                rank's peak above its floor within 1.05x of the dry-run's
+                (P, 1) cell's above the state and its floor at most 80 MiB
+                above that state, the peaks falling with P, each rank's
+                LMME launches equal to its engine calls; and 3 f32 FSDP
+                steps at P = 2 against the same one process (the first
+                loss within 1e-6 and gradient norm within 1e-5, later ones
+                1e-5 and 1e-3, each leaf's first-step gradient within
+                1e-2); while the ranks
+                run, the one process's steps and ``python -m
+                repro_torch.launch.train`` in this process at full width:
+                a step, a checkpoint, a restart that resumes;
  14. autotune — (last) ``engine.autotune()`` on ``DEFAULT_SHAPES`` and
                 goom-rnn's with-B decode and 64-token chunk (twice, the
                 same winner): every candidate's ms (a replayed CUDA graph);
@@ -201,10 +221,13 @@ Cut for the run's time (``DEPTH_CUTS``, ``PERIOD_CUTS``): codeqwen1.5-7b and
 glm4-9b run 2 of their layers (their attention runs olmo-1b's code, which
 runs whole), phi3.5-moe and mixtral-8x7b 2, rwkv6-7b 8 of 32, gemma3-1b's
 families phase one period of each group (8 of its 26 layers, which run
-whole in phase 10b), training 3 steps a
-variant (2 a remat setting); RWKV6's LMME shapes are
-timed once a shape, and the scans' odd signed shapes are checked, not
-timed.
+whole in phase 10b), training 2 steps a
+variant (its parts timed over 2 more, 1 a remat setting; ``generic`` at 8
+of goom-rnn-124m's 24 layers, ``TRAIN_LAYERS``, so its launches on the
+``kernels`` line are a third of a 24-layer run's) and the launcher
+ranks' FSDP runs 2 steps;
+RWKV6's LMME shapes are timed once a shape, and the scans' odd signed
+shapes are checked, not timed.
 
 ``--kernels`` runs phases 1 and 2 without the diagonal scan and stops: the
 loop for kernel work (``tools/kernels_ab.sh`` runs it on two checkouts in
@@ -1767,7 +1790,18 @@ def experiments_phase():
 # at a cosine lr of peak 3e-3 over the example's 200 steps with 20 warm-up
 # steps; of which this phase runs TRAIN_STEPS
 TRAIN = dict(batch=16, seq_len=128, lr=3e-3, warmup=20, total=200)
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
+#: goom-rnn-124m's layers in the train and remat phases by scan variant:
+#: ``generic`` cut to 8 of 24 for the run's time (its dry-run cells alike)
+TRAIN_LAYERS = {"shared_a": 24, "generic": 8}
+
+
+def train_config(cfg, variant: str):
+    """``cfg`` (goom-rnn-124m) in ``variant`` at TRAIN_LAYERS[variant]
+    layers."""
+    from repro_torch.launch.cost import with_periods
+
+    return with_periods(with_scan_variant(cfg, variant), [TRAIN_LAYERS[variant]])
 # f32 step on the kernels against the same step under the plain versions,
 # from the seed weights: the loss within TRAIN_LOSS_RTOL; each leaf's
 # max-normalised gradient gap max |g_kernel - g_plain| / max |g_plain|, at
@@ -1870,7 +1904,7 @@ def train_phase(cfg, model):
     """goom-rnn-124m trained at full width through ``make_train_step``:
     TRAIN_STEPS steps of the 124M model (loss finite, launches == the
     forward's engine calls), then each part of a step timed by CUDA events
-    (median of 3), one step profiled part by part, and one step at f32 on
+    (median of 2), one step profiled part by part, and one step at f32 on
     the kernels against the same step under the plain versions."""
     import torch
 
@@ -1884,7 +1918,7 @@ def train_phase(cfg, model):
     opt, state = _train_setup(model)
     step_fn = make_train_step(model, opt)
     decay = opt.decay_mask(cfg, list(state.params))
-    warm, n_split = 2, 3
+    warm, n_split = 2, 2
     batches = list(_train_batches(cfg, warm + TRAIN_STEPS + 2 * n_split + 1))
     t0 = time.perf_counter()
     for b in batches[:warm]:   # allocator, cuBLAS, the kernels' first calls
@@ -1939,7 +1973,8 @@ def train_phase(cfg, model):
     _, o_ms, o_n, _ = _profiled_device(update)
     busy = f_ms + b_ms + o_ms
     idle = 1 - busy / med["wall"]
-    print(f"train [{variant}]: {cfg.name} B={TRAIN['batch']} S={TRAIN['seq_len']}, "
+    print(f"train [{variant}]: {cfg.name} ({cfg.n_layers} layers) B={TRAIN['batch']} "
+          f"S={TRAIN['seq_len']}, "
           f"{TRAIN_STEPS} steps at {step_ms:.1f} ms a step (wall; warm-up "
           f"{warm} steps {warm_s:.1f} s); loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
           f"all finite; peak memory {peak / 2**30:.2f} GiB", flush=True)
@@ -2056,7 +2091,7 @@ def _train_parity(model, cfg, batch):
 # ---------------------------------------------------------------------------
 REMATS = ("none", "full", "dots")
 #: steps a remat setting is timed over, after one warm-up step
-REMAT_STEPS = 2
+REMAT_STEPS = 1
 
 
 def _busy_ms(fn):
@@ -2168,11 +2203,13 @@ DRYRUN_OUT = str(ROOT / "build" / "chip_smoke_dryrun.json")
 def dryrun_cells(out: str) -> None:
     """The dry-run of goom-rnn-124m's train step (``launch.dryrun.lower_cell``
     on fake tensors: no device) at train_phase's B and S, bf16 compute, on a
-    (1, 1) mesh, for both variants under ``DRYRUN_REMATS``, and of
-    ``long_attention_phase``'s prefill (``long_dryrun_cell``); written to
-    ``out`` as {"train": {variant: {remat: Roofline dict}}, "long_prefill":
-    Roofline dict}.  Run in a process of its own with one thread and no card
-    (``start_dryrun``)."""
+    (1, 1) mesh, for both variants (``train_config``) under
+    ``DRYRUN_REMATS``, of ``long_attention_phase``'s prefill
+    (``long_dryrun_cell``) and of ``dist_launcher_phase``'s FSDP ranks
+    (``fsdp_dryrun_cells``); written to ``out`` as {"train": {variant:
+    {remat: Roofline dict}}, "long_prefill": Roofline dict, "fsdp": {P:
+    Roofline dict}}.  Run in a process of its own with one thread and no
+    card (``start_dryrun``)."""
     import torch
 
     from repro_torch import get_config
@@ -2184,11 +2221,11 @@ def dryrun_cells(out: str) -> None:
     cfg = get_config("goom-rnn-124m")
     shape = ShapeCfg("chip_train", TRAIN["seq_len"], TRAIN["batch"], "train")
     mesh = NamedMesh((1, 1), ("data", "model"))
-    train = {v: {r: lower_cell(with_scan_variant(cfg, v), shape, mesh, verbose=False,
+    train = {v: {r: lower_cell(train_config(cfg, v), shape, mesh, verbose=False,
                                perf={"remat": r, "microbatches": 1}).to_dict()
                  for r in DRYRUN_REMATS}
              for v in ("shared_a", "generic")}
-    res = {"train": train, "long_prefill": long_dryrun_cell()}
+    res = {"train": train, "long_prefill": long_dryrun_cell(), "fsdp": fsdp_dryrun_cells()}
     with open(out, "w") as f:
         json.dump(res, f)
 
@@ -2408,10 +2445,8 @@ def layouts_phase():
     out as DTensors (``distribute_model``) over a 1-rank ("data", "model")
     ``DeviceMesh`` on the card, under the rules, against the plain path on
     the same weights and batch: the same loss and the same kernel launches,
-    both variants.  Several ranks are not run: gloo's all-gather of CUDA
-    tensors through DTensor (``Shard`` -> ``Replicate``, the parameters'
-    gather) ends the ranks with SIGSEGV under torch 2.11, and NCCL takes one
-    rank a card (PERF.md §7)."""
+    both variants.  Several ranks, gloo's sharing the card, run in
+    ``dist_launcher_phase`` (NCCL takes one rank a card)."""
     import torch
     import torch.distributed as dist
 
@@ -2454,8 +2489,6 @@ def layouts_phase():
             out[variant] = k1
     finally:
         dist.destroy_process_group()
-    print("layouts: several ranks not run on the card (gloo's DTensor all-gather of "
-          "CUDA tensors ends the ranks with SIGSEGV; NCCL takes one rank a card)", flush=True)
     return out
 
 
@@ -2798,8 +2831,8 @@ def sharded_phase():
               flush=True)
     for case, name in enumerate(SHARDED_CASES):
         print(f"sharded [{name}] ms a call, P=1 {ms[1][case]:.3f}, P=2 {ms[2][case]:.3f}, "
-              f"P=4 {ms[4][case]:.3f} (time-sliced ranks on one card, collectives "
-              f"through host memory: not a speed); {card_line()}", flush=True)
+              f"P=4 {ms[4][case]:.3f} (time-sliced ranks on one card, gloo's "
+              f"collectives: not a speed); {card_line()}", flush=True)
     engine.reset_calls()
     return total, ms
 
@@ -2815,8 +2848,67 @@ def _wall_s(fn) -> float:
 # phase 13: the launcher on ranks (torch.distributed.run)
 # ---------------------------------------------------------------------------
 DIST_STEPS = 3
-DIST_DP = dict(batch=8, seq_len=64, steps=3)     # the launcher's smoke width
 DIST_LOSS_RTOL = 1e-5
+#: the f32 runs held step by step against one process on both data ranks'
+#: slices: the FSDP pair at P = 2 and the data-parallel seq-sharded (2, 2)
+DIST_F32_STEPS = 3
+#: the (2, 2) seq-sharded run's first gradient norm against one process's.
+#: The time shards' backward sums each rank's part of a scan's input
+#: gradients (an all-reduce), in another order than one process's: 1.21e-5
+#: in the first card run (chosen after DIST_LOSS_RTOL failed there; the
+#: FSDP pair, with no time shards, 3.8e-6).  A data rank's gradients left
+#: out of the mean move the norm by ~1e-2.
+SEQ_NORM_RTOL = 1e-4
+#: the gradient norms of the f32 steps after the first (both runs).  Adam's
+#: first update moves each element by the learning rate times the sign of
+#: its gradient, so an element whose gradient sums to near zero flips with
+#: the order of the sums, and the next steps' gradients drift: 3.4e-5 and
+#: 6.7e-5 on the card at full width (chosen after DIST_LOSS_RTOL failed
+#: there; at the smoke width on CPU ranks 8e-8).  The losses after it are
+#: held to DIST_LOSS_RTOL (4.4e-6 at most in that run).
+LATER_NORM_RTOL = 1e-3
+#: the FSDP runs' rank counts (P = 1 is the single process, no mesh), and
+#: their steps (the peak is read over those after the first)
+FSDP_P = (1, 2, 4)
+FSDP_STEPS = 2
+#: a rank's measured peak above its floor against the dry-run's (P, 1) cell's
+#: above the state: within this
+#: factor either way (``DRYRUN_PEAK_FACTOR``'s bar and measure)
+FSDP_PEAK_FACTOR = 1.05
+#: a rank's floor (the bytes allocated after its first step) above the
+#: dry-run's state (parameter blocks and moments): at most cuBLAS's
+#: workspace, 0.063-0.067 GiB in the first card runs, and this margin; a
+#: gathered period, a gradient or a moment kept across steps passes it
+FSDP_FLOOR_SLACK = 80 * 2 ** 20
+#: the first f32 FSDP step's loss against one process's (``layouts_phase``'s bar)
+FSDP_LOSS_RTOL = 1e-6
+#: each leaf's first moment after the first f32 step (the launcher's
+#: checkpoint of step 1: (1 - beta1) times the clipped gradient) against one
+#: process's, the norm of the difference over the norm of the one
+#: process's.  A leaf whose gradient missed the data ranks' sum is off by
+#: ~0.5 of itself (0.63-0.77 mutated in on CPU ranks); f32 sums over the
+#: batch in another order sit far below this.  (The parameters themselves
+#: are no measure: Adam's first step moves each element by the learning
+#: rate times the sign of its gradient, which reassociation flips where a
+#: gradient sums to near zero.)
+DIST_GRAD_RTOL = 1e-2
+
+
+def fsdp_dryrun_cells() -> dict:
+    """The dry-run of ``dist_launcher_phase``'s FSDP runs: goom-rnn-124m
+    (``shared_a``, bf16 compute, f32 parameters, remat full, one
+    microbatch) at train_phase's B and S on a (P, 1) mesh for each P > 1;
+    P = 1 is the (1, 1) train cell."""
+    from repro_torch import get_config
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.sharding import NamedMesh
+
+    cfg = with_scan_variant(get_config("goom-rnn-124m"), "shared_a")
+    shape = ShapeCfg("chip_train", TRAIN["seq_len"], TRAIN["batch"], "train")
+    return {p: lower_cell(cfg, shape, NamedMesh((p, 1), ("data", "model")), verbose=False,
+                          perf={"remat": "full", "microbatches": 1}).to_dict()
+            for p in FSDP_P if p > 1}
 
 
 def _torchrun_start(nproc, argv, out_json):
@@ -2858,87 +2950,238 @@ def _torchrun_wait(runs, timeout=600):
     return got
 
 
-def dist_launcher_phase():
-    """The launcher under ``torch.distributed.run`` with 2 gloo ranks on the
-    card, three runs at once: goom-rnn-124m at full width, ``shared_a``,
-    ``--seq-shards 2``, DIST_STEPS bf16 steps (the default dtype) with finite
-    losses, and one f32 step against the single-process launcher on the same
-    seed; and ``--mesh host`` data parallel (2, 1) at the smoke width against
-    one process on the full batch.  Gloo ranks sharing a card keep the plain
-    layout (the launcher's docstring).  Returns rank 0's launches of the
-    bf16 seq-sharded run."""
+def _one_process_f32(argv_f32, p):
+    """``DIST_F32_STEPS`` f32 steps of the launcher's model (same seed and
+    schedule) in this process, each on the concatenation of the ``p`` data
+    ranks' slices of its batch: each step's metrics, and the first moments
+    after the first step."""
     import numpy as np
     import torch
 
     from repro_torch import DecoderLM, get_config
     from repro_torch.launch import train as launch_train
-    from repro_torch.train.data import DataConfig, SyntheticStream, to_device
-    from repro_torch.train.optimizer import AdamW, cosine_schedule
-    from repro_torch.train.train_loop import init_train_state, make_train_step
+    from repro_torch.train import (AdamW, DataConfig, SyntheticStream, cosine_schedule,
+                                   init_train_state, make_train_step)
+    from repro_torch.train.data import to_device
+
+    args = launch_train.parse_args(argv_f32)
+    cfg = dataclasses.replace(get_config(args.arch, smoke=args.smoke),
+                              compute_dtype=torch.float32)
+    model = DecoderLM(cfg, device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(args.seed))
+    opt = AdamW(cosine_schedule(args.lr, args.warmup, args.steps))
+    step = make_train_step(model, opt)
+    state = init_train_state(model, opt)
+    streams = [SyntheticStream(DataConfig(task=args.task, vocab=cfg.vocab, seq_len=args.seq_len,
+                                          global_batch=args.batch, seed=args.seed,
+                                          process_index=i, process_count=p)) for i in range(p)]
+    rows = []
+    for i in range(args.steps):
+        parts = [s.generate(i) for s in streams]
+        batch = to_device({k: np.concatenate([x[k] for x in parts]) for k in parts[0]}, DEVICE)
+        state, m = step(state, batch)
+        rows.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            mu = {n: v.detach().cpu().numpy().copy() for n, v in state.opt_state["mu"].items()}
+    del model, opt, step, state
+    free_memory()
+    return {"steps": rows, "mu": mu, "cfg": cfg}
+
+
+def _first_moments(directory, cfg, like):
+    """The first moments of the launcher's checkpoint of step 1 in
+    ``directory`` (JAX's layout) by the port's names, as numpy."""
+    from repro_torch.convert import params_from_jax, params_to_jax
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    tree, _ = CheckpointManager(directory).restore(
+        1, {"opt_state": {"mu": params_to_jax(cfg, like)}})
+    return {n: v.numpy() for n, v in params_from_jax(cfg, tree["opt_state"]["mu"]).items()}
+
+
+def _per_step(run, one, loss_rtol, norm_rtol, label):
+    """Each step's loss and gradient norm against the one process's,
+    printed, then held: the first step's (from the same weights) to
+    ``loss_rtol`` and ``norm_rtol``, the later ones' to DIST_LOSS_RTOL and
+    LATER_NORM_RTOL."""
+    rows = run["steps"]
+    check(len(rows) == len(one["steps"]), f"{label}: {len(rows)} steps, one process "
+          f"{len(one['steps'])}")
+    gaps = [{key: abs(r[key] - w[key]) / abs(w[key]) for key in ("loss", "grad_norm")}
+            for r, w in zip(rows, one["steps"])]
+    loss_gaps = ", ".join(f"{g['loss']:.2e}" for g in gaps)
+    norm_gaps = ", ".join(f"{g['grad_norm']:.2e}" for g in gaps)
+    print(f"{label}: {len(rows)} steps' losses {[r['loss'] for r in rows]}, gradient norms "
+          f"{[r['grad_norm'] for r in rows]}; one process on both data slices "
+          f"{[w['loss'] for w in one['steps']]}, {[w['grad_norm'] for w in one['steps']]}: "
+          f"relative gaps loss [{loss_gaps}] (bars {loss_rtol}, then {DIST_LOSS_RTOL}), "
+          f"gradient norm [{norm_gaps}] (bars {norm_rtol}, then {LATER_NORM_RTOL})",
+          flush=True)
+    for i, g in enumerate(gaps):
+        bars = (loss_rtol, norm_rtol) if i == 0 else (DIST_LOSS_RTOL, LATER_NORM_RTOL)
+        check(g["loss"] <= bars[0] and g["grad_norm"] <= bars[1],
+              f"{label}, step {i}: gaps {g} over the bars {bars}")
+
+
+def _grad_gap(ckpt, one, label):
+    """Each leaf's first moment after step 1 (the launcher's checkpoint)
+    against the one process's: the norm of the difference over the norm of
+    the one process's, printed (the worst leaf), then held to
+    DIST_GRAD_RTOL."""
+    import numpy as np
+
+    got = _first_moments(ckpt, one["cfg"], one["mu"])
+    gaps = {}
+    for name, want in one["mu"].items():
+        ref = np.linalg.norm(want.ravel())
+        diff = np.linalg.norm((got[name] - want).ravel())
+        gaps[name] = float(diff / ref) if ref else (0.0 if diff == 0 else math.inf)
+    worst = sorted(gaps, key=gaps.get)[-3:]
+    print(f"{label}: each of {len(gaps)} leaves' gradient after step 1 (the first moment "
+          f"in the launcher's checkpoint) against one process's: the worst "
+          f"{', '.join(f'{n} {gaps[n]:.2e}' for n in reversed(worst))} (bar {DIST_GRAD_RTOL})",
+          flush=True)
+    check(gaps[worst[-1]] <= DIST_GRAD_RTOL, f"{label}: leaf {worst[-1]}'s gradient "
+          f"{gaps[worst[-1]]:.2e} from one process's")
+
+
+def dist_launcher_phase(fsdp_cells: dict):
+    """The launcher under ``torch.distributed.run``, gloo ranks sharing the
+    card, every run at once, goom-rnn-124m at full width, ``shared_a``:
+    ``--seq-shards 2`` on 2 ranks ((1, 2), the plain layout, full-length
+    scans), DIST_STEPS bf16 steps with finite losses; ``--seq-shards 2`` on
+    4 ranks ((2, 2): the data-parallel branch, ``data_group``, beside the
+    full-length scans), DIST_F32_STEPS f32 steps, each step's loss within
+    DIST_LOSS_RTOL and the first gradient norm within SEQ_NORM_RTOL of one
+    process on both data ranks' slices (the later ones within
+    LATER_NORM_RTOL), and each leaf's gradient of the first step
+    (its first moment in the launcher's checkpoint of step 1) within
+    DIST_GRAD_RTOL of the one process's; FSDP on ``--mesh host`` (P, 1), parameters laid out and
+    gathered a period at a time, FSDP_STEPS bf16 steps at each P of FSDP_P
+    (P = 1: one process): each rank's peak over the steps after the first
+    above the bytes allocated then (its floor: its state and what the first
+    calls keep, cuBLAS's workspace among them) within FSDP_PEAK_FACTOR of
+    the dry-run's (P, 1) cell's peak above the state (``fsdp_cells``; P = 1
+    the (1, 1) train cell; ``dryrun_phase``'s measure), the floor at most
+    FSDP_FLOOR_SLACK above the dry-run's state, the whole peaks falling with
+    P, each rank's LMME launches equal to its engine calls; and
+    DIST_F32_STEPS f32 FSDP steps at P = 2 against the same one process:
+    the first step's loss within FSDP_LOSS_RTOL and gradient norm within
+    DIST_LOSS_RTOL, the later ones' within DIST_LOSS_RTOL and
+    LATER_NORM_RTOL, and each leaf's first-step gradient (the checkpoint,
+    gathered on the port's collectives) within DIST_GRAD_RTOL.  While the ranks run, this process runs
+    the one process's steps and ``launcher_phase``.  Returns rank 0's
+    launches of the bf16 seq-sharded run, each FSDP run's (summed over its
+    ranks) and each rank's peak."""
+    import shutil
 
     tmp = ROOT / "build"
     tmp.mkdir(exist_ok=True)
+    ckpts = {k: tmp / f"chip_smoke_{k}_ckpt" for k in ("dp32", "fsdp32")}
+    for d in ckpts.values():
+        shutil.rmtree(d, ignore_errors=True)
     full = ["--arch", "goom-rnn-124m", "--task", "copy", "--seq-len", str(TRAIN["seq_len"]),
             "--batch", str(TRAIN["batch"]), "--lr", str(TRAIN["lr"]), "--log-every", "1",
             "--dist-backend", "gloo"]
-    f32 = ["--compute-dtype", "float32", "--steps", "1"]
-    dp = ["--arch", "goom-rnn-124m", "--smoke", "--task", "copy", "--seq-len",
-          str(DIST_DP["seq_len"]), "--batch", str(DIST_DP["batch"]), "--steps",
-          str(DIST_DP["steps"]), "--compute-dtype", "float32", "--dist-backend", "gloo"]
+    f32 = full + ["--compute-dtype", "float32", "--steps", str(DIST_F32_STEPS)]
+    fsdp = full + ["--mesh", "host"]
     t0 = time.perf_counter()
     runs = {"bf16": _torchrun_start(2, full + ["--steps", str(DIST_STEPS), "--seq-shards", "2"],
                                     tmp / "chip_smoke_dist.json"),
-            "f32": _torchrun_start(2, full + f32 + ["--seq-shards", "2"],
+            "f32": _torchrun_start(4, f32 + ["--seq-shards", "2", "--ckpt-every", "1",
+                                             "--ckpt-dir", str(ckpts["dp32"])],
                                    tmp / "chip_smoke_dist32.json"),
-            "dp": _torchrun_start(2, dp + ["--mesh", "host"], tmp / "chip_smoke_dp.json")}
+            "fsdp f32": _torchrun_start(2, f32 + ["--mesh", "host", "--ckpt-every", "1",
+                                                  "--ckpt-dir", str(ckpts["fsdp32"])],
+                                        tmp / "chip_smoke_fsdp32.json"),
+            **{f"fsdp {p}": _torchrun_start(p, fsdp + ["--steps", str(FSDP_STEPS)],
+                                            tmp / f"chip_smoke_fsdp{p}.json")
+               for p in FSDP_P}}
     try:
-        _, _, m = launch_train.main(full[:-2] + f32)
+        one = _one_process_f32(f32, 2)
+        launcher_phase()
     finally:
         runs = _torchrun_wait(runs)
     ranks_s = time.perf_counter() - t0
+    try:
+        _launcher_checks(runs, one, fsdp_cells, ckpts)
+    finally:
+        for d in ckpts.values():
+            shutil.rmtree(d, ignore_errors=True)
+    print(f"launcher ranks: the runs at once in {ranks_s:.1f} s with their start", flush=True)
+    return {"seq": runs["bf16"]["launches"],
+            "peaks": {p: [r["peak_bytes"] for r in runs[f"fsdp {p}"]["ranks"]] for p in FSDP_P},
+            **{f"fsdp {p}": {k: sum(r["launches"][k] for r in runs[f"fsdp {p}"]["ranks"])
+                             for k in runs[f"fsdp {p}"]["launches"]} for p in FSDP_P}}
+
+
+def _launcher_checks(runs, one, fsdp_cells, ckpts):
+    """``dist_launcher_phase``'s checks of its runs, each result printed
+    before it is held."""
     run = runs["bf16"]
     losses = [s["loss"] for s in run["steps"]]
+    print(f"launcher --seq-shards 2 (2 gloo ranks on one card, (1, 2), full width, bf16, the "
+          f"plain layout): {DIST_STEPS} steps, losses {[round(v, 4) for v in losses]}; "
+          f"rank 0 launches {run['launches']}", flush=True)
     check(len(losses) == DIST_STEPS and all(math.isfinite(v) for v in losses)
           and run["layouts"] is False, f"launcher --seq-shards 2: losses {losses}, "
           f"layouts {run['layouts']}")
-    one = float(m["loss"])
-    got = runs["f32"]["steps"][0]["loss"]
-    check(abs(got - one) <= DIST_LOSS_RTOL * abs(one),
-          f"launcher f32 step: 2 seq shards {got} vs one process {one}")
-    print(f"launcher --seq-shards 2 (2 gloo ranks on one card, full width, bf16): "
-          f"{DIST_STEPS} steps, losses {[round(v, 4) for v in losses]}; rank 0 launches "
-          f"{run['launches']}; f32 step loss {got!r} vs one process {one!r} (relative "
-          f"{abs(got - one) / abs(one):.2e}, bar {DIST_LOSS_RTOL}); the three runs of 2 "
-          f"ranks at once in {ranks_s:.1f} s with their start", flush=True)
 
-    ranks = runs["dp"]
-    t3 = time.perf_counter()
-    # one process on the full batch: both data ranks' slices, concatenated
-    cfg = dataclasses.replace(get_config("goom-rnn-124m", smoke=True),
-                              compute_dtype=torch.float32)
-    model = DecoderLM(cfg, device=DEVICE,
-                      generator=torch.Generator(device=DEVICE).manual_seed(0))
-    opt = AdamW(cosine_schedule(3e-4, 20, DIST_DP["steps"]))
-    state = init_train_state(model, opt)
-    step = make_train_step(model, opt)
-    streams = [SyntheticStream(DataConfig(task="copy", vocab=cfg.vocab,
-                                          seq_len=DIST_DP["seq_len"],
-                                          global_batch=DIST_DP["batch"], seed=0,
-                                          process_index=i, process_count=2))
-               for i in range(2)]
-    for i, row in enumerate(ranks["steps"]):
-        parts = [s.generate(i) for s in streams]
-        batch = to_device({k: np.concatenate([p[k] for p in parts]) for k in parts[0]},
-                          DEVICE)
-        state, mm = step(state, batch)
-        for key in ("loss", "grad_norm"):
-            check(abs(row[key] - float(mm[key])) <= DIST_LOSS_RTOL * abs(float(mm[key])),
-                  f"launcher --mesh host (2, 1), step {i} {key}: {row[key]} vs one "
-                  f"process {float(mm[key])}")
-    print(f"launcher --mesh host (2, 1) at the smoke width, f32: {DIST_DP['steps']} steps' "
-          f"losses and gradient norms within {DIST_LOSS_RTOL} of one process on the full "
-          f"batch ({time.perf_counter() - t3:.1f} s)", flush=True)
-    return run["launches"]
+    peaks = {}
+    for p in FSDP_P:
+        run = runs[f"fsdp {p}"]
+        cell = fsdp_cells[str(p)]["memory_per_device"]
+        state = cell["peak_bytes"] - cell["above_state_bytes"]
+        losses = [s["loss"] for s in run["steps"]]
+        ranks = run["ranks"]
+        peaks[p] = [r["peak_bytes"] for r in ranks]
+        ratios = [cell["above_state_bytes"] / (r["peak_bytes"] - r["floor_bytes"]) for r in ranks]
+        print(f"launcher FSDP P={p} ({p} gloo rank(s) on one card, --mesh host ({p}, 1), "
+              f"full width, bf16, remat full, B={TRAIN['batch']}, S={TRAIN['seq_len']}): "
+              f"{FSDP_STEPS} steps, losses {[round(v, 4) for v in losses]}; each rank's peak "
+              f"after the first step {[round(b / 2**30, 3) for b in peaks[p]]} GiB over a "
+              f"floor of {[round(r['floor_bytes'] / 2**30, 4) for r in ranks]} (the "
+              f"dry-run's peak {cell['peak_bytes'] / 2**30:.3f}, its state "
+              f"{state / 2**30:.4f}: predicted / measured above it "
+              f"{[round(x, 4) for x in ratios]}, whole peaks "
+              f"{[round(cell['peak_bytes'] / b, 4) for b in peaks[p]]}; gathered parameters "
+              f"at most {cell['gathered_param_bytes'] / 2**30:.3f} GiB, parameter blocks "
+              f"{cell['param_shard_bytes'] / 2**30:.3f}); LMME launches a rank "
+              f"{[r['launches']['lmme'] for r in ranks]}, engine calls "
+              f"{[r['calls']['lmme'] for r in ranks]}; {card_line()}", flush=True)
+        check(run["world"] == p and run["layouts"] is (p > 1) and len(ranks) == p,
+              f"launcher FSDP P={p}: world {run['world']}, layouts {run['layouts']}")
+        check(len(losses) == FSDP_STEPS and all(map(math.isfinite, losses)),
+              f"launcher FSDP P={p}: losses {losses}")
+        for rank, (r, ratio) in enumerate(zip(ranks, ratios)):
+            check(r["launches"]["lmme"] == r["calls"]["lmme"] > 0,
+                  f"launcher FSDP P={p}, rank {rank}: LMME launches {r['launches']['lmme']} "
+                  f"!= engine calls {r['calls']['lmme']}")
+            check(1 / FSDP_PEAK_FACTOR <= ratio <= FSDP_PEAK_FACTOR,
+                  f"launcher FSDP P={p}, rank {rank}: peak above the floor against the "
+                  f"dry-run's above the state, ratio {ratio:.3f}")
+            check(0 <= r["floor_bytes"] - state <= FSDP_FLOOR_SLACK,
+                  f"launcher FSDP P={p}, rank {rank}: floor {r['floor_bytes'] / 2**30:.4f} GiB "
+                  f"against the dry-run's state {state / 2**30:.4f} (at most "
+                  f"{FSDP_FLOOR_SLACK / 2**30:.4f} above it)")
+    for small, big in zip(FSDP_P, FSDP_P[1:]):
+        check(max(peaks[big]) < min(peaks[small]),
+              f"launcher FSDP: peaks at P={big} {peaks[big]} do not fall below P={small}'s "
+              f"{peaks[small]}")
+
+    run = runs["f32"]
+    check(run["world"] == 4 and run["layouts"] is False,
+          f"launcher --seq-shards 2 on 4 ranks: world {run['world']}, layouts {run['layouts']}")
+    label = ("launcher --seq-shards 2 (4 gloo ranks on one card, (2, 2): data parallel over 2 "
+             "beside the full-length scans; full width, f32)")
+    _per_step(run, one, DIST_LOSS_RTOL, SEQ_NORM_RTOL, label)
+    _grad_gap(ckpts["dp32"], one, label)
+    run = runs["fsdp f32"]
+    check(run["world"] == 2 and run["layouts"] is True,
+          f"launcher FSDP f32 P=2: world {run['world']}, layouts {run['layouts']}")
+    label = "launcher FSDP f32 P=2 (--mesh host (2, 1), full width)"
+    _per_step(run, one, FSDP_LOSS_RTOL, DIST_LOSS_RTOL, label)
+    _grad_gap(ckpts["fsdp32"], one, label)
 
 
 # ---------------------------------------------------------------------------
@@ -4171,7 +4414,7 @@ def main() -> int:
     train, remat = {}, {}
     for variant in ("shared_a", "generic"):
         # the forward's launch counts are train_phase's checks: remat off
-        cfg_t = dataclasses.replace(with_scan_variant(cfg, variant), remat="none")
+        cfg_t = dataclasses.replace(train_config(cfg, variant), remat="none")
         model_t = DecoderLM(cfg_t, device=DEVICE,
                             generator=torch.Generator(device=DEVICE).manual_seed(SEED))
         train[variant] = train_phase(cfg_t, model_t)
@@ -4179,7 +4422,6 @@ def main() -> int:
         del model_t
         free_memory()
     dry_ratios = dryrun_phase(dry["train"], remat)
-    launcher_phase()
     elapsed("train")
     jamba_float_launches = jamba_float_phase()
     layouts = layouts_phase()
@@ -4188,7 +4430,8 @@ def main() -> int:
     free_memory()
     sharded, _ = sharded_phase()
     elapsed("sharded")
-    dist_launches = dist_launcher_phase()
+    fsdp_cells = dict(dry["fsdp"], **{"1": dry["train"]["shared_a"]["full"]})
+    dist_runs = dist_launcher_phase(fsdp_cells)
     free_memory()
     elapsed("launcher ranks")
     exp_launches = experiments_phase()
@@ -4249,13 +4492,19 @@ def main() -> int:
               f"{fr['peak_bytes'] / 2**30:.2f} GiB; {card}",
               flush=True)
     for variant, r in remat.items():
-        print(f"summary [remat {variant}]: goom-rnn-124m train step (B={TRAIN['batch']}, "
+        print(f"summary [remat {variant}]: goom-rnn-124m train step at "
+              f"{TRAIN_LAYERS[variant]} layers (B={TRAIN['batch']}, "
               f"S={TRAIN['seq_len']}, bf16) " + "; ".join(
                   f"{k} {r[k]['step_ms']:.1f} ms wall / {r[k]['busy_ms']:.3f} ms busy, peak "
                   f"{r[k]['peak_gib']:.2f} GiB (floor {r[k]['floor_gib']:.2f})" for k in REMATS)
               + f"; f32 grads full vs none {r['remat_grad_err']:.2e} (spread "
               f"{r['remat_spread']:.2e}); {card}", flush=True)
     print(dryrun_summary(dry_ratios, card), flush=True)
+    print(f"summary [fsdp]: goom-rnn-124m laid-out train step (B={TRAIN['batch']}, "
+          f"S={TRAIN['seq_len']}, bf16, remat full) on P gloo ranks sharing the card, each "
+          "rank's peak GiB: " + "; ".join(
+              f"P={p} {[round(b / 2**30, 3) for b in dist_runs['peaks'][p]]}" for p in FSDP_P)
+          + f"; {card}", flush=True)
     print(long_summary(flash, card), flush=True)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {sum(phase_s.values()):.1f}", flush=True)
@@ -4270,7 +4519,10 @@ def main() -> int:
                    "serve families": sum(f["stats"]["launches"][k] for f in families.values()),
                    "serve frontends": sum(f["launches"][k] for f in frontends.values()),
                    "examples": ex_launches[k], "sharded": sharded[k],
-                   "train seq-shards 2": dist_launches[k], "autotune": tune_launches[k],
+                   "train seq-shards 2": dist_runs["seq"][k],
+                   **{f"train fsdp P={p} (ranks summed)": dist_runs[f"fsdp {p}"][k]
+                      for p in FSDP_P},
+                   "autotune": tune_launches[k],
                    **{f"train remat {r} {v}": remat[v][r]["per_step"][k]
                       for v in remat for r in ("full", "dots")},
                    **{f"train layouts {v}": layouts[v][k] for v in layouts},

@@ -56,12 +56,12 @@ In the time-sharded form each shard's gradient stays on its rank, and
 x0's (read by every rank's stitch) is ``Partial`` over the seq axis, which
 DTensor's autograd sums.
 
-**Transport.**  Gloo takes CPU tensors (it has no ``reduce_scatter`` and no
-CUDA all-gather), so over a gloo group each collective moves its tensors
-through host memory explicitly: the P carries (d×d and d×m each), the
-shard's states and, in the backward, the gradients.  Over NCCL they stay on
-the card.  ``collectives`` counts the calls, which is how a serving step
-tells that it holds one (a replayed CUDA graph cannot).
+**Transport.**  The collectives are ``torch.distributed``'s own on the
+tensors' device, NCCL's and gloo's alike (gloo runs ``all_gather`` and
+``all_reduce`` on CUDA tensors; ``tools/dtensor_gloo_probe.py``), as
+``sharding/gather.py`` carries a parameter's gather.  ``collectives``
+counts the calls, which is how a serving step tells that it holds one (a
+replayed CUDA graph cannot).
 """
 
 from __future__ import annotations
@@ -109,29 +109,25 @@ class ShardSpec:
 
 
 # ---------------------------------------------------------------------------
-# collectives, through the host over gloo
+# collectives
 # ---------------------------------------------------------------------------
-def _wire(group, x: torch.Tensor) -> torch.device:
-    return x.device if "nccl" in str(dist.get_backend(group)) else torch.device("cpu")
-
-
 def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     """(P,) + x.shape: every rank's ``x``, in rank order, on x's device."""
     collectives["n"] += 1
     as_bool = x.dtype == torch.bool
-    w = x.detach().to(_wire(group, x), torch.uint8 if as_bool else x.dtype).contiguous()
+    w = x.detach().to(torch.uint8 if as_bool else x.dtype).contiguous()
     parts = [torch.empty_like(w) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, w, group=group)
-    out = torch.stack(parts).to(x.device)
+    out = torch.stack(parts)
     return out.bool() if as_bool else out
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's ``x``, on x's device."""
     collectives["n"] += 1
-    w = x.detach().to(_wire(group, x)).contiguous()
+    w = x.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(w, group=group)
-    return w.to(x.device)
+    return w
 
 
 class _Gather(torch.autograd.Function):

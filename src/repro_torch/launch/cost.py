@@ -26,17 +26,19 @@ compiled HLO module, the port runs its real step under ``FakeTensorMode``
     (``kernels/shape_only.py``), counted here: the wrappers' own
     ``launches`` counters do not move.
 
-The bytes of the ops inside :func:`optimizer_part` are also counted apart
-(``update_bytes``, ``update_written``): a laid-out step updates each rank's
-blocks only, while the pass updates whole parameters.
-
 :func:`periods` makes a model's cost from one period of each group: a
 trace at one period a group, and one more for each group with two; the
 difference is one period, times ``n_periods - 1``.  The periods are
 identical, so this is exact for FLOPs, bytes and launches (JAX's
-trip-count analysis does the same for scanned layers), and the peak
-memory combines the same way: persistent state, plus each period's saved
-activations times the periods, plus one period's transients.
+trip-count analysis does the same for scanned layers).  Memory combines
+the same way region by region (``REGIONS``: before the blocks, their
+forward, the loss, their backward, the update): within one, persistent
+state plus each period's saved activations (or, in the backward, the
+larger of those and each period's gradients) times the periods plus one
+period's transients, affine in the periods; the peak is the largest
+region's, which may move from one region to another as the periods grow
+(a laid-out step's update holds every period's gradient blocks, its
+backward one period's gathered parameters).
 Microbatches (identical too) combine alike: a trace at 2 and one at 3,
 linear beyond.  :func:`lengths` makes a long sequence's counts from three
 short ones: the recurrent layers' chunks are identical too, and flash
@@ -52,7 +54,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import threading
 import time
 from typing import Any, Callable, Dict, Iterable, Optional, Sequence
 
@@ -63,28 +64,19 @@ from torch.utils._pytree import tree_leaves
 from ..kernels import shape_only
 from . import roofline
 
-__all__ = ["Cost", "KERNELS", "lengths", "measure", "optimizer_part", "periods",
-           "with_periods"]
+__all__ = ["Cost", "KERNELS", "lengths", "measure", "periods", "with_periods"]
 
 KERNELS = ("lmme", "matrix_scan", "matrix_scan_zero_b", "diag_scan")
-MEMORY = ("parameters", "gradients", "state", "activations", "temporaries", "peak")
+MEMORY = ("parameters", "gradients", "state", "activations", "temporaries", "peak",
+          "peak_pre", "peak_forward", "peak_loss", "peak_backward", "peak_update")
 
 _aten = torch.ops.aten
 _NO_TRAFFIC = {_aten.empty, _aten.empty_strided, _aten.empty_like, _aten.new_empty,
                _aten.new_empty_strided}
 _F32 = (torch.float32, torch.float64)
-_PART = threading.local()
-
-
-@contextlib.contextmanager
-def optimizer_part():
-    """Count the bytes of the ops inside also as the update's."""
-    prev = getattr(_PART, "update", False)
-    _PART.update = True
-    try:
-        yield
-    finally:
-        _PART.update = prev
+#: collectives' namespaces: their bytes are the roofline's collective term
+#: (``launch/dryrun.py``), not a device's memory traffic
+_COLLECTIVES = ("c10d", "_c10d_functional")
 
 
 @dataclasses.dataclass
@@ -96,8 +88,6 @@ class Cost:
     f32_flops: float = 0.0    # of them, those off the tensor cores
     bytes: float = 0.0        # every op's inputs and outputs
     written: float = 0.0      # every op's outputs
-    update_bytes: float = 0.0     # of bytes, the optimizer update's
-    update_written: float = 0.0   # of written, the optimizer update's
     launches: Dict[str, float] = dataclasses.field(
         default_factory=lambda: dict.fromkeys(KERNELS, 0))
     memory: Dict[str, float] = dataclasses.field(
@@ -109,8 +99,6 @@ class Cost:
         o = other if other is not None else Cost()
         return Cost(fn(self.flops, o.flops), fn(self.f32_flops, o.f32_flops),
                     fn(self.bytes, o.bytes), fn(self.written, o.written),
-                    fn(self.update_bytes, o.update_bytes),
-                    fn(self.update_written, o.update_written),
                     {k: fn(self.launches[k], o.launches[k]) for k in KERNELS},
                     {k: fn(self.memory[k], o.memory[k]) for k in MEMORY}, self.host_s,
                     self.n_metrics)
@@ -140,10 +128,12 @@ def _work(kernel: str, dims: Dict[str, Any]):
 
 
 def _nbytes(tree) -> int:
-    """Bytes of the tensors in ``tree``, each at most its storage's."""
+    """Bytes of the tensors in ``tree``, each at most its storage's (a
+    DTensor's: this rank's block's)."""
     total = 0
     for t in tree_leaves(tree):
         if isinstance(t, torch.Tensor):
+            t = getattr(t, "_local_tensor", t)
             n = t.numel() * t.element_size()
             total += min(n, t.untyped_storage().nbytes()) if n else 0
     return total
@@ -179,34 +169,111 @@ class _Counter(TorchDispatchMode):
             first = next((t for t in tree_leaves(args) if isinstance(t, torch.Tensor)), None)
             if first is not None and first.dtype in _F32:
                 self.cost.f32_flops += n
-        if not func.is_view and packet not in _NO_TRAFFIC:
+        if not func.is_view and packet not in _NO_TRAFFIC \
+                and func.namespace not in _COLLECTIVES:
             w = _nbytes(out)
             n = _nbytes((args, kwargs)) + w
             self.cost.bytes += n
             self.cost.written += w
-            if getattr(_PART, "update", False):
-                self.cost.update_bytes += n
-                self.cost.update_written += w
         return out
 
 
-def _tracker():
+class _Leaves:
+    """A module's leaf parameters and its buffers, as ``MemTracker`` reads
+    a module."""
+
+    def __init__(self, module):
+        self._module = module
+
+    def parameters(self):
+        return (p for p in self._module.parameters() if isinstance(p, torch.nn.Parameter))
+
+    def buffers(self):
+        return self._module.buffers()
+
+
+#: the parts of a step whose peaks are kept apart (``_tracker``): before the
+#: first block, among the blocks in the forward, from the last block's
+#: forward to the backward's first block (final norm, loss, head), among
+#: the blocks in the backward, and after them (embedding, clip, update)
+REGIONS = ("pre", "forward", "loss", "backward", "update")
+
+
+def _tracker(blocks: Sequence[torch.nn.Module] = ()):
     """A ``MemTracker`` that keeps the whole pass's peak and not each
     module's: the per-module bookkeeping walks every module at every
-    allocation, half the host time of a Mamba layer's pass.  A second
-    forward of the whole model (the next microbatch) starts the modules'
-    stats afresh, where ``MemTracker`` raises."""
+    allocation, half the host time of a Mamba layer's pass.  A module's
+    parameters that are not ``Parameter``s (a laid-out step's gathered
+    weights, swapped in for the period) are left where they were counted.
+    A second forward of the whole model (the next microbatch) starts the
+    modules' stats afresh, where ``MemTracker`` raises.
+
+    With the model's ``blocks`` it also keeps each of ``REGIONS``' peak
+    (``region_peaks``), told apart by the blocks' forward and backward
+    hooks: over identical periods each region's peak is affine in their
+    number, where the whole step's, the largest of them, need not be
+    (``periods``)."""
     from torch.distributed._tools.mem_tracker import MemTracker
 
+    block_set = set(map(id, blocks))
+
     class _PeakOnly(MemTracker):
+        def __init__(self):
+            super().__init__()
+            self.region_peaks: Dict[str, float] = {}
+            self._phase, self._inside, self._fw_done, self._bw_done = None, 0, 0, 0
+
+        def _region(self) -> str:
+            n = len(block_set)
+            if self._phase is None:
+                return "pre"
+            if self._phase == "fw":
+                return "forward" if self._inside or self._fw_done < n else "loss"
+            return "backward" if self._bw_done < n else "update"
+
         def _pre_fw_hook(self, module, inputs) -> None:
             mods = self._mod_tracker
             if module in self.memory_tracking and not mods.is_bw and \
                     set(mods.parents) - {mods.get_known_fqn(module)} == {"Global"}:
                 self.reset_mod_stats()
+            if id(module) in block_set:
+                if mods.is_bw:                    # a period's recomputation
+                    self._phase = "bw"
+                else:
+                    if self._phase == "bw":       # the next microbatch
+                        self._fw_done = self._bw_done = 0
+                    self._phase, self._inside = "fw", self._inside + 1
             super()._pre_fw_hook(module, inputs)
 
+        def _post_fw_hook(self, module, inputs, outputs) -> None:
+            if id(module) in block_set and not self._mod_tracker.is_bw:
+                self._inside, self._fw_done = self._inside - 1, self._fw_done + 1
+            super()._post_fw_hook(module, inputs, outputs)
+
+        def _pre_bw_hook(self, module, args) -> None:
+            if id(module) in block_set:
+                self._phase = "bw"
+            super()._pre_bw_hook(module, args)
+
+        def _post_bw_hook(self, module, args) -> None:
+            if id(module) in block_set:
+                self._bw_done += 1
+            super()._post_bw_hook(module, args)
+
+        def _track_module_params_and_buffers(self, module, install_grad_hooks=True):
+            # a laid-out step's gathered weights stand in for a module's
+            # parameters: they stay counted where they were made
+            if all(isinstance(p, torch.nn.Parameter) for p in module.parameters()):
+                return super()._track_module_params_and_buffers(module, install_grad_hooks)
+            return super()._track_module_params_and_buffers(_Leaves(module),
+                                                            install_grad_hooks)
+
         def _update_peak_stats(self, peak_state) -> None:
+            total = sum(max(v for k, v in snap.items() if getattr(k, "value", k) == "Total")
+                        for snap in self._curr_mem_snap.values())
+            if block_set:
+                region = self._region()
+                self.region_peaks[region] = max(self.region_peaks.get(region, 0), total)
             if not hasattr(self, "_peak_mem_snap"):   # another torch: the whole walk
                 return super()._update_peak_stats(peak_state)
             for dev, snap in self._curr_mem_snap.items():
@@ -227,7 +294,8 @@ def measure(fn: Callable[[], Any], *, modules: Sequence[torch.nn.Module] = (),
     memory is zeros.  Run it inside a ``FakeTensorMode`` to cost a step
     without a device."""
     counter = _Counter()
-    tracker = _tracker() if memory else contextlib.nullcontext()
+    blocks = [b for m in modules for b in getattr(m, "layers", ())]
+    tracker = _tracker(blocks) if memory else contextlib.nullcontext()
     if memory:
         tracker.track_external(*modules, *state)
     t0 = time.perf_counter()
@@ -249,8 +317,17 @@ def measure(fn: Callable[[], Any], *, modules: Sequence[torch.nn.Module] = (),
         "activations": peak.get("Activation", 0),
         "temporaries": peak.get("Temp", 0),
         "peak": peak.get("Total", 0),
+        **{f"peak_{r}": tracker.region_peaks.get(r, 0) for r in REGIONS},
     }
     return out, cost
+
+
+def _regions_peak(c: Cost) -> Cost:
+    """``c`` with its peak the largest of its regions' (when it has them)."""
+    regions = [c.memory[f"peak_{r}"] for r in REGIONS]
+    if any(regions):
+        c.memory["peak"] = max(regions)
+    return c
 
 
 def with_periods(cfg, counts: Sequence[int]):
@@ -284,7 +361,7 @@ def periods(cfg, cost_of: Callable[[Any, int], Cost], microbatches: int = 1) -> 
         at_mb.append(total)
     out = at_mb[0] if len(at_mb) == 1 else at_mb[0] + (at_mb[1] - at_mb[0]) * (microbatches - 2)
     out.host_s = sum(c.host_s for c in traced)
-    return out
+    return _regions_peak(out)
 
 
 def lengths(seq_len: int, cost_at: Callable[[int], Cost], *, base: int, step: int) -> Cost:

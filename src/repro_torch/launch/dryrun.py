@@ -16,32 +16,44 @@ path up to the launch (``kernels/shape_only.py``).  For each cell it records:
   * the three roofline terms on the H100's constants (``launch/roofline.py``),
     and the host seconds the cell took.
 
-**What a device holds follows the port as it is.**  Train cells lay the
-parameters and moments out by ``sharding.param_specs`` (JAX's
-``param_shardings``) and ``launch.train.state_placements`` on the abstract
-production mesh: between steps a device keeps their shard shapes
-(``sharding.layout.shard_shape``).  A step gathers every parameter whole
-(``train/train_loop.py`` ``_gather``), so during it a device also holds the
-whole parameters, their whole gradients and its batch slice's activations:
-the peak is the shards plus the whole gathered parameters plus the traced
-step's peak above its parameters and state (with ``cast_params_bf16`` the
-trace holds the gathered bf16 copies there already).  The model axis splits the
-parameters but not the activations, so every rank of it repeats the
-compute of its batch slice.  Serve cells (prefill, decode) have no layout
-in the port: a device holds the whole parameters and its rows' whole
-caches; the bytes JAX's cache layout (``_CACHE_AXES``, ``cache_shardings``)
-would leave a device are reported beside them (``cache_shard_bytes``).
-Cells whose peak passes the card's 80 GB are marked ``over_hbm``.
+**What a device holds follows the port as it is.**  Cells on more than
+one device lay the parameters out by ``sharding.param_specs`` (JAX's
+``param_shardings``) and the dry-run traces the laid-out step of one rank
+itself: the process joins torch's fake process group as rank 0 of the
+mesh's world (``fake_ranks``), ``sharding.distribute_model`` lays the
+model out over it as the launcher does, and the production step runs
+(``make_train_step``), its gathers and reductions on the port's
+collectives (``sharding/gather.py``), which move nothing over the fake
+group.  So the trace allocates what a rank allocates: its parameter
+blocks and their moments (``launch.train.state_placements``), one
+period's gathered parameters at a time (bf16 under ``cast_params_bf16``;
+again in the recomputation under ``full`` and ``dots``), the embedding,
+final norm and head while they are gathered, one period's whole gradients
+before their reduce-scatter, and its batch slice's activations; the
+update runs on the blocks.  The peak is the trace's.  The collectives'
+bytes are the collective term below, not memory traffic.
+``gathered_param_bytes`` is the most a rank holds gathered at once: the
+largest period's parameters and those outside the periods.
+Prefill cells lay the parameters out the same way and gather one period at
+a time without a gradient; a device holds its rows' whole caches, and the
+bytes JAX's cache layout (``_CACHE_AXES``, ``cache_shardings``) would leave
+it are reported beside them (``cache_shard_bytes``).  Decode cells (the
+Engine, whose CUDA graphs keep plain parameters) hold the whole
+parameters.  The model axis splits the parameters but not the activations,
+so every rank of it repeats the compute of its batch slice.  Cells whose
+peak passes the card's 80 GB are marked ``over_hbm``.
 
-**Collectives** (train cells on more than one device), as DTensor runs
-them, one op per mesh dim: an all-gather of each parameter over each mesh
-dim it is sharded on; for each gradient, over each batch dim, a
-reduce-scatter where the parameter is sharded on it, else an all-reduce;
-an all-reduce of the metrics over each batch dim; one of the clip's sum of
-squares over each mesh dim any parameter is sharded on; and, when
-``scan_seq`` maps to a mesh axis, the recurrent layers' time shards (an
-all-gather of each one's output, an all-reduce of each gradient it reads
-replicated).  Serve steps run no collective.
+**Collectives** (train cells on more than one device), as the port's step
+runs them, one op per mesh dim: each parameter's gather, the last mesh dim
+first, an all-gather over each mesh dim it is sharded on, once for each
+microbatch (the tied embedding twice: embedding and head) and once more in
+the recomputation of a period under ``full`` and ``dots``; for each
+gathered gradient, over each batch dim in mesh order, a reduce-scatter
+where the parameter is sharded on it, else an all-reduce; an all-reduce
+of the metrics over each batch dim; one of the clip's sum of squares over each mesh dim any parameter is
+sharded on; and, when ``scan_seq`` maps to a mesh axis, the recurrent
+layers' time shards (an all-gather of each one's output, an all-reduce of
+each gradient it reads replicated).  Serve steps' gathers are not counted.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
@@ -53,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -60,15 +73,17 @@ import os
 import sys
 import time
 import traceback
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
 from ..configs import ASSIGNED_ARCHS, SHAPES, ShapeCfg, get_config, input_specs, shape_applicable
 from ..configs.base import transform_blocks
 from ..core import engine
+from ..kernels.dispatch import current_platform
 from ..sharding.layout import shard_shape
-from ..sharding.rules import AxisRules, make_rules, param_specs
+from ..sharding.mesh import NamedMesh
+from ..sharding.rules import AxisRules, distribute_model, make_rules, param_specs
 from . import cost
 from .mesh import make_production_mesh
 from .roofline import (
@@ -79,8 +94,8 @@ from .roofline import (
     model_flops,
 )
 
-__all__ = ["SkipCell", "lower_cell", "serve_cache_report", "cache_specs",
-           "train_collectives", "main"]
+__all__ = ["SkipCell", "fake_ranks", "lower_cell", "serve_cache_report", "cache_specs",
+           "gather_counts", "gathered_bytes", "train_collectives", "main"]
 
 GIB = 2 ** 30
 
@@ -141,38 +156,59 @@ def _axes_of(spec) -> List[str]:
     return out
 
 
+def gather_counts(cfg, names, *, microbatches: int = 1) -> Dict[str, Tuple[int, int]]:
+    """name -> (the parameter's gathers in a train step, the reductions of
+    their gradients): one of each a microbatch, the tied embedding's twice
+    (the embedding and the head), and a period's gathers once more in its
+    recomputation under ``full`` and ``dots``."""
+    out = {}
+    for n in names:
+        k = 2 if n == "embed" and cfg.tie_embeddings else 1
+        again = 2 if n.startswith("layers.") and cfg.remat != "none" else 1
+        out[n] = (k * again * microbatches, k * microbatches)
+    return out
+
+
 def train_collectives(rules: AxisRules, params: Dict[str, Tuple[tuple, torch.dtype]],
                       specs: Dict[str, tuple], *, cast_params_bf16: bool = False,
-                      n_metrics: int = 3, time_shards: Optional[List[Tuple[int, list]]] = None
+                      n_metrics: int = 3, time_shards: Optional[List[Tuple[int, list]]] = None,
+                      counts: Optional[Dict[str, Tuple[int, int]]] = None
                       ) -> List[CollectiveOp]:
     """The collectives of one laid-out train step (module docstring).
-    ``params``: name -> (whole shape, dtype); ``time_shards``: per
+    ``params``: name -> (whole shape, dtype); ``counts``: name -> (gathers,
+    reductions) (``gather_counts``; default one each); ``time_shards``: per
     recurrent layer, (its output's bytes, the bytes of each gradient it
     reads replicated), when ``scan_seq`` maps to a mesh axis."""
     size = rules.mesh.shape
-    batch = [a for a in rules.mesh_axes_for("batch") if a in size]
+    names = list(rules.mesh.axis_names)
+    batch = set(a for a in rules.mesh_axes_for("batch") if a in size)
     ops: List[CollectiveOp] = []
     sharded_dims = set()
     for name, (shape, dtype) in params.items():
         if cast_params_bf16 and dtype == torch.float32:
             dtype = torch.bfloat16
         whole = _bytes(shape, dtype)
-        axes = _axes_of(specs[name])
+        axes = sorted(_axes_of(specs[name]), key=names.index)   # mesh order
         sharded_dims.update(axes)
-        left = math.prod(size[a] for a in axes)
-        for a in reversed(axes):           # gathered one mesh dim at a time
-            left //= size[a]
-            ops.append(CollectiveOp("all-gather", whole // left, size[a]))
+        axes = [a for a in axes if size[a] > 1]   # a 1-sized dim moves nothing
+        gathers, reductions = (counts or {}).get(name, (1, 1))
+        part = whole // math.prod(size[a] for a in axes)
+        for a in reversed(axes):           # gathered the last mesh dim first
+            part *= size[a]
+            ops.extend([CollectiveOp("all-gather", part, size[a])] * gathers)
         local = whole                      # the gradient, whole on every rank
-        for a in batch:
-            if a in axes:
+        for a in (a for a in names if size[a] > 1):
+            if a in batch and a in axes:
                 local //= size[a]
-                ops.append(CollectiveOp("reduce-scatter", local, size[a]))
-            else:
-                ops.append(CollectiveOp("all-reduce", local, size[a]))
-    ops.extend(CollectiveOp("all-reduce", 4 * n_metrics, size[a]) for a in batch)
-    ops.extend(CollectiveOp("all-reduce", 4, size[a]) for a in rules.mesh.axis_names
-               if a in sharded_dims)
+                ops.extend([CollectiveOp("reduce-scatter", local, size[a])] * reductions)
+            elif a in batch:
+                ops.extend([CollectiveOp("all-reduce", local, size[a])] * reductions)
+                local //= size[a] if a in axes else 1
+            elif a in axes:
+                local //= size[a]          # this rank's slice, no collective
+    ops.extend(CollectiveOp("all-reduce", 4 * n_metrics, size[a]) for a in names
+               if a in batch)
+    ops.extend(CollectiveOp("all-reduce", 4, size[a]) for a in names if a in sharded_dims)
     seq = rules.mesh_axes_for("scan_seq")
     if time_shards and seq and size[seq[0]] > 1:
         for out_bytes, replicated in time_shards:
@@ -218,18 +254,31 @@ def _pick_microbatches(cfg, shape: ShapeCfg, mesh) -> int:
 # ---------------------------------------------------------------------------
 # the steps on fake tensors
 # ---------------------------------------------------------------------------
-class _CountedUpdate:
-    """An optimizer whose ``update`` is counted apart (``cost.optimizer_part``)."""
+@contextlib.contextmanager
+def fake_ranks(mesh) -> Iterator[NamedMesh]:
+    """``mesh``'s shape over torch's fake process group, this process its
+    rank 0: a ``NamedMesh`` whose DTensors hold rank 0's blocks and whose
+    collectives move nothing (the trace's tensors are fake).  The process
+    must hold no process group of its own; the fake one ends with the
+    block."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
 
-    def __init__(self, opt):
-        self._opt = opt
-
-    def __getattr__(self, name):
-        return getattr(self._opt, name)
-
-    def update(self, *args, **kw):
-        with cost.optimizer_part():
-            return self._opt.update(*args, **kw)
+    if dist.is_initialized():
+        raise RuntimeError("a dry-run of several devices joins a fake process group; "
+                           "this process already has one")
+    if current_platform() == "cuda":
+        # the group's collectives set up the card's state on first use, which
+        # a checkpointed period's forward refuses: set it up first
+        torch.cuda.init()
+    names = tuple(mesh.axis_names)
+    sizes = tuple(int(mesh.shape[a]) for a in names)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(sizes))
+    try:
+        yield NamedMesh(sizes, names, init_device_mesh("cpu", sizes, mesh_dim_names=names))
+    finally:
+        dist.destroy_process_group()
 
 
 def _length_fit(cfg) -> Optional[Tuple[int, int]]:
@@ -267,21 +316,27 @@ def _model(cfg):
 
 
 def train_trace(cfg, shape: ShapeCfg, rows: int, microbatches: int = 1,
-                cast_params_bf16: bool = False, memory: bool = True) -> cost.Cost:
+                cast_params_bf16: bool = False, memory: bool = True,
+                rules: Optional[AxisRules] = None, backend: str = "cuda") -> cost.Cost:
     """One trace of one train step of ``cfg`` on ``rows`` rows of ``shape``
-    in ``microbatches``, AdamW as JAX's dry-run, the engine on its ``cuda``
-    backend; the cost's ``n_metrics`` is how many metrics the step reduces
-    over the batch (those of the loss)."""
+    in ``microbatches``, AdamW as JAX's dry-run, the engine on ``backend``
+    (the card's dispatch by default; ``torch_reference`` allocates what
+    the plain versions do, as a CPU rank); with ``rules`` over a
+    ``fake_ranks`` mesh, one rank's laid-out step (module docstring).
+    The cost's ``n_metrics`` is how many metrics the step reduces over the
+    batch (those of the loss)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from ..train import AdamW, cosine_schedule, init_train_state, make_train_step
 
-    with FakeTensorMode(), engine.use_backend("cuda"):
+    with FakeTensorMode(), engine.use_backend(backend):
         model = _model(cfg)
-        opt = _CountedUpdate(AdamW(cosine_schedule(3e-4, 100, 10_000)))
+        if rules is not None:
+            distribute_model(model, rules)
+        opt = AdamW(cosine_schedule(3e-4, 100, 10_000))
         state = init_train_state(model, opt)
         step = make_train_step(model, opt, microbatches=microbatches,
-                               cast_params_bf16=cast_params_bf16)
+                               cast_params_bf16=cast_params_bf16, rules=rules)
         batch = _fake_inputs(cfg, shape, rows)
         moments = [v for k, tree in state.opt_state.items() if k != "step"
                    for v in tree.values()]
@@ -292,9 +347,11 @@ def train_trace(cfg, shape: ShapeCfg, rows: int, microbatches: int = 1,
 
 
 def train_cost(cfg, shape: ShapeCfg, rows: int, *, microbatches: int = 1,
-               cast_params_bf16: bool = False) -> cost.Cost:
+               cast_params_bf16: bool = False, rules: Optional[AxisRules] = None
+               ) -> cost.Cost:
     """The cost of one train step of ``cfg`` on ``rows`` rows of ``shape``
-    (``microbatches`` of ``rows / microbatches``; ``train_trace``) from one
+    (``microbatches`` of ``rows / microbatches``; ``train_trace``, one
+    rank's under ``rules``) from one
     and two periods of each group (``cost.periods``, which traces at most
     two microbatches at once and above two extrapolates from 2 and 3).
 
@@ -311,7 +368,7 @@ def train_cost(cfg, shape: ShapeCfg, rows: int, *, microbatches: int = 1,
 
     def at(sh, mb=microbatches, memory=True):
         return cost.periods(cfg, lambda c, k: train_trace(
-            c, sh, k * per_mb, k, cast_params_bf16, memory), mb)
+            c, sh, k * per_mb, k, cast_params_bf16, memory, rules), mb)
 
     fit = _length_fit(cfg)
     if (microbatches <= 2 or fit is None or shape.seq_len <= fit[0] + 2 * fit[1]
@@ -325,10 +382,12 @@ def train_cost(cfg, shape: ShapeCfg, rows: int, *, microbatches: int = 1,
     return out
 
 
-def serve_trace(cfg, shape: ShapeCfg, rows: int) -> cost.Cost:
+def serve_trace(cfg, shape: ShapeCfg, rows: int, rules: Optional[AxisRules] = None
+                ) -> cost.Cost:
     """One trace of the prefill step (``prefill`` shapes: ``rows`` prompts
     of ``seq_len`` into fresh caches, ``fresh_caches=True``: the single-shot
-    prefill attends over the prompt) or of one decode step (caches of
+    prefill attends over the prompt; with ``rules`` over a ``fake_ranks``
+    mesh, on one rank's blocks, gathered a period at a time) or of one decode step (caches of
     ``seq_len`` positions, the token at the last), the engine on its
     ``cuda`` backend."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -337,6 +396,8 @@ def serve_trace(cfg, shape: ShapeCfg, rows: int) -> cost.Cost:
 
     with FakeTensorMode():
         model = _model(cfg)
+        if rules is not None:
+            distribute_model(model, rules)
         caches = model.init_caches(rows, shape.seq_len)
         leaves = [leaf for layer in caches for leaf in layer.values()]
         inputs = _fake_inputs(cfg, shape, rows)
@@ -352,10 +413,25 @@ def serve_trace(cfg, shape: ShapeCfg, rows: int) -> cost.Cost:
     return c
 
 
-def serve_cost(cfg, shape: ShapeCfg, rows: int) -> cost.Cost:
+def serve_cost(cfg, shape: ShapeCfg, rows: int, rules: Optional[AxisRules] = None
+               ) -> cost.Cost:
     """The cost of a serve step (``serve_trace``) from one and two periods
     of each group, each traced at the full length."""
-    return cost.periods(cfg, lambda c, _mb: serve_trace(c, shape, rows))
+    return cost.periods(cfg, lambda c, _mb: serve_trace(c, shape, rows, rules))
+
+
+def gathered_bytes(model, dtype: Optional[torch.dtype] = None) -> int:
+    """The most parameter bytes a laid-out rank holds gathered at once: the
+    largest period's and those outside the periods (f32 ones cast to
+    ``dtype``)."""
+    def nbytes(p):
+        cast = dtype if dtype is not None and p.dtype == torch.float32 else p.dtype
+        return _bytes(tuple(p.shape), cast)
+
+    period = max(sum(nbytes(p) for i in range(lo, hi)
+                     for p in model.layers[i].parameters()) for lo, hi in model._periods)
+    return period + sum(nbytes(p) for n, p in model.named_parameters()
+                        if not n.startswith("layers."))
 
 
 # ---------------------------------------------------------------------------
@@ -464,48 +540,43 @@ def lower_cell(arch, shape: Union[str, ShapeCfg], mesh, *, perf: Optional[Dict] 
     whole_model = DecoderLM(cfg, device="meta")
     params = {n: (tuple(p.shape), p.dtype) for n, p in whole_model.named_parameters()}
     param_bytes = sum(_bytes(s, d) for s, d in params.values())
+    laid_out = chips > 1 and shape_cfg.kind in ("train", "prefill")
     mem: Dict[str, float] = {}
     ops: List[CollectiveOp] = []
+    specs = param_specs(rules, whole_model)
+    if shape_cfg.kind in ("train", "prefill"):
+        dtype = torch.bfloat16 if cast and shape_cfg.kind == "train" else None
+        mem.update(param_shard_bytes=float(sum(
+            _bytes(shard_shape(s, specs[n], mesh.shape), d) for n, (s, d) in params.items())),
+            gathered_param_bytes=float(gathered_bytes(whole_model, dtype) if laid_out else 0))
+    with fake_ranks(mesh) if laid_out else contextlib.nullcontext() as ranks:
+        rank_rules = make_rules(ranks, overrides) if laid_out else None
+        if shape_cfg.kind == "train":
+            mb = perf.get("microbatches", _pick_microbatches(cfg, shape_cfg, mesh))
+            mb = max(1, min(int(mb), rows))
+            c = train_cost(cfg, shape_cfg, rows, microbatches=mb, cast_params_bf16=cast,
+                           rules=rank_rules)
+        else:
+            c = serve_cost(cfg, shape_cfg, rows, rank_rules)
     if shape_cfg.kind == "train":
-        mb = perf.get("microbatches", _pick_microbatches(cfg, shape_cfg, mesh))
-        mb = max(1, min(int(mb), rows))
-        c = train_cost(cfg, shape_cfg, rows, microbatches=mb, cast_params_bf16=cast)
-        laid_out = chips > 1
-        specs = param_specs(rules, whole_model)
-        shard = sum(_bytes(shard_shape(s, specs[n], mesh.shape), d)
-                    for n, (s, d) in params.items())
-        moment_shard = sum(_bytes(shard_shape(s, specs[n], mesh.shape), torch.float32)
-                           for n, (s, _) in params.items()) * 2
-        gathered = sum(_bytes(s, torch.bfloat16 if cast and d == torch.float32 else d)
-                       for s, d in params.values())
-        # the trace holds the cast parameters' bf16 copies above its state
-        # already; the others are gathered beside their blocks
-        held = sum(_bytes(s, d) for s, d in params.values()
-                   if not (cast and d == torch.float32))
         if laid_out:
-            frac = shard / max(param_bytes, 1)
-            c.bytes -= c.update_bytes * (1 - frac)   # the update runs on the blocks
-            c.written -= c.update_written * (1 - frac)
             ops = train_collectives(
                 rules, params, specs, cast_params_bf16=cast, n_metrics=c.n_metrics,
-                time_shards=_time_shard_bytes(cfg, rows, shape_cfg.seq_len, cast))
-            peak = shard + moment_shard + held + c.above_state
-        else:
-            peak = c.memory["peak"]
-        mem.update(param_shard_bytes=float(shard), moment_shard_bytes=float(moment_shard),
-                   gathered_param_bytes=float(gathered if laid_out else 0),
-                   microbatches=mb)
+                time_shards=_time_shard_bytes(cfg, rows, shape_cfg.seq_len, cast),
+                counts=gather_counts(cfg, params, microbatches=mb))
+        mem.update(moment_shard_bytes=float(sum(
+            _bytes(shard_shape(s, specs[n], mesh.shape), torch.float32)
+            for n, (s, _) in params.items()) * 2), microbatches=mb)
     else:
-        c = serve_cost(cfg, shape_cfg, rows)
         caches = whole_model.init_caches(shape_cfg.global_batch, shape_cfg.seq_len,
                                          device="meta")
         cspecs = cache_specs(rules, caches)
         cache_shard = sum(_bytes(shard_shape(tuple(leaf.shape), cspecs[f"{i}.{k}"],
                                              mesh.shape), leaf.dtype)
                           for i, layer in enumerate(caches) for k, leaf in layer.items())
-        peak = c.memory["peak"]
         mem.update(cache_shard_bytes=float(cache_shard),
                    cache_bytes=float(c.memory["state"]))
+    peak = c.memory["peak"]
     coll_bytes, coll_by_kind = collective_bytes_per_device(ops)
     mem.update({f"trace_{k}_bytes": float(v) for k, v in c.memory.items()})
     mem.update(param_bytes=float(param_bytes), above_state_bytes=float(c.above_state),

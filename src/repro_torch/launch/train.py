@@ -9,8 +9,9 @@ versions.  The port of ``repro/launch/train.py``.
 
 **Ranks.**  Under ``python -m torch.distributed.run --nproc-per-node N -m
 repro_torch.launch.train ...`` the N ranks join one process group
-(``--dist-backend``, ``nccl`` by default; ``gloo`` moves the collectives'
-tensors through host memory) and form a mesh: ``--mesh host`` (the
+(``--dist-backend``, ``nccl`` by default; ``gloo`` shares a card, and
+carries the collectives of CUDA tensors through its own host copies) and
+form a mesh: ``--mesh host`` (the
 default), this host's ranks as ("data", "model") of shape
 (N / seq_shards, seq_shards); ``--mesh production`` and
 ``production-multipod``, JAX's (16, 16) and (2, 16, 16), which need a world
@@ -23,22 +24,32 @@ optimizer's moments as their parameters and the step replicated
 (``state_placements``, JAX's ``state_shardings``), and the batch is split
 over the rules' batch axes (``batch_placements``, JAX's
 ``batch_shardings``): the rank at index i of those axes draws slice i of
-the global batch (``process_index``).  A step gathers the parameters and
-reduce-scatters their gradients (``train/train_loop.py``).
+the global batch (``process_index``).  The model gathers one period's
+parameters at a time and the gradients go back into their layout
+(``train/train_loop.py``, ``sharding/gather.py``), on the port's own
+collectives, which gloo carries for CUDA tensors too: gloo ranks that
+share a card lay their parameters out as well.
 ``--seq-shards`` maps the ``scan_seq`` logical axis to "model": every
 recurrent layer time-shards its scan over the rank's seq group, each rank
 building and holding its ⌈T/P⌉ steps (``sharding/layout.py``).
 Checkpoints hold whole tensors in the JAX layout, gathered from every
 rank and written by rank 0, and restore at any rank count.
 
-Gloo cannot carry DTensor's collectives on CUDA tensors (on an H100 under
-torch 2.11 the ranks die with SIGSEGV; PERF.md §7), so gloo ranks that
-share a card keep the plain layout: the parameters whole on every rank,
-the gradients averaged over the data group by hand, and each scan of the
-seq group run on the full-length operands (``engine.use_mesh``,
-``kernels/sharded.py``).  Rank 0 alone logs.  NCCL takes one rank a card:
-more ranks than cards under NCCL are refused (pass ``--dist-backend gloo``
-to share a card).
+The time shards' collectives are DTensor's (``constrain``), which gloo
+cannot carry for CUDA tensors (on an H100 under torch 2.11 the ranks die
+with SIGSEGV; ``tools/dtensor_gloo_probe.py``).  So gloo ranks that share
+a card with ``--seq-shards`` > 1 keep the plain layout: the parameters
+whole on every rank, the gradients averaged over the data group by hand,
+and each scan of the seq group run on the full-length operands
+(``engine.use_mesh``, ``kernels/sharded.py``).  Rank 0 alone logs.  NCCL
+takes one rank a card: more ranks than cards under NCCL are refused (pass
+``--dist-backend gloo`` to share a card).  ``--metrics-out``: rank 0
+writes every step's metrics and, for each rank, its kernel launches, its
+engine calls, and its peak device memory over the steps after the first
+(``torch.cuda.max_memory_allocated``; over the one step of a run of one)
+with the bytes allocated when the peak was reset (``floor_bytes``: the
+state, and what the first calls allocated for good, such as cuBLAS's
+workspace); nulls on the CPU.
 
 ``--autotune`` sweeps the kernels' launch knobs on the training shapes
 before the first step (rank 0; the others read its cache).
@@ -124,8 +135,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--compute-dtype", default=None, choices=["bfloat16", "float32"],
                     help="the model's compute dtype (default: the config's)")
     ap.add_argument("--metrics-out", default=None,
-                    help="rank 0 writes every step's metrics and its kernel launches "
-                         "here as JSON")
+                    help="rank 0 writes every step's metrics and each rank's kernel "
+                         "launches, engine calls and peak device memory here as JSON")
     ap.add_argument("--straggler-factor", type=float, default=2.0)
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
@@ -211,12 +222,31 @@ def batch_slice(rules, mesh: NamedMesh) -> Tuple[int, int]:
     return idx, count
 
 
+def _memory_floor(dev: torch.device):
+    """The bytes allocated on the card now, its peak reset to them (None on
+    the CPU)."""
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def uses_layouts(args, dev: torch.device, multi: bool) -> bool:
+    """Whether a run lays its parameters out as DTensors: on a mesh of
+    several ranks wherever the process group carries the step's
+    collectives.  The gathers are the port's own, which gloo carries for
+    CUDA tensors too; the time shards' are DTensor's, which gloo does not
+    (the module docstring)."""
+    return multi and (dev.type == "cpu" or args.dist_backend == "nccl"
+                      or args.seq_shards == 1)
+
+
 def _train(args, dev):
     mesh = _mesh(args, dev)
     rank = dist.get_rank() if dist.is_initialized() else 0
     multi = mesh.device_mesh is not None
-    # DTensor layouts where the process group carries their collectives
-    layouts = multi and (dev.type == "cpu" or args.dist_backend == "nccl")
+    layouts = uses_layouts(args, dev, multi)
     rules = make_rules(mesh, overrides={"scan_seq": "model"} if args.seq_shards > 1 else None)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.compute_dtype:
@@ -283,12 +313,15 @@ def _train(args, dev):
             writer.save(step_no, tree, extra={"data": {"step": step_no}})
     batches = Prefetcher(itertools.islice(stream, args.steps - start_step), dev)
     metrics, times, history = None, [], []
+    floor = _memory_floor(dev)
     t_start = time.perf_counter()
     try:
         with use_rules(rules), engine.use_backend(args.backend), scans:
             for step, batch in zip(range(start_step, args.steps), batches):
                 t0 = time.perf_counter()
                 state, metrics = step_fn(state, batch)
+                if step == start_step and args.steps - start_step > 1:
+                    floor = _memory_floor(dev)   # the first calls' allocations made
                 if args.metrics_out and rank == 0:
                     history.append({"step": step, **{k: float(v) for k, v in metrics.items()}})
                 if rank == 0 and (step % args.log_every == 0 or step == args.steps - 1):
@@ -318,13 +351,21 @@ def _train(args, dev):
     finally:
         batches.close()
         signal.signal(signal.SIGTERM, old_handler)
-    if args.metrics_out and rank == 0:
+    if args.metrics_out:
         from ..serve.graphs import kernel_launches
 
-        with open(args.metrics_out, "w") as f:
-            json.dump({"steps": history, "launches": kernel_launches(),
-                       "world": dist.get_world_size() if multi else 1,
-                       "layouts": layouts}, f)
+        mine = {"launches": kernel_launches(), "calls": dict(engine.calls),
+                "peak_bytes": (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                               else None), "floor_bytes": floor}
+        ranks = [mine]
+        if multi:
+            ranks = [None] * dist.get_world_size()
+            dist.all_gather_object(ranks, mine)
+        if rank == 0:
+            with open(args.metrics_out, "w") as f:
+                json.dump({"steps": history, "launches": mine["launches"],
+                           "world": dist.get_world_size() if multi else 1,
+                           "layouts": layouts, "ranks": ranks}, f)
     if rank == 0:
         print(f"done: {args.steps - start_step} steps in "
               f"{time.perf_counter() - t_start:.1f}s", flush=True)

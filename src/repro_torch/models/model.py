@@ -30,6 +30,20 @@ keeps everything.  Remat applies only with grad enabled and no caches.
 ``param_axes()`` gives each parameter's JAX logical axes, which the
 sharding rules lay out (``sharding.distribute_model``).
 
+Laid-out parameters (DTensors, FSDP) are gathered where they are read
+(``sharding/gather.py``), as XLA places JAX's gathers inside its scan over
+periods: each period's parameters as the period starts, inside its
+checkpoint region under ``"full"`` and ``"dots"`` (the backward's
+recomputation gathers again, and nothing gathered is saved); the
+embedding, final norm and head around their use, the tied head gathered
+again for the loss.  So a rank holds one period's gathered parameters at a
+time, and their whole gradients one period at a time.  Under ``"none"``
+autograd keeps the gathered weights the products save, every period's,
+as JAX keeps them as scan residuals.  ``param_gather`` (the train step's
+:class:`~repro_torch.sharding.gather.ParamGather`: the batch axes, the
+bf16 cast) goes to ``hidden_states``, ``forward``, ``loss`` and
+``prefill``; without it a laid-out model gathers with the default.
+
 Serving API (what ``serve.Engine`` drives): ``init_caches``,
 ``init_slot_caches`` (the paged KV pool), ``prefill`` and ``decode_step``.
 Caches are a list with one dict per layer: the layer's GOOM carry, Mamba
@@ -40,6 +54,7 @@ the recurrent layers ignore them.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Dict, List, Optional, Tuple
@@ -47,12 +62,14 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils.stateless import _reparametrize_module
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
 from ..configs.base import LMConfig
 from ..kernels.dispatch import resolve_device
-from ..sharding.rules import constrain
+from ..sharding.gather import ParamGather
+from ..sharding.rules import constrain, is_dtensor
 from .blocks import Block, block_init_cache
 from .common import Dense, with_axes
 from .norms import make_norm
@@ -106,19 +123,22 @@ class DecoderLM(nn.Module):
                       positions: Optional[torch.Tensor] = None, *,
                       prefix_embeds: Optional[torch.Tensor] = None,
                       mrope_positions: Optional[torch.Tensor] = None,
-                      fresh_caches: bool = False):
+                      fresh_caches: bool = False,
+                      param_gather: Optional[ParamGather] = None):
         """tokens (B, S) at ``positions`` (B, S; default 0..S-1) → (final-normed
         hidden (B, S, d), new caches or None, aux losses summed over layers).
         ``prefix_embeds`` (B, P <= S, d) are added onto the first P
         positions; ``mrope_positions`` (3, B, S) go to M-RoPE layers;
-        ``fresh_caches`` (static) promises empty caches (see ``prefill``)."""
+        ``fresh_caches`` (static) promises empty caches (see ``prefill``);
+        ``param_gather`` gathers laid-out parameters (module docstring)."""
+        gather = self._gather_of(param_gather)
         cd = self.cfg.compute_dtype
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
         # F.embedding, not indexing: its backward gives the same bits every
         # run (indexing's accumulating backward does not on the CPU)
-        x = F.embedding(tokens, self.embed).to(cd)
+        x = F.embedding(tokens, self._whole("embed", self.embed, gather)).to(cd)
         if self.cfg.scale_embedding:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model)).to(cd)
         if prefix_embeds is not None:
@@ -135,47 +155,80 @@ class DecoderLM(nn.Module):
         for lo, hi in self._periods:
             if remat == "none":
                 x, cs, aux = self._period(x, positions, mrope_positions, lo, hi, caches,
-                                          fresh_caches)
+                                          fresh_caches, gather)
                 new_caches.extend(cs)
             else:
                 x, aux = checkpoint(self._period_remat, x, positions, mrope_positions, lo, hi,
-                                    use_reentrant=False, context_fn=_REMAT_CONTEXT[remat])
+                                    gather, use_reentrant=False,
+                                    context_fn=_REMAT_CONTEXT[remat])
             for k, v in aux.items():
                 aux_tot[k] = aux_tot.get(k, 0.0) + v
-        return (self.final_norm(x), (new_caches if caches is not None else None),
-                aux_tot)
+        with self._gathered(["final_norm"], gather):
+            h = self.final_norm(x)
+        return h, (new_caches if caches is not None else None), aux_tot
+
+    def _gather_of(self, param_gather: Optional[ParamGather]) -> Optional[ParamGather]:
+        """The gather of this call: ``param_gather``, the default one for
+        laid-out parameters, or None (plain parameters, read as they are)."""
+        if param_gather is not None:
+            return param_gather
+        return ParamGather() if is_dtensor(self.embed) else None
+
+    @staticmethod
+    def _whole(name: str, p: torch.Tensor, gather: Optional[ParamGather]) -> torch.Tensor:
+        return p if gather is None else gather(name, p)
+
+    @contextlib.contextmanager
+    def _gathered(self, prefixes: List[str], gather: Optional[ParamGather]):
+        """The parameters under ``prefixes`` (state-dict names) whole for
+        the block's duration, freed after (nothing when ``gather`` is None)."""
+        if gather is None:
+            yield
+            return
+        whole = {f"{pre}.{n}": gather(f"{pre}.{n}", p) for pre in prefixes
+                 for n, p in self.get_submodule(pre).named_parameters()}
+        with _reparametrize_module(self, whole):
+            yield
 
     def _period(self, x, positions, mrope_positions, lo: int, hi: int,
-                caches: Optional[Caches], fresh_caches: bool = False):
-        """Layers ``lo:hi`` (one period of a group) → (x, their caches, aux)."""
+                caches: Optional[Caches], fresh_caches: bool = False,
+                gather: Optional[ParamGather] = None):
+        """Layers ``lo:hi`` (one period of a group), their parameters
+        gathered first → (x, their caches, aux)."""
         cs, aux_tot = [], {}
-        for i in range(lo, hi):
-            x, c, aux = self.layers[i](x, positions=positions,
-                                       mrope_positions=mrope_positions,
-                                       cache=None if caches is None else caches[i],
-                                       compute_dtype=self.cfg.compute_dtype,
-                                       fresh_caches=fresh_caches)
-            cs.append(c)
-            for k, v in aux.items():
-                aux_tot[k] = aux_tot.get(k, 0.0) + v
+        with self._gathered([f"layers.{i}" for i in range(lo, hi)], gather):
+            for i in range(lo, hi):
+                x, c, aux = self.layers[i](x, positions=positions,
+                                           mrope_positions=mrope_positions,
+                                           cache=None if caches is None else caches[i],
+                                           compute_dtype=self.cfg.compute_dtype,
+                                           fresh_caches=fresh_caches)
+                cs.append(c)
+                for k, v in aux.items():
+                    aux_tot[k] = aux_tot.get(k, 0.0) + v
         return x, cs, aux_tot
 
-    def _period_remat(self, x, positions, mrope_positions, lo: int, hi: int):
-        x, _, aux = self._period(x, positions, mrope_positions, lo, hi, None)
+    def _period_remat(self, x, positions, mrope_positions, lo: int, hi: int, gather):
+        x, _, aux = self._period(x, positions, mrope_positions, lo, hi, None, gather=gather)
         return x, aux
 
-    def head_weight(self) -> torch.Tensor:
-        """The (d, vocab) head in the compute dtype: ``embed.T`` when tied."""
-        w = self.embed.T if self.lm_head is None else self.lm_head.w
+    def head_weight(self, param_gather: Optional[ParamGather] = None) -> torch.Tensor:
+        """The (d, vocab) head in the compute dtype: ``embed.T`` when tied;
+        laid-out parameters gathered whole (``param_gather``)."""
+        gather = self._gather_of(param_gather)
+        w = (self._whole("embed", self.embed, gather).T if self.lm_head is None
+             else self._whole("lm_head.w", self.lm_head.w, gather))
         return w.to(self.cfg.compute_dtype)
 
-    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        return constrain(hidden @ self.head_weight(), "batch", "act_seq", "act_vocab")
+    def logits(self, hidden: torch.Tensor,
+               param_gather: Optional[ParamGather] = None) -> torch.Tensor:
+        return constrain(hidden @ self.head_weight(param_gather), "batch", "act_seq",
+                         "act_vocab")
 
     def forward(self, tokens: torch.Tensor, **kw) -> torch.Tensor:
         """Full forward to logits (B, S, vocab); ``kw`` as ``hidden_states``."""
         h, _, _ = self.hidden_states(tokens, **kw)
-        return self.logits(h)
+        return self.logits(h, kw.get("param_gather"))
 
     # -- training ------------------------------------------------------------
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor, **kw
@@ -190,7 +243,7 @@ class DecoderLM(nn.Module):
         than one piece's f32 logits are alive at a time; logits are the
         compute-dtype product cast to f32, as in JAX."""
         h, _, aux = self.hidden_states(tokens, **kw)
-        w = self.head_weight()
+        w = self.head_weight(kw.get("param_gather"))
         s = h.shape[1]
         ck = min(self.cfg.logit_chunk, s)
         if s % ck:
@@ -261,7 +314,7 @@ class DecoderLM(nn.Module):
         caches' length (chunked callers leave it False)."""
         h, caches, _ = self.hidden_states(tokens, caches, positions,
                                           fresh_caches=fresh_caches, **kw)
-        return self.logits(h[:, -1:]), caches
+        return self.logits(h[:, -1:], kw.get("param_gather")), caches
 
     def decode_step(self, token: torch.Tensor, caches: Caches,
                     index: torch.Tensor, mrope_positions: Optional[torch.Tensor] = None

@@ -15,22 +15,28 @@ Distribution takes one of two forms:
     batch): the gradients are averaged over it before the clip;
   * parameters laid out as DTensors (``sharding.distribute_model``: JAX's
     ``param_shardings``, FSDP over the data axes and the model axis's
-    splits): a step gathers every parameter whole
-    (``redistribute`` to ``Replicate``) and runs the model on the gathered
-    tensors (``torch.nn.utils.stateless``), each rank on its slice of the
-    batch.  DTensor's autograd of the gather reduce-scatters the gradients
-    over the batch axes (``Partial`` there), and the step divides by their
-    size: the mean, once, with no hand all-reduce.  The moments follow
-    their parameters (JAX's ``state_shardings``), the global-norm clip sums
-    over every shard, and the update runs on each rank's blocks.  The
-    compute along the model axis is the same on every rank of it (no
-    activation is split over heads or the MLP's width; see PERF.md).
+    splits): the model gathers each period's parameters as it enters the
+    period, and the embedding, final norm and head around their use
+    (``sharding/gather.py``, ``DecoderLM.hidden_states``), as XLA places
+    JAX's gathers inside its scan over periods; each microbatch gathers
+    again.  The gather's backward puts each gradient into its parameter's
+    layout (summed over the batch axes: a reduce-scatter where the
+    parameter is split on one, an all-reduce where it is replicated), and
+    the step divides by their size: the mean, once.  Each rank runs on its
+    slice of the batch.  The moments follow their parameters (JAX's
+    ``state_shardings``), the global-norm clip sums over every shard, and
+    the update runs on each rank's blocks.  The compute along the model
+    axis is the same on every rank of it (no activation is split over
+    heads or the MLP's width; see PERF.md).  The step's gather is
+    ``train_step.param_gather`` (it counts the gathered bytes alive).
 
 Sequence sharding needs nothing here: under the launcher's rules the
 recurrent layers time-shard their scans (``sharding/layout.py``) and sum
 the gradients of what they read over the seq group.  ``grad_compression="int8"`` rounds the averaged
 gradients through ``compress_int8`` / ``decompress_int8``, as the JAX step
-does after GSPMD's reduction.  ``make_train_step`` returns
+does after GSPMD's reduction; laid-out gradients are gathered whole for it
+(``sharding.gather.full_tensor``, as checkpoints gather every leaf).
+``make_train_step`` returns
 ``train_step(state, batch) -> (state, metrics)``; ``state.params`` are the
 model's own parameters, updated in place, so the state returned is the one
 passed in, advanced by a step.
@@ -57,6 +63,7 @@ import torch
 from ..configs.base import LMConfig
 from ..convert import params_from_jax, params_to_jax
 from ..models.model import DecoderLM
+from ..sharding.gather import ParamGather, batch_mesh_dims, full_tensor
 from ..sharding.rules import is_dtensor
 from .optimizer import clip_by_global_norm, compress_int8, decompress_int8
 
@@ -75,13 +82,13 @@ def init_train_state(model: DecoderLM, optimizer) -> TrainState:
 
 
 def _sum_over(flat: torch.Tensor, group) -> torch.Tensor:
-    """One all-reduce of ``flat`` over ``group`` (through host memory unless
-    the group is NCCL's: gloo takes CPU tensors)."""
+    """One all-reduce of ``flat`` (a tensor of this module's own) over
+    ``group``, in place on its device (gloo's too, as
+    ``sharding/gather.py``)."""
     import torch.distributed as dist
 
-    wire = flat if "nccl" in str(dist.get_backend(group)) else flat.cpu()
-    dist.all_reduce(wire, group=group)
-    return wire.to(flat.device)
+    dist.all_reduce(flat, group=group)
+    return flat
 
 
 def mean_over(grads: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
@@ -106,22 +113,6 @@ def _metrics_over(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Te
     tot = _sum_over(torch.stack([metrics[n].float() for n in names]), group)
     n = dist.get_world_size(group)
     return {k: v if k == "tokens" else v / n for k, v in zip(names, tot)}
-
-
-def _batch_dims(mesh_dim_names, rules) -> Tuple[int, ...]:
-    """The mesh dims the rules' ``batch`` axis spans (the data axes)."""
-    return tuple(i for i, a in enumerate(mesh_dim_names) if a in rules.mesh_axes_for("batch"))
-
-
-def _gather(p, batch_dims: Tuple[int, ...]) -> torch.Tensor:
-    """A DTensor parameter whole, as a plain tensor: its gradient is this
-    rank's part of a sum over the batch dims (``Partial``), the same on
-    every rank of the others."""
-    from torch.distributed.tensor import Partial, Replicate
-
-    n = p.device_mesh.ndim
-    return p.redistribute(p.device_mesh, [Replicate()] * n).to_local(
-        grad_placements=[Partial() if i in batch_dims else Replicate() for i in range(n)])
 
 
 def _sum_over_dims(x: torch.Tensor, mesh, dims: Tuple[int, ...]) -> torch.Tensor:
@@ -152,15 +143,18 @@ def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
         raise ValueError(f"unknown grad_compression {grad_compression!r}; None or 'int8'")
     decay = optimizer.decay_mask(model.cfg, [n for n, _ in model.named_parameters()])
     sharded = any(is_dtensor(p) for p in model.parameters())
+    param_gather = None
     if sharded:
         if rules is None or data_group is not None:
             raise ValueError("DTensor parameters take the rules they were laid out by "
                              "and no data_group (their gather reduces the gradients)")
         mesh = next(iter(model.parameters())).device_mesh
-        batch_dims = _batch_dims(mesh.mesh_dim_names, rules)
+        batch_dims = batch_mesh_dims(mesh.mesh_dim_names, rules)
         n_batch = 1
         for i in batch_dims:
             n_batch *= mesh.size(i)
+        param_gather = ParamGather(batch_dims,
+                                   dtype=torch.bfloat16 if cast_params_bf16 else None)
 
     def cast(p):
         return p.to(torch.bfloat16) if cast_params_bf16 and p.dtype == torch.float32 else p
@@ -177,11 +171,9 @@ def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
                 loss, metrics = model.loss(tokens, labels, **kw)
                 grads = torch.autograd.grad(loss, [params[n] for n in names])
         else:
-            whole = {n: _gather(cast(params[n]), batch_dims) for n in names}
-            # the backward stays inside: remat re-runs the forward on `whole`
-            with _reparametrize_module(model, whole):
-                loss, metrics = model.loss(tokens, labels, **kw)
-                grads = torch.autograd.grad(loss, [params[n] for n in names])
+            # the backward stays inside: remat re-runs a period's gather
+            loss, metrics = model.loss(tokens, labels, param_gather=param_gather, **kw)
+            grads = torch.autograd.grad(loss, [params[n] for n in names])
             grads = [g / n_batch for g in grads]
         return dict(zip(names, grads)), {k: v.detach() for k, v in metrics.items()}
 
@@ -219,7 +211,7 @@ def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
                                  batch_dims)
             metrics = {k: v if k == "tokens" else v / n_batch for k, v in zip(names, tot)}
         if grad_compression == "int8":
-            whole = {n: g.full_tensor() if is_dtensor(g) else g for n, g in grads.items()}
+            whole = {n: full_tensor(g) for n, g in grads.items()}
             grads = {n: _like(g.to(state.params[n].dtype), grads[n])
                      for n, g in decompress_int8(compress_int8(whole)).items()}
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
@@ -227,6 +219,7 @@ def make_train_step(model: DecoderLM, optimizer, *, max_grad_norm: float = 1.0,
         metrics = dict(metrics, grad_norm=gnorm, lr=optimizer.schedule(state.step + 1))
         return TrainState(params=params, opt_state=opt_state, step=state.step + 1), metrics
 
+    train_step.param_gather = param_gather
     return train_step
 
 
@@ -242,7 +235,7 @@ def _like(full: torch.Tensor, ref) -> torch.Tensor:
 
 
 def _whole(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {n: v.full_tensor() if is_dtensor(v) else v for n, v in tree.items()}
+    return {n: full_tensor(v) for n, v in tree.items()}
 
 
 def state_tree(cfg: LMConfig, state: TrainState) -> Dict[str, Any]:

@@ -21,11 +21,13 @@
   layer, lengths a multiple of the chunk and the tiles);
 * a smoke train cell and a decode cell through ``lower_cell`` on the
   abstract (16, 16) mesh: the bytes a device keeps are the shard shapes of
-  the specs that ``tests/test_torch_layouts.py`` holds to JAX's; under
+  the specs that ``tests/test_torch_layouts.py`` holds to JAX's, and the
+  traced rank holds them, gathering a period at a time; under
   ``scan_seq`` on "model" the time shards add their gathers;
-* the analytic collectives against a DTensor step's on a (2, 2) gloo CPU
+* the analytic collectives against a laid-out step's on a (2, 2) gloo CPU
   mesh (``CommDebugMode``'s counts by kind, and every collective's result
-  bytes), with and without ``cast_params_bf16``;
+  bytes), with and without ``cast_params_bf16``, and under ``remat="full"``
+  (each period gathered again in its recomputation);
 * ``cast_params_bf16``: the port's step against JAX's for 2 steps from the
   same weights, losses within rtol 1e-5.  Both packages round the f32
   weights to the same bf16 values (to nearest even), so both forwards run
@@ -237,9 +239,13 @@ def test_train_and_decode_cells_on_the_production_mesh(capsys):
     assert mem["param_shard_bytes"] == _shard_bytes(params, specs, mesh.shape)
     assert mem["moment_shard_bytes"] == 2 * _shard_bytes(params, specs, mesh.shape,
                                                          torch.float32)
+    # the trace is one rank's laid-out step: it holds the blocks and their
+    # moments, and gathers a period at a time above them
+    assert mem["trace_parameters_bytes"] == mem["param_shard_bytes"]
+    assert mem["trace_state_bytes"] == mem["moment_shard_bytes"]
     assert mem["peak_bytes"] == mem["param_shard_bytes"] + mem["moment_shard_bytes"] \
-        + mem["gathered_param_bytes"] + mem["above_state_bytes"]
-    assert mem["gathered_param_bytes"] == mem["param_bytes"]
+        + mem["above_state_bytes"]
+    assert mem["gathered_param_bytes"] == dryrun.gathered_bytes(model) < mem["param_bytes"]
     assert rf.launches["lmme"] > 0 and rf.collective_bytes > 0
     assert rf.step_time_s == max(rf.compute_s, rf.memory_s, rf.collective_s) > 0
     # with scan_seq on "model", each goom layer adds the gather of its output
@@ -268,17 +274,21 @@ def test_train_and_decode_cells_on_the_production_mesh(capsys):
 @pytest.fixture(scope="module")
 def dtensor_steps():
     """Rank 0's collectives of a DTensor step without and with the cast
-    (one process group for both)."""
-    return spawn_ranks(workers.dtensor_step_collectives, 4, [False, True])[0]
+    (``remat="none"``), and without the cast under ``"full"`` (one process
+    group for all)."""
+    return spawn_ranks(workers.dtensor_step_collectives, 4,
+                       [(False, "none"), (True, "none"), (False, "full")])[0]
 
 
-@pytest.mark.parametrize("cast", [False, True])
-def test_collectives_equal_a_dtensor_steps(cast, dtensor_steps):
-    r0 = dtensor_steps[cast]
+def _check_collectives(r0, cast, remat):
+    """The dry-run's collectives of the step against what rank 0 ran: the
+    counts by kind and each (kind, result bytes)."""
     rules = make_rules(NamedMesh((2, 2), ("data", "model")))
     params = {n: (s, getattr(torch, d.split(".")[-1])) for n, (s, d) in r0["shapes"].items()}
+    cfg = dataclasses.replace(get_config("goom-rnn-124m", smoke=True), remat=remat)
     ops = dryrun.train_collectives(rules, params, r0["specs"], cast_params_bf16=cast,
-                                   n_metrics=r0["n_metrics"])
+                                   n_metrics=r0["n_metrics"],
+                                   counts=dryrun.gather_counts(cfg, params))
     counts = {}
     for op in ops:
         counts[op.kind] = counts.get(op.kind, 0) + 1
@@ -286,6 +296,21 @@ def test_collectives_equal_a_dtensor_steps(cast, dtensor_steps):
                       for k, v in r0["counts"].items()}
     assert sorted((op.kind, op.result_bytes) for op in ops) == sorted(map(tuple, r0["seen"]))
     assert all(op.group_size == 2 for op in ops)
+
+
+@pytest.mark.parametrize("cast", [False, True])
+def test_collectives_equal_a_dtensor_steps(cast, dtensor_steps):
+    _check_collectives(dtensor_steps[cast], cast, "none")
+
+
+def test_collectives_count_the_recomputed_gathers(dtensor_steps):
+    """Under ``remat="full"`` each period's parameters are gathered again
+    in its recomputation: twice the layers' all-gathers, the same
+    reductions."""
+    r0 = dtensor_steps[2]
+    _check_collectives(r0, False, "full")
+    assert r0["counts"]["all_gather_into_tensor"] > dtensor_steps[0]["counts"][
+        "all_gather_into_tensor"]
 
 
 def test_cast_params_bf16_tracks_jax():

@@ -21,8 +21,9 @@ against one process.
 * the launcher refuses ``--mesh production`` and ``production-multipod``
   off their worlds, naming them.
 
-The ranks are spawned twice a module (2 and 4 ranks, ``spawn_ranks``),
-each spawn under its own time limit.
+The ranks are spawned twice a test run (2 and 4 ranks, ``spawn_ranks``),
+each spawn under its own time limit, and shared with
+``tests/test_torch_fsdp.py`` (``torch_dist_workers.layouts_ranks``).
 """
 
 import dataclasses
@@ -34,7 +35,6 @@ import torch
 import torch_dist_workers as workers
 from repro_torch import DecoderLM, get_config
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.train import (AdamW, CheckpointManager, cosine_schedule, init_train_state,
                                load_state_tree, make_train_step, state_tree)
 from repro_torch.train.data import to_device
@@ -46,10 +46,7 @@ TOL = 1e-5
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    ckpt = str(tmp_path_factory.mktemp("ckpt"))
-    two = spawn_ranks(workers.layouts_world2, 2, ckpt, timeout=300)
-    four = spawn_ranks(workers.layouts_world4, 4, ckpt, timeout=300)
-    return {"two": two, "four": four, "ckpt": ckpt}
+    return workers.layouts_ranks(tmp_path_factory)
 
 
 def _one_process(variant="shared_a", count=1, steps=1, start=0, restore=None):

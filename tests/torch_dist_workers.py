@@ -267,14 +267,45 @@ def _jamba_time_shards(seq=21):
     return out
 
 
+def layouts_ranks(tmp_path_factory):
+    """``layouts_world2`` on 2 ranks and ``layouts_world4`` on 4, both
+    writing and reading one checkpoint directory: {"two": [...], "four":
+    [...], "ckpt": dir}.  Spawned once a test run: the first test module to
+    ask spawns them under a file lock and leaves the results beside it
+    (the run's temporary root, which pytest-xdist's workers share); the
+    others read them."""
+    import fcntl
+    import os
+    import pickle
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    base = tmp_path_factory.getbasetemp()
+    root = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+    done = root / "layouts_ranks.pkl"
+    with open(root / "layouts_ranks.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if done.exists():
+            with open(done, "rb") as f:
+                return pickle.load(f)
+        ckpt = str(tmp_path_factory.mktemp("ckpt"))
+        out = {"two": spawn_ranks(layouts_world2, 2, ckpt, timeout=300),
+               "four": spawn_ranks(layouts_world4, 4, ckpt, timeout=300), "ckpt": ckpt}
+        with open(done, "wb") as f:
+            pickle.dump(out, f)
+        return out
+
+
 def layouts_world2(rank, ckpt_dir):
     """On 2 gloo ranks: a step at (2, 1) (FSDP: batch and "embed" over
     data) and at (1, 2) (the model axis's splits, the batch whole), a
     ``--seq-shards 2`` step at (1, 2) and the time shards of one layer at
     S = 32 and 31; then 2 steps at (2, 1) saved to ``ckpt_dir`` and the
-    third step's metrics (the next loss a restore must give)."""
+    third step's metrics (the next loss a restore must give); and the
+    per-period gather's cases (``fsdp_world``)."""
     _one_thread()
-    out = {"fsdp": _layout_run((2, 1), 1), "tp": _layout_run((1, 2), 1),
+    out = {"per_period": fsdp_world((2, 1), (1, 2)),
+           "fsdp": _layout_run((2, 1), 1), "tp": _layout_run((1, 2), 1),
            "seq": _layout_run((1, 2), 1, variant="generic", seq_shards=True),
            "shards": {s: _time_shard_capture(s) for s in (32, 31)},
            "jamba": _jamba_time_shards()}
@@ -307,24 +338,209 @@ def layouts_world4(rank, ckpt_dir):
     ranks restored at (2, 2) (the batch split in two, as at 2 ranks, the
     parameters in four blocks) and stepped once."""
     _one_thread()
-    return {"dp_tp": _layout_run((2, 2), 1),
+    return {"per_period": fsdp_world((2, 2)), "dp_tp": _layout_run((2, 2), 1),
             "next": _layout_run((2, 2), 1, restore=ckpt_dir)["rows"]}
+
+
+# ---------------------------------------------------------------------------
+# the per-period gather (sharding/gather.py): steps, gathered bytes, peaks
+# ---------------------------------------------------------------------------
+FSDP_ARCHS = ("goom-rnn-124m", "mixtral-8x7b")
+
+
+def _fsdp_model(arch, **kw):
+    from repro_torch import DecoderLM, get_config
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), compute_dtype=torch.float32, **kw)
+    return DecoderLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+
+
+def _fsdp_step(shape, arch, steps=1, int8=False):
+    """``steps`` f32 steps of ``arch``'s smoke config laid out over a
+    ``shape`` mesh, each rank on its batch slice, and (rank 0) the same
+    from one process on the same weights with one microbatch a data rank
+    (each rank's slice, as the data ranks split the batch): each step's
+    metrics, the parameters and moments after the last as the port's
+    gather gives them (``state_tree``) and as DTensor's ``full_tensor``
+    does, and the one process's parameters."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import _device_mesh
+    from repro_torch.sharding import distribute_model, make_rules, use_rules
+    from repro_torch.train import AdamW, cosine_schedule, init_train_state, make_train_step
+    from repro_torch.train.data import to_device
+    from repro_torch.train.train_loop import _whole
+
+    mesh = _device_mesh(shape, ("data", "model"), "cpu")
+    rules = make_rules(mesh)
+    comp = "int8" if int8 else None
+    out = {}
+    model = _fsdp_model(arch)
+    distribute_model(model, rules)
+    opt = AdamW(cosine_schedule(3e-3, 1, 4))
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt, rules=rules, grad_compression=comp)
+    rows = []
+    with use_rules(rules), engine.use_backend("torch_reference"):
+        for i in range(steps):
+            state, m = step(state, _rank_batch(rules, mesh, i))
+            rows.append({k: float(v) for k, v in m.items()})
+    out["rows"] = rows
+    ours = {k: {n: v.detach().numpy() for n, v in _whole(tree).items()}
+            for k, tree in (("params", state.params), ("mu", state.opt_state["mu"]))}
+    theirs = {k: {n: v.full_tensor().detach().numpy() for n, v in tree.items()}
+              for k, tree in (("params", state.params), ("mu", state.opt_state["mu"]))}
+    out["gathers_agree"] = all(np.array_equal(ours[k][n], theirs[k][n])
+                               for k in ours for n in ours[k])
+    if dist.get_rank() == 0:
+        one = _fsdp_model(arch)
+        opt1 = AdamW(cosine_schedule(3e-3, 1, 4))
+        st = init_train_state(one, opt1)
+        step1 = make_train_step(one, opt1, microbatches=shape[0], grad_compression=comp)
+        ref = []
+        with engine.use_backend("torch_reference"):
+            for i in range(steps):
+                st, m = step1(st, to_device(global_batch(i, shape[0]), "cpu"))
+                ref.append({k: float(v) for k, v in m.items()})
+        out["one"] = ref
+        out["params"] = ours["params"]
+        out["one_params"] = {n: p.detach().numpy() for n, p in one.named_parameters()}
+    return out
+
+
+def _gathered_peak(remat):
+    """goom-rnn smoke's f32 step at (2, 1) under ``remat``: the most
+    gathered parameter bytes alive at once on this rank (the gather's own
+    count), the largest period's and the outside parameters' bytes, and the
+    whole model's."""
+    from repro_torch.launch.dryrun import gathered_bytes
+    from repro_torch.launch.mesh import _device_mesh
+    from repro_torch.sharding import distribute_model, make_rules, use_rules
+    from repro_torch.train import AdamW, cosine_schedule, init_train_state, make_train_step
+
+    mesh = _device_mesh((2, 1), ("data", "model"), "cpu")
+    rules = make_rules(mesh)
+    model = _fsdp_model("goom-rnn-124m", remat=remat)
+    distribute_model(model, rules)
+    opt = AdamW(cosine_schedule(3e-3, 1, 4))
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt, rules=rules)
+    gather = step.param_gather
+    with use_rules(rules), engine.use_backend("torch_reference"):
+        step(state, _rank_batch(rules, mesh, 0))
+    period = max(sum(p.numel() * 4 for i in range(lo, hi) for p in model.layers[i].parameters())
+                 for lo, hi in model._periods)
+    whole = sum(p.numel() * 4 for p in model.parameters())
+    return {"peak": gather.peak_bytes, "live_after": gather.live_bytes,
+            "bound": gathered_bytes(model), "period": period, "whole": whole}
+
+
+def _measured_peak():
+    """goom-rnn smoke's first f32 step at (2, 1) from a fresh state, this
+    rank's peak bytes by the dry-run's own tracker (``cost.measure`` on the
+    real tensors: parameters' blocks, moments, gathers, activations)."""
+    from repro_torch.launch import cost
+    from repro_torch.launch.mesh import _device_mesh
+    from repro_torch.sharding import distribute_model, make_rules, use_rules
+    from repro_torch.train import AdamW, cosine_schedule, init_train_state, make_train_step
+
+    mesh = _device_mesh((2, 1), ("data", "model"), "cpu")
+    rules = make_rules(mesh)
+    model = _fsdp_model("goom-rnn-124m")
+    distribute_model(model, rules)
+    opt = AdamW(cosine_schedule(3e-3, 1, 4))
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt, rules=rules)
+    batch = _rank_batch(rules, mesh, 0)
+    moments = [v for k, tree in state.opt_state.items() if k != "step" for v in tree.values()]
+    with use_rules(rules), engine.use_backend("torch_reference"):
+        _, c = cost.measure(lambda: step(state, batch), modules=[model], state=moments)
+    return c.memory
+
+
+def _prefill_gap(shape, arch):
+    """``make_prefill_step`` (fresh caches, 2 prompts of 12 tokens) of
+    ``arch``'s smoke model laid out over a ``shape`` mesh against the plain
+    model on the same weights: the largest difference of the last logits
+    and of any cache leaf, and the laid-out parameters' type."""
+    from repro_torch.launch.mesh import _device_mesh
+    from repro_torch.serve.steps import make_prefill_step
+    from repro_torch.sharding import distribute_model, make_rules
+
+    mesh = _device_mesh(shape, ("data", "model"), "cpu")
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, 256, (2, 12)))
+    out = []
+    for laid in (False, True):
+        # no parameter requires grad: CPU matmul's path (and so its last
+        # bits) depends on whether an operand does, gathered or not
+        model = _fsdp_model(arch).requires_grad_(False)
+        if laid:
+            distribute_model(model, make_rules(mesh))
+        step = make_prefill_step(model, backend="torch_reference", fresh_caches=True)
+        out.append(step(tokens, model.init_caches(2, 16)))
+    (l0, c0), (l1, c1) = out
+    leaves = [(a, b) for x, y in zip(c0, c1) for k in x for a, b in [(x[k], y[k])]]
+    return {"logits": float((l1 - l0).abs().max()), "caches": max(
+        float((b.float() - a.float()).abs().max()) for a, b in leaves),
+        "n_leaves": len(leaves), "laid": str(type(next(model.parameters())).__name__)}
+
+
+def _nested_split():
+    """A (8, 3) parameter split on dim 0 over both dims of a (2, 2) ("pod",
+    "data") mesh (a multi-pod "embed"): whether the port's gather gives it
+    whole, and its gradient block when every rank's loss is (rank + 1)
+    times the sum of the whole (both dims batch axes: the sum of all four,
+    10 everywhere)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import _device_mesh
+    from repro_torch.sharding.gather import ParamGather, full_tensor
+
+    mesh = _device_mesh((2, 2), ("pod", "data"), "cpu").device_mesh
+    x = torch.arange(24.0).reshape(8, 3)
+    p = torch.nn.Parameter(distribute_tensor(x, mesh, [Shard(0), Shard(0)]))
+    whole = ParamGather((0, 1))("w", p)
+    (g,) = torch.autograd.grad((whole * (dist.get_rank() + 1)).sum(), [p])
+    return {"whole": bool(torch.equal(whole.detach(), x)),
+            "full_tensor": bool(torch.equal(full_tensor(p.detach()), x)),
+            "grad": g.to_local().tolist(), "block": tuple(p.to_local().shape)}
+
+
+def fsdp_world(*shapes):
+    """The per-period gather's cases on this world: for each mesh ``shape``
+    a goom-rnn and a Mixtral (MoE) smoke step against one process; on 2
+    ranks also 2 int8 steps at (1, 2), the gathered bytes under ``full``
+    and ``dots``, the measured peak at (2, 1) and laid-out prefills; on 4
+    a dim split over two mesh dims (``_nested_split``)."""
+    out = {"steps": {(shape, arch): _fsdp_step(shape, arch)
+                     for shape in shapes for arch in FSDP_ARCHS}}
+    if shapes == ((2, 2),):
+        out["nested"] = _nested_split()
+    if shapes == ((2, 1), (1, 2)):
+        out["int8"] = _fsdp_step((1, 2), "goom-rnn-124m", steps=2, int8=True)
+        out["gathered"] = {r: _gathered_peak(r) for r in ("full", "dots")}
+        out["peak"] = _measured_peak()
+        out["prefill"] = {(shape, arch): _prefill_gap(shape, arch)
+                          for shape in shapes for arch in FSDP_ARCHS}
+    return out
 
 
 # ---------------------------------------------------------------------------
 # the dry-run's collectives against a DTensor step's
 # ---------------------------------------------------------------------------
-def dtensor_step_collectives(rank, casts):
-    """For each ``cast_params_bf16`` in ``casts``, one f32 train step of
-    goom-rnn smoke (``remat="none"``, batch 4 of 32 tokens, each rank its
-    slice) with DTensor parameters over a (2, 2) ("data", "model") mesh:
+def dtensor_step_collectives(rank, cases):
+    """For each (``cast_params_bf16``, remat) in ``cases``, one f32 train
+    step of goom-rnn smoke (batch 4 of 32 tokens, each rank its slice)
+    with DTensor parameters over a (2, 2) ("data", "model") mesh:
     ``CommDebugMode``'s counts by kind, and each collective as (kind,
-    result bytes), read from the functional collectives' outputs; with the
-    parameter shapes and specs."""
-    return [_dtensor_step_collectives(cast) for cast in casts]
+    result bytes), read from the collectives' results (the functional
+    ones' outputs, c10d's output arguments); with the parameter shapes and
+    specs."""
+    return [_dtensor_step_collectives(*case) for case in cases]
 
 
-def _dtensor_step_collectives(cast_params_bf16):
+def _dtensor_step_collectives(cast_params_bf16, remat):
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.debug import CommDebugMode
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -335,8 +551,15 @@ def _dtensor_step_collectives(cast_params_bf16):
     from repro_torch.train import init_train_state, make_train_step
 
     _one_thread()
-    kinds = {"all_gather_into_tensor": "all-gather", "reduce_scatter_tensor": "reduce-scatter",
-             "all_reduce": "all-reduce"}
+    # functional collectives (DTensor's: the metrics, the clip) and c10d's
+    # (the parameters' gathers and their gradients', sharding/gather.py):
+    # each kind with where its result is
+    kinds = {"all_gather_into_tensor": ("all-gather", lambda a, out: out),
+             "reduce_scatter_tensor": ("reduce-scatter", lambda a, out: out),
+             "all_reduce": ("all-reduce", lambda a, out: out),
+             "_allgather_base_": ("all-gather", lambda a, out: a[0]),
+             "_reduce_scatter_base_": ("reduce-scatter", lambda a, out: a[0]),
+             "allreduce_": ("all-reduce", lambda a, out: a[0][0])}
     seen = []
 
     class Record(TorchDispatchMode):
@@ -346,13 +569,15 @@ def _dtensor_step_collectives(cast_params_bf16):
             out = func(*args, **(kwargs or {}))
             name = func._overloadpacket.__name__
             if name in kinds:
-                seen.append((kinds[name], out.numel() * out.element_size()))
+                kind, result = kinds[name]
+                t = result(args, out)
+                seen.append((kind, t.numel() * t.element_size()))
             return out
 
     mesh = _device_mesh((2, 2), ("data", "model"), "cpu")
     rules = make_rules(mesh)
     model, opt = _train_model()
-    model.cfg = dataclasses.replace(model.cfg, remat="none")
+    model.cfg = dataclasses.replace(model.cfg, remat=remat)
     specs = param_specs(rules, model)
     shapes = {n: (tuple(p.shape), str(p.dtype)) for n, p in model.named_parameters()}
     distribute_model(model, rules)
@@ -361,6 +586,11 @@ def _dtensor_step_collectives(cast_params_bf16):
     comm = CommDebugMode()
     with use_rules(rules), eng.use_backend("torch_reference"), comm, Record():
         state, metrics = step(state, _rank_batch(rules, mesh, 0))
-    counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
+    names = {"_allgather_base_": "all_gather_into_tensor", "allreduce_": "all_reduce",
+             "_reduce_scatter_base_": "reduce_scatter_tensor"}
+    counts = {}
+    for k, v in comm.get_comm_counts().items():
+        k = str(k).split(".")[-1]
+        counts[names.get(k, k)] = counts.get(names.get(k, k), 0) + v
     return {"counts": counts, "seen": seen, "specs": specs, "shapes": shapes,
             "n_metrics": len(metrics) - 2}

@@ -1,18 +1,22 @@
-"""The dry-run cells that attention moves, costed again and set beside a
-saved sweep.
+"""Dry-run cells that a change moves, costed again and set beside a saved
+sweep.
 
-Costs ``prefill_32k`` of the ten assigned archs and goom-rnn-124m, and
-``train_4k`` of olmo-1b, gemma3-1b and musicgen-large, on both production
-meshes (``launch.dryrun``'s cells: the port's real step on fake tensors, on
-the CPU; estimates under the H100 datasheet constants, not card times),
-merges them into ``--out`` and, with ``--before`` (an earlier sweep's JSON),
-prints a table of each cell's peak a device before and after, whether it
-fits 80 GB, and its host seconds.  From the repository root:
+By default the cells attention moves: ``prefill_32k`` of the ten assigned
+archs and goom-rnn-124m, and ``train_4k`` of olmo-1b, gemma3-1b and
+musicgen-large.  With ``--fsdp``, those the per-period gather moves:
+``train_4k`` of the ten assigned archs and goom-rnn-124m, and
+``prefill_32k`` of the MoEs and Jamba (whose parameters dominate).  Each
+on both production meshes (``launch.dryrun``'s cells: the port's real step
+on fake tensors, on the CPU; estimates under the H100 datasheet constants,
+not card times); merged into ``--out`` and, with ``--before`` (an earlier
+sweep's JSON), a table of each cell's peak a device before and after,
+whether it fits 80 GB, and its host seconds.  From the repository root:
 
     PYTHONPATH=src python tools/dryrun_attention_cells.py --workers 4 \\
         --out results/dryrun_torch.json --before OLD.json
 
-Copy ``--out`` aside first to keep the earlier cells as ``--before``.
+Copy ``--out`` aside first to keep the earlier cells as ``--before``; with
+``PYTHONPATH`` at another tree's ``src`` it costs that tree's cells.
 """
 
 import argparse
@@ -27,11 +31,16 @@ from repro_torch.launch.dryrun import _run_cell
 from repro_torch.launch.roofline import HBM_BYTES
 
 TRAIN_ARCHS = ("olmo-1b", "gemma3-1b", "musicgen-large")
+FSDP_PREFILL_ARCHS = ("mixtral-8x7b", "phi3.5-moe", "jamba-v0.1")
 GIB = 2 ** 30
 
 
-def cells():
+def cells(fsdp: bool = False):
     archs = list(ASSIGNED_ARCHS) + ["goom-rnn-124m"]
+    if fsdp:
+        return ([(a, "train_4k", pod) for pod in (False, True) for a in archs]
+                + [(a, "prefill_32k", pod) for pod in (False, True)
+                   for a in FSDP_PREFILL_ARCHS])
     return ([(a, "prefill_32k", pod) for pod in (False, True) for a in archs]
             + [(a, "train_4k", pod) for pod in (False, True) for a in TRAIN_ARCHS])
 
@@ -61,8 +70,10 @@ def main():
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--out", default="results/dryrun_torch.json")
     ap.add_argument("--before", default=None)
+    ap.add_argument("--fsdp", action="store_true",
+                    help="the cells the per-period gather moves (module docstring)")
     args = ap.parse_args()
-    todo = cells()
+    todo = cells(args.fsdp)
     t0 = time.time()
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(args.workers, mp_context=ctx) as pool:

@@ -4,15 +4,27 @@ Two gloo ranks share ``cuda:0``; each probe runs in its own pair of ranks
 (``repro_torch.launch.mesh.spawn_ranks``), so one that kills its ranks does
 not hide the next.  Run on a machine with a card, from the repository root:
 
-    python tools/dtensor_gloo_probe.py
+    python tools/dtensor_gloo_probe.py [PROBE ...]
 
-Each line names the process-group backend, the probe, and the ranks'
+(the probes named, by default all of ``STEPS``).  Each line names the process-group backend, the probe, and the ranks'
 results or how they failed.  On an NVIDIA H100 with torch 2.11.0+cu128 the
-raw ``all_gather``, ``all_gather_into_tensor`` and ``all_reduce`` ran, as
+raw ``all_gather``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``
+and ``all_reduce`` ran, as
 did DTensor's ``Partial`` -> ``Replicate``, ``Partial`` -> ``Shard`` and
 ``distribute_tensor``; the functional ``all_gather_tensor``, and with it
 DTensor's ``Shard`` -> ``Replicate`` (a parameter's gather), ended both
 ranks with SIGSEGV, under ``gloo`` and ``cpu:gloo,cuda:gloo`` alike.
+
+The port avoids the failing calls where it gathers parameters: the FSDP
+step's gather of each period's parameters, its gradients' reduction,
+checkpoints' and int8's gathers run on the raw calls that ran
+(``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``;
+``repro_torch.sharding.gather``, as ``repro_torch.kernels.sharded`` carries
+the scans' time shards on ``all_gather`` and ``all_reduce``), and DTensor is left only ``Partial`` -> ``Replicate`` (the
+metrics, the clip's norm) and ``distribute_tensor``.  So gloo ranks that
+share a card lay their parameters out.  The time shards of
+``--seq-shards`` still redistribute through DTensor's ``Shard`` ->
+``Replicate``: there those ranks keep the plain layout.
 """
 
 import json
@@ -24,8 +36,9 @@ import torch.distributed as dist
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
 
-STEPS = ["mesh", "allgather_raw", "allgather_into", "allreduce_raw", "funcol_allgather",
-         "shard_to_rep", "partial_to_rep", "partial_to_shard", "distribute"]
+STEPS = ["mesh", "allgather_raw", "allgather_into", "reduce_scatter_raw", "allreduce_raw",
+         "funcol_allgather", "shard_to_rep", "partial_to_rep", "partial_to_shard",
+         "distribute"]
 
 
 def probe(rank, step):
@@ -42,6 +55,11 @@ def probe(rank, step):
     if step == "allgather_into":
         out = torch.empty(6, device="cuda")
         dist.all_gather_into_tensor(out, x[:3].clone())
+        torch.cuda.synchronize()
+        return out.tolist()
+    if step == "reduce_scatter_raw":
+        out = torch.empty(3, device="cuda")
+        dist.reduce_scatter_tensor(out, x * (rank + 1))
         torch.cuda.synchronize()
         return out.tolist()
     if step == "allreduce_raw":
@@ -70,12 +88,12 @@ def probe(rank, step):
     return distribute_tensor(x, mesh, [Shard(0)]).to_local().tolist()
 
 
-def main():
+def main(steps=STEPS):
     from repro_torch.launch.mesh import spawn_ranks
 
     print(torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0), flush=True)
     for backend in ("gloo", "cpu:gloo,cuda:gloo"):
-        for step in STEPS:
+        for step in steps:
             try:
                 res = spawn_ranks(probe, 2, step, backend=backend, timeout=60)
                 print(backend, step, json.dumps(res), flush=True)
@@ -84,4 +102,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:] or STEPS)
