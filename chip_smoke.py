@@ -7,7 +7,9 @@ from the root of a checkout, on a machine with an NVIDIA Hopper card and the
 CUDA toolkit.  Phases, in order; any failure exits non-zero:
 
   1. build    — compile every CUDA kernel source with nvcc (sm_90a), in
-                parallel;
+                parallel; check that this torch's ``torch.bmm`` takes
+                ``out_dtype`` (decode attention contracts a bf16 cache with
+                f32 products out, as JAX's ``preferred_element_type``);
   2. kernels  — hold each kernel against its plain PyTorch version on the
                 card, and time both: the LMME kernel on e±200 inputs with
                 exact-zero rows and columns, at the serving path's shapes,
@@ -81,7 +83,8 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 goom-rnn-124m's train step at phase 5's shape on a (1, 1)
                 mesh (``launch.dryrun.lower_cell``: the port's step on fake
                 tensors) in both variants under ``none`` and ``full``, and
-                on (2, 1) and (4, 1) meshes for phase 13's ranks; after
+                on (2, 1) and (4, 1) meshes for phase 13's ranks, and
+                phase 13b's (1, 2) train and prefill cells; after
                 the remat measurements, the predicted GOOM launches a step
                 must equal the measured, the roofline step time must not
                 pass the measured device busy, and the predicted peak above
@@ -118,7 +121,7 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 layer kind, then the parity check of phase 4 at f32 compute
                 on the same weights;
   8. rwkv6    — serve rwkv6-7b at full width (d=4096, 64 heads of 64, d_ff
-                14336, vocab 65536) cut to 8 of its 32 layers (3.9 GB in
+                14336, vocab 65536) cut to 4 of its 32 layers (1.9 GB in
                 bf16) with the phases of 7: every engine LMME
                 call (one a layer and WKV chunk, at decode too) must have
                 launched the LMME kernel, and no other GOOM op may run;
@@ -163,8 +166,10 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 equal but after a near tie); olmo-1b trained at its 2048-token
                 context (B=8, bf16, remat full): step wall, busy and peak,
                 one f32 step at 2 blocks against one (loss within 1e-4), and
-                its attention's output and gradients at that shape each
-                within twice one block's distance to float64; Jamba's smoke
+                each leaf's gradient at 2 blocks within twice one block's
+                distance to the same step in float64 on one process
+                (``f64_step``: a float64 copy of the model through the plain
+                versions, on the card); Jamba's smoke
                 config trained 3 f32 steps (capacity routing) on the card
                 against the CPU (loss, grad norm and lr within rtol 1e-3),
                 every diagonal_scan call on the kernel;
@@ -190,25 +195,40 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 sharing the card, goom-rnn-124m at full width:
                 ``--seq-shards 2`` on 2 ranks, 3 bf16 steps; ``--seq-shards
                 2`` on 4 ranks ((2, 2): data parallel beside the
-                full-length scans), 3 f32 steps, each step's loss within
-                1e-5 and the first gradient norm within 1e-4 of one
-                process on both data ranks' slices (later ones 1e-3), each
-                leaf's first-step gradient (its
-                first moment in the launcher's checkpoint) within 1e-2 of
-                the one process's; FSDP, ``--mesh host`` on (P, 1), its
-                parameters laid out and gathered a period at a time: 2 bf16
-                steps (remat full, B=16, S=128) at P = 1, 2 and 4, each
-                rank's peak above its floor within 1.05x of the dry-run's
-                (P, 1) cell's above the state and its floor at most 80 MiB
-                above that state, the peaks falling with P, each rank's
-                LMME launches equal to its engine calls; and 3 f32 FSDP
-                steps at P = 2 against the same one process (the first
-                loss within 1e-6 and gradient norm within 1e-5, later ones
-                1e-5 and 1e-3, each leaf's first-step gradient within
-                1e-2); while the ranks
-                run, the one process's steps and ``python -m
+                full-length scans), one f32 step; FSDP, ``--mesh host`` on
+                (P, 1), its parameters laid out and gathered a period at a
+                time: 2 bf16 steps (remat full, B=16, S=128) at P = 1, 2 and
+                4, each rank's peak above its floor within 1.05x of the
+                dry-run's (P, 1) cell's above the state and its floor at most
+                80 MiB above that state, the peaks falling with P, each
+                rank's LMME launches equal to its engine calls; one f32 FSDP
+                step at P = 2; ``--model-shards 2`` on 2 ranks (phase 13b).
+                The two f32 runs' first step (loss, gradient norm, and each
+                leaf's first moment in the launcher's checkpoint of step 1)
+                within twice one f32 process's distance to the same step in
+                float64 on one process (floors: one f32 ulp of the loss,
+                eight of the norm), and that process's worst leaf below the
+                bf16 one's; while the ranks run, the one processes' steps
+                (f32 on both data slices, bf16 on the model-axis batch, each
+                beside its float64 step) and ``python -m
                 repro_torch.launch.train`` in this process at full width:
                 a step, a checkpoint, a restart that resumes;
+ 13b. model axis — heads, channels and the vocabulary split across 2 gloo
+                ranks sharing the card, a (1, 2) mesh, the default rules:
+                the ``--model-shards 2`` run (goom-rnn-124m, 24 of 48 heads a
+                rank, bf16, remat full, B=16, S=128, 2 steps): its first
+                step against float64 within twice one bf16 process's
+                distance, each rank's LMME launches equal to its engine
+                calls, its peak above the floor within 1.05x of the
+                dry-run's (1, 2) cell; olmo-1b (f32 compute) prefilled fresh
+                with 2 x 4096 tokens on 2 ranks: each rank's KV caches half
+                of one process's and its heads' block of them (within a bf16
+                step and 1e-4 of the largest entry), the last logits within
+                1e-4·std and the next tokens equal, the peak above the floor
+                within 1.05x of the dry-run's (1, 2) prefill cell; the LMME
+                and with-B scan kernels at 24 heads and the diagonal scan at
+                Jamba smoke's 64 of 128 channels held to float64 on the
+                operands the split layers handed them;
  14. autotune — (last) ``engine.autotune()`` on ``DEFAULT_SHAPES`` and
                 goom-rnn's with-B decode and 64-token chunk (twice, the
                 same winner): every candidate's ms (a replayed CUDA graph);
@@ -218,14 +238,17 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
                 deleted after, so no earlier cache moves a launch.
 
 Cut for the run's time (``DEPTH_CUTS``, ``PERIOD_CUTS``): codeqwen1.5-7b and
-glm4-9b run 2 of their layers (their attention runs olmo-1b's code, which
-runs whole), phi3.5-moe and mixtral-8x7b 2, rwkv6-7b 8 of 32, gemma3-1b's
+glm4-9b run 2 of their layers (their attention runs olmo-1b's code),
+phi3.5-moe and mixtral-8x7b 2, rwkv6-7b 4 of 32, olmo-1b's families phase
+8 of 16 (whole in phases 10b and 13b), gemma3-1b's
 families phase one period of each group (8 of its 26 layers, which run
-whole in phase 10b), training 2 steps a
+whole in phase 10b; its 32768-token ``generate`` is the prefill and
+decode step timed there, ``generate`` itself running at 4096 tokens),
+the launcher's seq-sharded bf16 run 2 steps, training 2 steps a
 variant (its parts timed over 2 more, 1 a remat setting; ``generic`` at 8
 of goom-rnn-124m's 24 layers, ``TRAIN_LAYERS``, so its launches on the
 ``kernels`` line are a third of a 24-layer run's) and the launcher
-ranks' FSDP runs 2 steps;
+ranks' FSDP runs 2 steps, its f32 runs one (held to float64);
 RWKV6's LMME shapes are timed once a shape, and the scans' odd signed
 shapes are checked, not timed.
 
@@ -269,6 +292,22 @@ JAMBA_PERIODS = 1
 #: this run's autotune cache: empty until the autotune phase, deleted after,
 #: so that no cache of an earlier run moves a launch of the other phases
 AUTOTUNE_CACHE = str(ROOT / "build" / "chip_smoke_autotune.json")
+
+
+def out_dtype_probe() -> str:
+    """Whether this torch's ``torch.bmm`` takes ``out_dtype`` on the card
+    (``aten::bmm.dtype``): decode attention contracts a bf16 KV cache with
+    it, f32 products out, as JAX's ``preferred_element_type``
+    (``models/attention.py::_attend``); fails without it."""
+    import torch
+
+    a = torch.full((1, 2, 3), 1.5, device=DEVICE, dtype=torch.bfloat16)
+    out = torch.bmm(a, a.transpose(1, 2), out_dtype=torch.float32)
+    check(out.dtype == torch.float32 and float(out[0, 0, 0]) == 6.75,
+          f"torch.bmm(out_dtype=torch.float32): {out.dtype} {out}")
+    return (f"torch.bmm(bf16, bf16, out_dtype=torch.float32) present in torch "
+            f"{torch.__version__} ({sorted(torch.ops.aten.bmm.overloads())}), gives "
+            f"{out.dtype}")
 
 
 def check(cond, msg: str) -> None:
@@ -445,6 +484,9 @@ def kernel_phase():
         ("chain square d=32 (32,32)x(32,32)", (32, 32), (32, 32)),
         ("chain square d=128 (128,128)x(128,128)", (128, 128), (128, 128)),
         ("spectrum reset (128,3,3)x(128,3,3)", (128, 3, 3), (128, 3, 3)),
+        # the model axis's B·u: 24 of goom-rnn's 48 heads, at the shape
+        # ``model_axis_phase``'s split forward hands it (B=2, S=64)
+        ("model axis B·u (24,16,16)x(64,2,24,16,1)", (24, 16, 16), (64, 2, 24, 16, 1)),
     ]
     rows, max_err = [], 0.0
     for name, sa, sb in cases:
@@ -611,6 +653,9 @@ def rwkv6_lmme_phase():
 SCAN_CASES = [
     ("decode (G=48,T=1,d=16,m=4)", 1, (48,), 16, 4, "shared_a"),
     ("64-token chunk (G=48,T=64,d=16,m=1)", 64, (48,), 16, 1, "shared_a"),
+    # the model axis: ``generic`` on 24 of 48 heads at the shape
+    # ``model_axis_phase``'s split forward hands it (B=2 in the state columns)
+    ("model axis (G=24,T=64,d=16,m=2)", 64, (24,), 16, 2, "shared_a"),
     ("time-varying A (G=48,T=256,d=16,m=4)", 256, (48,), 16, 4, "signed"),
     ("d=128 (T=33,d=128,m=3)", 33, (), 128, 3, "signed"),
     ("positive e±200 (T=150,d=4,m=1)", 150, (), 4, 1, "positive"),
@@ -842,6 +887,7 @@ def scan_kernel_phase():
 # the JAX package's autotune shape (4096, 512)
 DIAG_CASES = [
     ("decode (T=1, C=4x8192x16)", 1, (4, 8192, 16), "mamba"),
+    ("model axis decode (T=1, C=4x4096x16)", 1, (4, 4096, 16), "mamba"),
     ("64-token chunk (T=64, C=8192x16)", 64, (1, 8192, 16), "mamba"),
     ("tail token (T=1, C=8192x16)", 1, (1, 8192, 16), "mamba"),
     ("signed e±200, zeros, cancellations (T=64, C=4x33)", 64, (4, 33), "e200"),
@@ -2205,10 +2251,11 @@ def dryrun_cells(out: str) -> None:
     on fake tensors: no device) at train_phase's B and S, bf16 compute, on a
     (1, 1) mesh, for both variants (``train_config``) under
     ``DRYRUN_REMATS``, of ``long_attention_phase``'s prefill
-    (``long_dryrun_cell``) and of ``dist_launcher_phase``'s FSDP ranks
-    (``fsdp_dryrun_cells``); written to ``out`` as {"train": {variant:
+    (``long_dryrun_cell``), of ``dist_launcher_phase``'s FSDP ranks
+    (``fsdp_dryrun_cells``) and of ``model_axis_phase``'s (1, 2) ranks
+    (``model_axis_dryrun_cells``); written to ``out`` as {"train": {variant:
     {remat: Roofline dict}}, "long_prefill": Roofline dict, "fsdp": {P:
-    Roofline dict}}.  Run in a process of its own with one thread and no
+    Roofline dict}, "model_axis": {"train", "prefill": Roofline dict}}.  Run in a process of its own with one thread and no
     card (``start_dryrun``)."""
     import torch
 
@@ -2225,7 +2272,8 @@ def dryrun_cells(out: str) -> None:
                                perf={"remat": r, "microbatches": 1}).to_dict()
                  for r in DRYRUN_REMATS}
              for v in ("shared_a", "generic")}
-    res = {"train": train, "long_prefill": long_dryrun_cell(), "fsdp": fsdp_dryrun_cells()}
+    res = {"train": train, "long_prefill": long_dryrun_cell(), "fsdp": fsdp_dryrun_cells(),
+           "model_axis": model_axis_dryrun_cells()}
     with open(out, "w") as f:
         json.dump(res, f)
 
@@ -2847,26 +2895,24 @@ def _wall_s(fn) -> float:
 # ---------------------------------------------------------------------------
 # phase 13: the launcher on ranks (torch.distributed.run)
 # ---------------------------------------------------------------------------
-DIST_STEPS = 3
-DIST_LOSS_RTOL = 1e-5
-#: the f32 runs held step by step against one process on both data ranks'
-#: slices: the FSDP pair at P = 2 and the data-parallel seq-sharded (2, 2)
-DIST_F32_STEPS = 3
-#: the (2, 2) seq-sharded run's first gradient norm against one process's.
-#: The time shards' backward sums each rank's part of a scan's input
-#: gradients (an all-reduce), in another order than one process's: 1.21e-5
-#: in the first card run (chosen after DIST_LOSS_RTOL failed there; the
-#: FSDP pair, with no time shards, 3.8e-6).  A data rank's gradients left
-#: out of the mean move the norm by ~1e-2.
-SEQ_NORM_RTOL = 1e-4
-#: the gradient norms of the f32 steps after the first (both runs).  Adam's
-#: first update moves each element by the learning rate times the sign of
-#: its gradient, so an element whose gradient sums to near zero flips with
-#: the order of the sums, and the next steps' gradients drift: 3.4e-5 and
-#: 6.7e-5 on the card at full width (chosen after DIST_LOSS_RTOL failed
-#: there; at the smoke width on CPU ranks 8e-8).  The losses after it are
-#: held to DIST_LOSS_RTOL (4.4e-6 at most in that run).
-LATER_NORM_RTOL = 1e-3
+DIST_STEPS = 2
+#: the f32 runs held to the float64 step on one process (``f64_step``): the
+#: FSDP pair at P = 2 and the data-parallel seq-sharded (2, 2).  One step:
+#: the first step's loss, gradient norm and every leaf's gradient against
+#: float64 make the later steps' norms, which drift apart after Adam's first
+#: sign-of-gradient update (PERF.md), no tighter a measure
+DIST_F32_STEPS = 1
+#: a multi-rank run's first step against float64: its distance within this
+#: factor of one process's at the same compute dtype (the loss, the
+#: gradient norm, and each leaf's first moment against one process's worst
+#: leaf).  Rounding moves both alike; a reduction a rank misses puts a leaf
+#: ~0.5 of itself away (0.63-0.77 mutated in on CPU ranks)
+F64_SPREAD = 2.0
+#: the floors of that distance, relative: the loss one f32 ulp (2^-23), the
+#: gradient norm eight (2^-20: one f32 sum over 1.2e8 squares, reassociated
+#: by the ranks, spreads by several ulps whatever the gradients)
+F64_LOSS_FLOOR = 2.0 ** -23
+F64_NORM_FLOOR = 2.0 ** -20
 #: the FSDP runs' rank counts (P = 1 is the single process, no mesh), and
 #: their steps (the peak is read over those after the first)
 FSDP_P = (1, 2, 4)
@@ -2880,18 +2926,6 @@ FSDP_PEAK_FACTOR = 1.05
 #: workspace, 0.063-0.067 GiB in the first card runs, and this margin; a
 #: gathered period, a gradient or a moment kept across steps passes it
 FSDP_FLOOR_SLACK = 80 * 2 ** 20
-#: the first f32 FSDP step's loss against one process's (``layouts_phase``'s bar)
-FSDP_LOSS_RTOL = 1e-6
-#: each leaf's first moment after the first f32 step (the launcher's
-#: checkpoint of step 1: (1 - beta1) times the clipped gradient) against one
-#: process's, the norm of the difference over the norm of the one
-#: process's.  A leaf whose gradient missed the data ranks' sum is off by
-#: ~0.5 of itself (0.63-0.77 mutated in on CPU ranks); f32 sums over the
-#: batch in another order sit far below this.  (The parameters themselves
-#: are no measure: Adam's first step moves each element by the learning
-#: rate times the sign of its gradient, which reassociation flips where a
-#: gradient sums to near zero.)
-DIST_GRAD_RTOL = 1e-2
 
 
 def fsdp_dryrun_cells() -> dict:
@@ -2950,11 +2984,49 @@ def _torchrun_wait(runs, timeout=600):
     return got
 
 
-def _one_process_f32(argv_f32, p):
-    """``DIST_F32_STEPS`` f32 steps of the launcher's model (same seed and
-    schedule) in this process, each on the concatenation of the ``p`` data
-    ranks' slices of its batch: each step's metrics, and the first moments
-    after the first step."""
+def f64_step(model, batch):
+    """The float64 yardstick: ``model``'s train step on ``batch`` in float64 on
+    one process, on the card, through the plain versions (the kernels are
+    f32 only): a copy of its weights cast to float64, float64 compute.
+    Returns (loss, gradients by name, their global norm, and the first
+    moments AdamW's first update keeps, ``(1 - b1)`` times the gradients
+    clipped to norm 1, as ``make_train_step`` clips them), all on the card."""
+    import copy
+
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.train import AdamW
+
+    m64 = copy.deepcopy(model).double()
+    m64.cfg = dataclasses.replace(model.cfg, compute_dtype=torch.float64,
+                                  param_dtype=torch.float64)
+    with engine.use_backend("torch_reference"):
+        loss, grads = _grads(m64, batch)
+    del m64
+    grads = {n: g.detach() for n, g in grads.items()}
+    norm = torch.sqrt(sum(g.square().sum() for g in grads.values()))
+    b1 = AdamW(lambda step: 0.0).b1
+    mu = {n: (1 - b1) * g * torch.clamp(1.0 / norm, max=1.0) for n, g in grads.items()}
+    free_memory()
+    return float(loss), grads, float(norm), mu
+
+
+def leaf_distance(got, exact) -> float:
+    """The norm of ``got - exact`` over the norm of ``exact``, in float64."""
+    import numpy as np
+
+    got, exact = (np.asarray(x.detach().double().cpu() if hasattr(x, "detach") else x,
+                             dtype=np.float64) for x in (got, exact))
+    ref = np.linalg.norm(exact.ravel())
+    return float(np.linalg.norm((got - exact).ravel()) / ref) if ref else 0.0
+
+
+def _one_process(argv, p):
+    """The launcher's model (same seed) for one step in this process on the
+    concatenation of the ``p`` data ranks' slices of its first batch, at the
+    launcher's compute dtype on the kernels, and the same step in float64
+    (``f64_step``): each one's loss, gradient norm and first moments (numpy)."""
     import numpy as np
     import torch
 
@@ -2964,28 +3036,27 @@ def _one_process_f32(argv_f32, p):
                                    init_train_state, make_train_step)
     from repro_torch.train.data import to_device
 
-    args = launch_train.parse_args(argv_f32)
-    cfg = dataclasses.replace(get_config(args.arch, smoke=args.smoke),
-                              compute_dtype=torch.float32)
+    args = launch_train.parse_args(argv)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if args.compute_dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=getattr(torch, args.compute_dtype))
     model = DecoderLM(cfg, device=DEVICE,
                       generator=torch.Generator(device=DEVICE).manual_seed(args.seed))
-    opt = AdamW(cosine_schedule(args.lr, args.warmup, args.steps))
-    step = make_train_step(model, opt)
-    state = init_train_state(model, opt)
     streams = [SyntheticStream(DataConfig(task=args.task, vocab=cfg.vocab, seq_len=args.seq_len,
                                           global_batch=args.batch, seed=args.seed,
                                           process_index=i, process_count=p)) for i in range(p)]
-    rows = []
-    for i in range(args.steps):
-        parts = [s.generate(i) for s in streams]
-        batch = to_device({k: np.concatenate([x[k] for x in parts]) for k in parts[0]}, DEVICE)
-        state, m = step(state, batch)
-        rows.append({k: float(v) for k, v in m.items()})
-        if i == 0:
-            mu = {n: v.detach().cpu().numpy().copy() for n, v in state.opt_state["mu"].items()}
-    del model, opt, step, state
+    parts = [s.generate(0) for s in streams]
+    batch = to_device({k: np.concatenate([x[k] for x in parts]) for k in parts[0]}, DEVICE)
+    loss64, _, norm64, mu64 = f64_step(model, batch)
+    opt = AdamW(cosine_schedule(args.lr, args.warmup, args.steps))
+    state, m = make_train_step(model, opt)(init_train_state(model, opt), batch)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "cfg": cfg,
+           "mu": {n: v.detach().cpu().numpy().copy() for n, v in state.opt_state["mu"].items()},
+           "f64": {"loss": loss64, "grad_norm": norm64,
+                   "mu": {n: v.cpu().numpy() for n, v in mu64.items()}}}
+    del model, opt, state, mu64
     free_memory()
-    return {"steps": rows, "mu": mu, "cfg": cfg}
+    return out
 
 
 def _first_moments(directory, cfg, like):
@@ -2999,50 +3070,44 @@ def _first_moments(directory, cfg, like):
     return {n: v.numpy() for n, v in params_from_jax(cfg, tree["opt_state"]["mu"]).items()}
 
 
-def _per_step(run, one, loss_rtol, norm_rtol, label):
-    """Each step's loss and gradient norm against the one process's,
-    printed, then held: the first step's (from the same weights) to
-    ``loss_rtol`` and ``norm_rtol``, the later ones' to DIST_LOSS_RTOL and
-    LATER_NORM_RTOL."""
-    rows = run["steps"]
-    check(len(rows) == len(one["steps"]), f"{label}: {len(rows)} steps, one process "
-          f"{len(one['steps'])}")
-    gaps = [{key: abs(r[key] - w[key]) / abs(w[key]) for key in ("loss", "grad_norm")}
-            for r, w in zip(rows, one["steps"])]
-    loss_gaps = ", ".join(f"{g['loss']:.2e}" for g in gaps)
-    norm_gaps = ", ".join(f"{g['grad_norm']:.2e}" for g in gaps)
-    print(f"{label}: {len(rows)} steps' losses {[r['loss'] for r in rows]}, gradient norms "
-          f"{[r['grad_norm'] for r in rows]}; one process on both data slices "
-          f"{[w['loss'] for w in one['steps']]}, {[w['grad_norm'] for w in one['steps']]}: "
-          f"relative gaps loss [{loss_gaps}] (bars {loss_rtol}, then {DIST_LOSS_RTOL}), "
-          f"gradient norm [{norm_gaps}] (bars {norm_rtol}, then {LATER_NORM_RTOL})",
+def f64_gaps(run, got_mu, one):
+    """A run's first step (its metrics' loss and gradient norm, and its first
+    moments by name) and the one process's at the same compute dtype, each
+    as its distance to the float64 step (``one["f64"]``)."""
+    f = one["f64"]
+    rel = lambda x, ref: abs(x - ref) / abs(ref)  # noqa: E731
+    step = run["steps"][0]
+    return {"loss": (rel(step["loss"], f["loss"]), rel(one["loss"], f["loss"])),
+            "norm": (rel(step["grad_norm"], f["grad_norm"]),
+                     rel(one["grad_norm"], f["grad_norm"])),
+            "leaves": {n: leaf_distance(got_mu[n], f["mu"][n]) for n in f["mu"]},
+            "one_leaves": {n: leaf_distance(one["mu"][n], f["mu"][n]) for n in f["mu"]}}
+
+
+def check_f64(gaps, label):
+    """``f64_gaps`` printed, then held: the run's loss and gradient norm
+    within F64_SPREAD times one process's distance to float64 (floored at
+    F64_LOSS_FLOOR and F64_NORM_FLOOR), every leaf within F64_SPREAD times one
+    process's worst leaf."""
+    leaves, one = gaps["leaves"], gaps["one_leaves"]
+    worst, one_worst = max(leaves, key=leaves.get), max(one, key=one.get)
+    bars = {"loss": F64_SPREAD * max(gaps["loss"][1], F64_LOSS_FLOOR),
+            "norm": F64_SPREAD * max(gaps["norm"][1], F64_NORM_FLOOR),
+            "leaf": F64_SPREAD * one[one_worst]}
+    print(f"{label}: first step against the float64 step on one process (same weights "
+          f"and batch; the run / one process at its dtype): loss {gaps['loss'][0]:.3e} / "
+          f"{gaps['loss'][1]:.3e} (bar {bars['loss']:.3e}), gradient norm "
+          f"{gaps['norm'][0]:.3e} / {gaps['norm'][1]:.3e} (bar {bars['norm']:.3e}); "
+          f"{len(leaves)} leaves' first moments, the run's worst {worst} {leaves[worst]:.3e}, "
+          f"one process's worst {one_worst} {one[one_worst]:.3e} (bar {bars['leaf']:.3e})",
           flush=True)
-    for i, g in enumerate(gaps):
-        bars = (loss_rtol, norm_rtol) if i == 0 else (DIST_LOSS_RTOL, LATER_NORM_RTOL)
-        check(g["loss"] <= bars[0] and g["grad_norm"] <= bars[1],
-              f"{label}, step {i}: gaps {g} over the bars {bars}")
-
-
-def _grad_gap(ckpt, one, label):
-    """Each leaf's first moment after step 1 (the launcher's checkpoint)
-    against the one process's: the norm of the difference over the norm of
-    the one process's, printed (the worst leaf), then held to
-    DIST_GRAD_RTOL."""
-    import numpy as np
-
-    got = _first_moments(ckpt, one["cfg"], one["mu"])
-    gaps = {}
-    for name, want in one["mu"].items():
-        ref = np.linalg.norm(want.ravel())
-        diff = np.linalg.norm((got[name] - want).ravel())
-        gaps[name] = float(diff / ref) if ref else (0.0 if diff == 0 else math.inf)
-    worst = sorted(gaps, key=gaps.get)[-3:]
-    print(f"{label}: each of {len(gaps)} leaves' gradient after step 1 (the first moment "
-          f"in the launcher's checkpoint) against one process's: the worst "
-          f"{', '.join(f'{n} {gaps[n]:.2e}' for n in reversed(worst))} (bar {DIST_GRAD_RTOL})",
-          flush=True)
-    check(gaps[worst[-1]] <= DIST_GRAD_RTOL, f"{label}: leaf {worst[-1]}'s gradient "
-          f"{gaps[worst[-1]]:.2e} from one process's")
+    check(gaps["loss"][0] <= bars["loss"], f"{label}: loss {gaps['loss']} from float64")
+    check(gaps["norm"][0] <= bars["norm"], f"{label}: gradient norm {gaps['norm']} "
+          "from float64")
+    check(leaves[worst] <= bars["leaf"], f"{label}: leaf {worst} {leaves[worst]:.3e} from "
+          f"float64, one process's worst {one[one_worst]:.3e}")
+    return {"worst": leaves[worst], "one_worst": one[one_worst], "loss": gaps["loss"],
+            "norm": gaps["norm"]}
 
 
 def dist_launcher_phase(fsdp_cells: dict):
@@ -3051,33 +3116,35 @@ def dist_launcher_phase(fsdp_cells: dict):
     ``--seq-shards 2`` on 2 ranks ((1, 2), the plain layout, full-length
     scans), DIST_STEPS bf16 steps with finite losses; ``--seq-shards 2`` on
     4 ranks ((2, 2): the data-parallel branch, ``data_group``, beside the
-    full-length scans), DIST_F32_STEPS f32 steps, each step's loss within
-    DIST_LOSS_RTOL and the first gradient norm within SEQ_NORM_RTOL of one
-    process on both data ranks' slices (the later ones within
-    LATER_NORM_RTOL), and each leaf's gradient of the first step
-    (its first moment in the launcher's checkpoint of step 1) within
-    DIST_GRAD_RTOL of the one process's; FSDP on ``--mesh host`` (P, 1), parameters laid out and
-    gathered a period at a time, FSDP_STEPS bf16 steps at each P of FSDP_P
-    (P = 1: one process): each rank's peak over the steps after the first
-    above the bytes allocated then (its floor: its state and what the first
-    calls keep, cuBLAS's workspace among them) within FSDP_PEAK_FACTOR of
-    the dry-run's (P, 1) cell's peak above the state (``fsdp_cells``; P = 1
-    the (1, 1) train cell; ``dryrun_phase``'s measure), the floor at most
-    FSDP_FLOOR_SLACK above the dry-run's state, the whole peaks falling with
-    P, each rank's LMME launches equal to its engine calls; and
-    DIST_F32_STEPS f32 FSDP steps at P = 2 against the same one process:
-    the first step's loss within FSDP_LOSS_RTOL and gradient norm within
-    DIST_LOSS_RTOL, the later ones' within DIST_LOSS_RTOL and
-    LATER_NORM_RTOL, and each leaf's first-step gradient (the checkpoint,
-    gathered on the port's collectives) within DIST_GRAD_RTOL.  While the ranks run, this process runs
-    the one process's steps and ``launcher_phase``.  Returns rank 0's
-    launches of the bf16 seq-sharded run, each FSDP run's (summed over its
-    ranks) and each rank's peak."""
+    full-length scans; the attention-free model splits its vocabulary on
+    "model"), one f32 step; FSDP on ``--mesh host`` (P, 1), parameters laid
+    out and gathered a period at a time, FSDP_STEPS bf16 steps at each P of
+    FSDP_P (P = 1: one process): each rank's peak over the steps after the
+    first above the bytes allocated then (its floor: its state and what the
+    first calls keep, cuBLAS's workspace among them) within FSDP_PEAK_FACTOR
+    of the dry-run's (P, 1) cell's peak above the state (``fsdp_cells``;
+    P = 1 the (1, 1) train cell; ``dryrun_phase``'s measure), the floor at
+    most FSDP_FLOOR_SLACK above the dry-run's state, the whole peaks falling
+    with P, each rank's LMME launches equal to its engine calls; one f32
+    FSDP step at P = 2; and ``--model-shards 2`` on 2 ranks (the model axis,
+    MODEL_AXIS_STEPS bf16 steps, checked by ``model_axis_phase``).  The two
+    f32 runs' first steps are held to the float64 step on one process on
+    both data ranks' slices (``check_f64``: loss, gradient norm, and each
+    leaf's first moment in the launcher's checkpoint of step 1, each within
+    F64_SPREAD of the one f32 process's distance), and that one process's
+    worst leaf below the one bf16 process's (f32 carries 16 more mantissa
+    bits: an f32 step that lost them to a narrower cast shows).  While the
+    ranks run, this process runs the one processes' steps (f32 on both data
+    slices, bf16 on the model-axis run's batch, each beside its float64
+    step) and ``launcher_phase``.  Returns rank 0's launches of the bf16
+    seq-sharded run, each FSDP run's (summed over its ranks), each rank's
+    peak, and the model-axis run with its first moments and its one
+    process."""
     import shutil
 
     tmp = ROOT / "build"
     tmp.mkdir(exist_ok=True)
-    ckpts = {k: tmp / f"chip_smoke_{k}_ckpt" for k in ("dp32", "fsdp32")}
+    ckpts = {k: tmp / f"chip_smoke_{k}_ckpt" for k in ("dp32", "fsdp32", "model")}
     for d in ckpts.values():
         shutil.rmtree(d, ignore_errors=True)
     full = ["--arch", "goom-rnn-124m", "--task", "copy", "--seq-len", str(TRAIN["seq_len"]),
@@ -3085,6 +3152,8 @@ def dist_launcher_phase(fsdp_cells: dict):
             "--dist-backend", "gloo"]
     f32 = full + ["--compute-dtype", "float32", "--steps", str(DIST_F32_STEPS)]
     fsdp = full + ["--mesh", "host"]
+    model_axis = full + ["--steps", str(MODEL_AXIS_STEPS), "--model-shards", "2",
+                         "--ckpt-every", "1", "--ckpt-dir", str(ckpts["model"])]
     t0 = time.perf_counter()
     runs = {"bf16": _torchrun_start(2, full + ["--steps", str(DIST_STEPS), "--seq-shards", "2"],
                                     tmp / "chip_smoke_dist.json"),
@@ -3094,30 +3163,43 @@ def dist_launcher_phase(fsdp_cells: dict):
             "fsdp f32": _torchrun_start(2, f32 + ["--mesh", "host", "--ckpt-every", "1",
                                                   "--ckpt-dir", str(ckpts["fsdp32"])],
                                         tmp / "chip_smoke_fsdp32.json"),
+            "model": _torchrun_start(2, model_axis, tmp / "chip_smoke_model.json"),
             **{f"fsdp {p}": _torchrun_start(p, fsdp + ["--steps", str(FSDP_STEPS)],
                                             tmp / f"chip_smoke_fsdp{p}.json")
                for p in FSDP_P}}
     try:
-        one = _one_process_f32(f32, 2)
+        ones = {"f32": _one_process(f32, 2), "bf16": _one_process(model_axis, 1)}
         launcher_phase()
     finally:
         runs = _torchrun_wait(runs)
     ranks_s = time.perf_counter() - t0
     try:
-        _launcher_checks(runs, one, fsdp_cells, ckpts)
+        f64 = _launcher_checks(runs, ones["f32"], fsdp_cells, ckpts)
+        one = ones["bf16"]
+        model_mu = _first_moments(ckpts["model"], one["cfg"], one["mu"])
     finally:
         for d in ckpts.values():
             shutil.rmtree(d, ignore_errors=True)
+    f32_worst = max(leaf_distance(ones["f32"]["mu"][n], ones["f32"]["f64"]["mu"][n])
+                    for n in one["mu"])
+    bf16_worst = max(leaf_distance(one["mu"][n], one["f64"]["mu"][n]) for n in one["mu"])
+    print(f"one process, goom-rnn-124m's first step against float64 on the card, worst leaf's "
+          f"first moment: f32 {f32_worst:.3e} (both data slices), bf16 {bf16_worst:.3e} "
+          f"(the model-axis run's batch); f32 below bf16", flush=True)
+    check(f32_worst < bf16_worst, f"one process f32 {f32_worst:.3e} from "
+          f"float64 against bf16 {bf16_worst:.3e}")
     print(f"launcher ranks: the runs at once in {ranks_s:.1f} s with their start", flush=True)
     return {"seq": runs["bf16"]["launches"],
             "peaks": {p: [r["peak_bytes"] for r in runs[f"fsdp {p}"]["ranks"]] for p in FSDP_P},
             **{f"fsdp {p}": {k: sum(r["launches"][k] for r in runs[f"fsdp {p}"]["ranks"])
-                             for k in runs[f"fsdp {p}"]["launches"]} for p in FSDP_P}}
+                             for k in runs[f"fsdp {p}"]["launches"]} for p in FSDP_P},
+            "f64": dict(f64, one_f32=f32_worst, one_bf16=bf16_worst),
+            "model_axis": {"run": runs["model"], "mu": model_mu, "one": one}}
 
 
 def _launcher_checks(runs, one, fsdp_cells, ckpts):
     """``dist_launcher_phase``'s checks of its runs, each result printed
-    before it is held."""
+    before it is held; returns the f32 runs' distances to float64."""
     run = runs["bf16"]
     losses = [s["loss"] for s in run["steps"]]
     print(f"launcher --seq-shards 2 (2 gloo ranks on one card, (1, 2), full width, bf16, the "
@@ -3174,14 +3256,349 @@ def _launcher_checks(runs, one, fsdp_cells, ckpts):
           f"launcher --seq-shards 2 on 4 ranks: world {run['world']}, layouts {run['layouts']}")
     label = ("launcher --seq-shards 2 (4 gloo ranks on one card, (2, 2): data parallel over 2 "
              "beside the full-length scans; full width, f32)")
-    _per_step(run, one, DIST_LOSS_RTOL, SEQ_NORM_RTOL, label)
-    _grad_gap(ckpts["dp32"], one, label)
+    out = {"seq": check_f64(f64_gaps(run, _first_moments(ckpts["dp32"], one["cfg"], one["mu"]),
+                                     one), label)}
     run = runs["fsdp f32"]
     check(run["world"] == 2 and run["layouts"] is True,
           f"launcher FSDP f32 P=2: world {run['world']}, layouts {run['layouts']}")
     label = "launcher FSDP f32 P=2 (--mesh host (2, 1), full width)"
-    _per_step(run, one, FSDP_LOSS_RTOL, DIST_LOSS_RTOL, label)
-    _grad_gap(ckpts["fsdp32"], one, label)
+    out["fsdp"] = check_f64(f64_gaps(run, _first_moments(ckpts["fsdp32"], one["cfg"],
+                                                          one["mu"]), one), label)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13b: the model axis (heads, channels and the vocabulary across ranks)
+# ---------------------------------------------------------------------------
+#: the launcher's model-axis run: bf16 steps on a (1, 2) mesh
+MODEL_AXIS_STEPS = 2
+#: olmo-1b's fresh-cache prefill on the (1, 2) ranks: rows and tokens
+MODEL_AXIS_PREFILL = (2, 4096)
+#: the prefill's last logits against one process's, both at f32 compute
+#: (the fresh prefill attends over the prompt's own f32 K/V): the port's
+#: uncached parity bar, ``tests/test_torch_families.py``
+MODEL_AXIS_LOGIT_STD = 1e-4
+#: the rank's bf16 caches against its block of one process's: the gap left
+#: beyond one bf16 step of the larger entry (an f32 K/V entry the two paths
+#: compute a rounding apart lands on either side of a step), over the
+#: tensor's largest entry; what is left is the f32 rounding of the K/V
+#: products, held to the logits' bar (near zero the two sides of a sign
+#: can be a rounding apart, so a count of bf16 steps is no measure there)
+MODEL_AXIS_CACHE_EXCESS = 1e-4
+MODEL_AXIS_REF = str(ROOT / "build" / "chip_smoke_model_axis_ref.pt")
+
+
+def model_axis_dryrun_cells() -> dict:
+    """The dry-run's (1, 2) rank of ``model_axis_phase``'s runs: goom-rnn-124m's
+    train step (``fsdp_dryrun_cells``' shape, ``shared_a``, remat full) and
+    olmo-1b's fresh-cache prefill of MODEL_AXIS_PREFILL."""
+    from repro_torch import get_config
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.sharding import NamedMesh
+
+    mesh = NamedMesh((1, 2), ("data", "model"))
+    cfg = with_scan_variant(get_config("goom-rnn-124m"), "shared_a")
+    train = ShapeCfg("chip_train", TRAIN["seq_len"], TRAIN["batch"], "train")
+    rows, n = MODEL_AXIS_PREFILL
+    return {"train": lower_cell(cfg, train, mesh, verbose=False,
+                                perf={"remat": "full", "microbatches": 1}).to_dict(),
+            "prefill": lower_cell(model_axis_olmo(), ShapeCfg("chip_prefill", n, rows,
+                                                              "prefill"),
+                                  mesh, verbose=False).to_dict()}
+
+
+def model_axis_olmo():
+    """olmo-1b at full width and depth, f32 compute (its caches bf16)."""
+    import torch
+
+    from repro_torch import get_config
+
+    return dataclasses.replace(get_config("olmo-1b"), compute_dtype=torch.float32)
+
+
+def bf16_excess(a, b) -> float:
+    """The largest gap between two bf16 tensors' entries beyond one bf16 step
+    (8 significant bits) of the larger of the two, over ``b``'s largest
+    magnitude."""
+    import torch
+
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    step = torch.ldexp(torch.ones_like(a), e - 8)
+    return float(((a - b).abs() - step).clamp_min(0).max() / b.abs().max())
+
+
+def _record_engine(calls):
+    """Wrap the engine ops the split layers call so that each op's first
+    call keeps its operands (``calls[op]``); returns the restore."""
+    from repro_torch.core import engine
+
+    saved = {}
+    for op in ("lmme", "matrix_scan_carry", "diagonal_scan_carry"):
+        fn = saved[op] = getattr(engine, op)
+
+        def wrapped(*args, _fn=fn, _op=op, **kw):
+            if _op not in calls:
+                calls[_op] = [None if a is None else type(a)(a.log_abs.clone(), a.sign.clone())
+                              for a in args]
+            return _fn(*args, **kw)
+
+        setattr(engine, op, wrapped)
+    return lambda: [setattr(engine, op, fn) for op, fn in saved.items()]
+
+
+def _kernel_at_split_shapes(rules):
+    """On a (1, 2) rank: goom-rnn-124m at full width, 2 of its layers, in
+    ``shared_a`` and ``generic``, and Jamba's smoke config, each one no-grad
+    forward under ``rules``; the kernels' launches and the engine's calls
+    over them, and for the first LMME, with-B scan and diagonal-scan call
+    its operands' shapes, and the kernel's and the f32 plain version's
+    distances to the float64 plain version on them (``goom_dist``, as the
+    kernel phases measure), and whether both have the same finite entries."""
+    import torch
+
+    from repro_torch import DecoderLM, get_config
+    from repro_torch.core import engine
+    from repro_torch.sharding import use_rules
+
+    cfg = get_config("goom-rnn-124m")
+    cfg = dataclasses.replace(cfg, groups=(dataclasses.replace(cfg.groups[0], n_periods=2),),
+                              n_layers=2)
+    models = [with_scan_variant(cfg, "shared_a"), with_scan_variant(cfg, "generic"),
+              get_config("jamba-v0.1", smoke=True)]
+    calls, out = {}, {}
+    reset_counts()
+    restore = _record_engine(calls)
+    try:
+        for c in models:
+            model = DecoderLM(c, device=DEVICE,
+                              generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+            tokens = torch.randint(0, c.vocab, (2, 64), device=DEVICE,
+                                   generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+            with torch.no_grad(), use_rules(rules), engine.use_backend("cuda"):
+                model(tokens)
+            del model
+    finally:
+        restore()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    out["launches"], out["calls"] = read_counts()
+    for op, args in calls.items():
+        fn = getattr(engine, op)
+        with torch.no_grad():
+            with engine.use_backend("cuda"):
+                got = fn(*args)
+            with engine.use_backend("torch_reference"):
+                plain = fn(*args)
+                exact = fn(*(_as(a, torch.float64) for a in args))
+                scale = fn(*(_as(a, torch.float64, True) for a in args))
+        got, plain, exact, scale = (x[0] if isinstance(x, tuple) else x
+                                    for x in (got, plain, exact, scale))
+        d_k = goom_dist(got, exact, scale.log_abs)
+        d_p = goom_dist(plain, exact, scale.log_abs)
+        out[op] = {"shapes": [None if a is None else tuple(a.shape) for a in args],
+                   "dist": d_k, "plain_dist": d_p,
+                   "finite": bool(torch.isfinite(got.log_abs).eq(
+                       torch.isfinite(plain.log_abs)).all())}
+    return out
+
+
+def _model_axis_rank(rank, device):
+    """One rank of ``model_axis_phase`` on the (1, 2) mesh under the default
+    rules: olmo-1b laid out, its caches (the rank's KV heads) and a fresh
+    prefill of MODEL_AXIS_PREFILL, the peak above the floor (a warm-up
+    prefill first), the last logits and each layer's cache against the
+    rank's block of one process's (``MODEL_AXIS_REF``); then
+    ``_kernel_at_split_shapes``."""
+    import torch
+
+    global DEVICE
+    DEVICE = device
+    from repro_torch import DecoderLM
+    from repro_torch.launch.mesh import _device_mesh
+    from repro_torch.serve.steps import make_prefill_step
+    from repro_torch.sharding import distribute_model, make_rules, use_rules
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = _device_mesh((1, 2), ("data", "model"), DEVICE)
+    rules = make_rules(mesh)
+    cfg = model_axis_olmo()
+    model = DecoderLM(cfg, device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    distribute_model(model, rules)
+    model.requires_grad_(False)
+    ref = torch.load(MODEL_AXIS_REF, map_location=DEVICE)
+    rows, n = MODEL_AXIS_PREFILL
+    step = make_prefill_step(model, backend="cuda", fresh_caches=True)
+    with use_rules(rules):
+        caches = model.init_caches(rows, n)
+        step(ref["prompt"], caches)           # warm-up: cuBLAS and the allocator
+        torch.cuda.synchronize()
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        floor = torch.cuda.memory_allocated()
+        logits, caches = step(ref["prompt"], caches)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    kv = cfg.layer_list[0].attn.n_kv_heads
+    half = kv // 2
+    cache_excess, cache_bytes = 0.0, 0
+    for layer, want in zip(caches, ref["caches"]):
+        for key in ("k", "v"):
+            mine = layer[key]
+            cache_bytes += mine.numel() * mine.element_size()
+            cache_excess = max(cache_excess, bf16_excess(
+                mine, want[key][:, :, rank * half:(rank + 1) * half]))
+    lg = logits.float()
+    out = {"peak": peak, "floor": floor, "cache_bytes": cache_bytes, "cache_excess": cache_excess,
+           "logit_gap": float((lg - ref["logits"]).abs().max() / ref["logits"].std()),
+           "tokens": lg[:, -1].argmax(-1).tolist(), "kv_shape": tuple(caches[0]["k"].shape)}
+    del model, caches, ref
+    free_memory()
+    out["kernels"] = _kernel_at_split_shapes(rules)
+    return out
+
+
+def model_axis_reference():
+    """olmo-1b's (``model_axis_olmo``) fresh prefill of MODEL_AXIS_PREFILL in
+    this process, saved to MODEL_AXIS_REF for the ranks: (its KV cache bytes,
+    its last logits)."""
+    import torch
+
+    from repro_torch import DecoderLM
+    from repro_torch.serve.steps import make_prefill_step
+
+    free_memory()
+    rows, n = MODEL_AXIS_PREFILL
+    cfg = model_axis_olmo()
+    model = DecoderLM(cfg, device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    model.requires_grad_(False)
+    prompt = torch.randint(0, cfg.vocab, (rows, n), device=DEVICE,
+                           generator=torch.Generator(device=DEVICE).manual_seed(SEED + 53))
+    logits, caches = make_prefill_step(model, backend="cuda", fresh_caches=True)(
+        prompt, model.init_caches(rows, n))
+    one_bytes = sum(layer[k].numel() * layer[k].element_size()
+                    for layer in caches for k in ("k", "v"))
+    torch.save({"prompt": prompt, "logits": logits.float(),
+                "caches": [{k: layer[k] for k in ("k", "v")} for layer in caches]},
+               MODEL_AXIS_REF)
+    ref_logits = logits.float()[:, -1]
+    del model, caches, logits
+    free_memory()
+    return one_bytes, ref_logits
+
+
+def model_axis_phase(cells: dict, launcher: dict):
+    """The model axis on 2 gloo ranks sharing the card, a (1, 2) mesh under
+    the default rules.  goom-rnn-124m at full width (24 layers, 24 of its 48
+    heads a rank, ``shared_a``, bf16, remat full, B=16, S=128,
+    MODEL_AXIS_STEPS steps: ``dist_launcher_phase``'s ``--model-shards 2``
+    run): finite losses, the first loss and each leaf's first-step gradient
+    against the float64 step within F64_SPREAD of one bf16 process's
+    distance (``check_f64``), LMME launches equal to engine calls on each
+    rank, each rank's peak above its floor within FSDP_PEAK_FACTOR of the
+    dry-run's (1, 2) cell's above the state.  olmo-1b at full width
+    (``_model_axis_rank``, f32 compute, bf16 caches): a fresh prefill of
+    MODEL_AXIS_PREFILL, each rank's KV cache bytes half of one process's, its
+    caches its heads' block of one process's within a bf16 step and
+    MODEL_AXIS_CACHE_EXCESS,
+    the last logits within MODEL_AXIS_LOGIT_STD·std and the next tokens
+    equal to one process's but at a near tie (``_near_tie``), the
+    peak above the floor within FSDP_PEAK_FACTOR of the dry-run's (1, 2)
+    prefill cell.  The LMME and with-B scan kernels at 24 heads and the
+    diagonal scan at Jamba smoke's di/2 = 64 channels, on the operands the
+    split layers handed them: each kernel's distance to the float64 plain
+    version within twice the f32 plain version's (the kernel phases' bar),
+    and every launch an engine call."""
+    ma = launcher["model_axis"]
+    run, one = ma["run"], ma["one"]
+    label = ("model axis: goom-rnn-124m --model-shards 2 (2 gloo ranks on one card, (1, 2), "
+             "24 of 48 heads a rank, bf16, remat full)")
+    cell = cells["train"]["memory_per_device"]
+    state = cell["peak_bytes"] - cell["above_state_bytes"]
+    losses = [st["loss"] for st in run["steps"]]
+    ranks = run["ranks"]
+    ratios = [cell["above_state_bytes"] / (r["peak_bytes"] - r["floor_bytes"]) for r in ranks]
+    print(f"{label}: {MODEL_AXIS_STEPS} steps, losses {losses} (one process {one['loss']}); "
+          f"each rank's peak {[round(r['peak_bytes'] / 2**30, 3) for r in ranks]} GiB over a "
+          f"floor of {[round(r['floor_bytes'] / 2**30, 4) for r in ranks]} (the dry-run's "
+          f"(1, 2) peak {cell['peak_bytes'] / 2**30:.3f}, state {state / 2**30:.4f}: "
+          f"predicted / measured above it {[round(x, 4) for x in ratios]}); LMME launches "
+          f"{[r['launches']['lmme'] for r in ranks]}, engine calls "
+          f"{[r['calls']['lmme'] for r in ranks]}; {card_line()}", flush=True)
+    check(run["world"] == 2 and run["layouts"] is True and len(ranks) == 2,
+          f"{label}: world {run['world']}, layouts {run['layouts']}")
+    check(len(losses) == MODEL_AXIS_STEPS and all(map(math.isfinite, losses)),
+          f"{label}: losses {losses}")
+    for rank, (r, ratio) in enumerate(zip(ranks, ratios)):
+        check(r["launches"]["lmme"] == r["calls"]["lmme"] > 0, f"{label}, rank {rank}: LMME "
+              f"launches {r['launches']['lmme']} != engine calls {r['calls']['lmme']}")
+        check(1 / FSDP_PEAK_FACTOR <= ratio <= FSDP_PEAK_FACTOR, f"{label}, rank {rank}: peak "
+              f"above the floor against the dry-run's above the state, ratio {ratio:.3f}")
+    f64 = check_f64(f64_gaps(run, ma["mu"], one), label)
+    return dict(model_axis_ranks(cells), f64=f64, ratios=ratios)
+
+
+def model_axis_ranks(cells: dict):
+    """``model_axis_phase``'s 2 ranks: olmo-1b's prefill against one
+    process's and the kernels at the split layers' shapes."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    # olmo-1b: one process's prefill first, the ranks' against it
+    one_bytes, ref_logits = model_axis_reference()
+    tokens = ref_logits.argmax(-1).tolist()
+    rows, n = MODEL_AXIS_PREFILL
+    try:
+        got = spawn_ranks(_model_axis_rank, 2, DEVICE, timeout=600)
+    finally:
+        pathlib.Path(MODEL_AXIS_REF).unlink(missing_ok=True)
+    pcell = cells["prefill"]["memory_per_device"]
+    for rank, r in enumerate(got):
+        ratio = pcell["above_state_bytes"] / (r["peak"] - r["floor"])
+        print(f"model axis: olmo-1b fresh prefill {rows}x{n} on rank {rank} of (1, 2): KV "
+              f"caches {r['kv_shape']} a layer, {r['cache_bytes'] / 2**30:.4f} GiB against one "
+              f"process's {one_bytes / 2**30:.4f}, its heads' block within one bf16 step and "
+              f"{r['cache_excess']:.3e} of the largest entry (bar {MODEL_AXIS_CACHE_EXCESS}); "
+              f"last logits "
+              f"{r['logit_gap']:.3e}·std from one process's (bar {MODEL_AXIS_LOGIT_STD}), "
+              f"next tokens {r['tokens']} vs {tokens}; peak above the floor "
+              f"{(r['peak'] - r['floor']) / 2**30:.4f} GiB, the dry-run's (1, 2) cell "
+              f"{pcell['above_state_bytes'] / 2**30:.4f} (ratio {ratio:.4f}); "
+              f"{card_line()}", flush=True)
+        check(2 * r["cache_bytes"] == one_bytes, f"model axis prefill rank {rank}: cache "
+              f"bytes {r['cache_bytes']} not half of {one_bytes}")
+        check(r["cache_excess"] <= MODEL_AXIS_CACHE_EXCESS, f"model axis prefill rank "
+              f"{rank}: caches {r['cache_excess']:.3e} past a bf16 step from one process's")
+        check(r["logit_gap"] <= MODEL_AXIS_LOGIT_STD, f"model axis prefill rank {rank}: "
+              f"logits {r['logit_gap']:.3e}·std")
+        for i, (x, y) in enumerate(zip(r["tokens"], tokens)):
+            _near_tie(ref_logits, i, x, y, f"model axis prefill rank {rank}")
+        check(1 / FSDP_PEAK_FACTOR <= ratio <= FSDP_PEAK_FACTOR, f"model axis prefill rank "
+              f"{rank}: peak above the floor against the dry-run's, ratio {ratio:.3f}")
+    local = {"lmme": 24, "matrix_scan_carry": 24, "diagonal_scan_carry": 64}
+    kernels = {}
+    for rank, r in enumerate(got):
+        ln, cl = r["kernels"].pop("launches"), r["kernels"].pop("calls")
+        print(f"model axis: rank {rank}'s split forwards launched {ln} for engine calls "
+              f"{cl}", flush=True)
+        check_launches(ln, cl, f"model axis rank {rank}", {"lmme", "matrix_scan", "diag_scan"})
+        kernels["launches"] = ln
+        for op, k in r["kernels"].items():
+            print(f"model axis: rank {rank}'s first {op} call (shapes {k['shapes']}): distance "
+                  f"to float64 on the kernel {k['dist']:.3e}, of the f32 plain version "
+                  f"{k['plain_dist']:.3e} (the kernel within twice it, floor 1e-6), finite "
+                  f"entries alike {k['finite']}", flush=True)
+            check(k["dist"] <= 2.0 * k["plain_dist"] + 1e-6 and k["finite"],
+                  f"model axis rank {rank}: {op} {k}")
+            kernels[op] = k
+        a = r["kernels"]
+        check(a["lmme"]["shapes"][0][0] == local["lmme"]
+              and a["matrix_scan_carry"]["shapes"][0][1] == local["matrix_scan_carry"]
+              and a["diagonal_scan_carry"]["shapes"][1][2] == local["diagonal_scan_carry"],
+              f"model axis rank {rank}: kernel shapes {a}")
+    return {"prefill": got, "one_cache_bytes": one_bytes, "kernels": kernels}
 
 
 # ---------------------------------------------------------------------------
@@ -3355,9 +3772,11 @@ def weight_bytes(cfg):
 #: cuts in depth for the run's time: codeqwen1.5-7b's and glm4-9b's attention
 #: runs olmo-1b's code, which runs at full depth; the MoE families' layers
 #: are all alike (2 of them still route over all 16 or 8 experts);
-#: rwkv6-7b's layers are all alike, and 8 of them read 3.9 GB a decode step
+#: rwkv6-7b's layers are all alike, and 4 of them read 1.9 GB a decode step;
+#: olmo-1b runs whole in the long-attention and model-axis phases, so 8 of
+#: its 16 layers serve here
 DEPTH_CUTS = {"codeqwen1.5-7b": 2, "glm4-9b": 2, "phi3.5-moe": 2, "mixtral-8x7b": 2,
-              "rwkv6-7b": 8}
+              "rwkv6-7b": 4, "olmo-1b": 8}
 #: cuts in periods: gemma3-1b serves one period of each group (5 local and 1
 #: global layer, then its 2 local ones: paged global KV beside rings); its
 #: 26 layers run whole in ``long_attention_phase``
@@ -3805,6 +4224,9 @@ LONG_F32_PROMPT = 4096
 #: olmo-1b (arXiv:2402.00838) trained at its published context
 FLASH_TRAIN = dict(arch="olmo-1b", batch=8, seq_len=2048, steps=3, lr=3e-4, warmup=2,
                    total=100)
+#: the rows of FLASH_TRAIN's batch its f32 check (2 key blocks against one,
+#: and both against float64) runs on: a quarter of the float64 step's time
+FLASH_CHECK_ROWS = 2
 #: Jamba's smoke config trained on the card against the CPU, step by step
 JAMBA_TRAIN = dict(batch=2, seq_len=32, steps=3, rtol=1e-3)
 
@@ -3863,14 +4285,15 @@ def _prefill_logits(model, prompt, max_len):
 
 
 def _long_context(cfg, model, dry_cell):
-    """gemma3-1b's generate at LONG_ROWS x LONG_PROMPT: the fresh prefill's
-    device busy (a trace of CUDA activity), the graphed decode step over
-    its caches, the prefill's wall and its peak over the floor at the
-    dry-run's shape (caches of the prompt's length, peak reset just
-    before), against the dry-run cell; then ``generate`` itself."""
+    """gemma3-1b's generate path at LONG_ROWS x LONG_PROMPT: the fresh
+    prefill's device busy (a trace of CUDA activity), the graphed decode
+    step over its caches (``generate``'s), the prefill's wall and its peak
+    over the floor at the dry-run's shape (caches of the prompt's length,
+    peak reset just before), against the dry-run cell.  ``generate`` itself
+    runs at LONG_F32_PROMPT tokens (``_blocks_vs_one``)."""
     import torch
 
-    from repro_torch.serve import StepGraphs, generate, make_decode_in_place
+    from repro_torch.serve import StepGraphs, make_decode_in_place
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
     prompt = torch.randint(0, cfg.vocab, (LONG_ROWS, LONG_PROMPT), generator=gen,
@@ -3908,16 +4331,6 @@ def _long_context(cfg, model, dry_cell):
         check(bool(torch.isfinite(logits).all()), f"long [{LONG_ARCH}]: prefill logits")
         del caches, logits
         free_memory()
-    reset_counts()
-    t0 = time.perf_counter()
-    toks = generate(model, prompt, LONG_NEW, LONG_PROMPT + LONG_NEW)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    launches, calls = read_counts()
-    check_launches(launches, calls, f"long [{LONG_ARCH}]", set())
-    check(tuple(toks.shape) == (LONG_ROWS, LONG_NEW)
-          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
-          f"long [{LONG_ARCH}]: generate gave {tuple(toks.shape)} tokens or ids out of vocabulary")
     mem = dry_cell["memory_per_device"]
     predicted = mem["above_state_bytes"] / 2**30
     measured = (peak - floor) / 2**30
@@ -3933,13 +4346,11 @@ def _long_context(cfg, model, dry_cell):
           f"predicts {mem['peak_bytes'] / 2**30:.3f} GiB, {predicted:.3f} above the "
           f"parameters and caches (ratio {ratio:.3f}; the parent's cell read 120.0 GiB); "
           f"graphed decode step at {LONG_PROMPT} positions {step_ms:.3f} ms wall / "
-          f"{step_busy:.3f} ms busy; generate {LONG_NEW} tokens a row in {gen_s:.3f} s "
-          f"(its prefill included); {card_line()}", flush=True)
+          f"{step_busy:.3f} ms busy; {card_line()}", flush=True)
     return dict(prefill_ms=wall, prefill_busy_ms=busy, kernels=n_kernels,
                 peak_gib=peak / 2**30, above_gib=measured, predicted_gib=predicted,
                 predicted_peak_gib=mem["peak_bytes"] / 2**30, ratio=ratio,
-                step_ms=step_ms, step_busy_ms=step_busy, generate_s=gen_s,
-                n_blocks=sorted(n_blocks))
+                step_ms=step_ms, step_busy_ms=step_busy, n_blocks=sorted(n_blocks))
 
 
 def _blocks_vs_one(cfg, model):
@@ -3994,15 +4405,12 @@ def _flash_train():
     """olmo-1b at full width and its published context: FLASH_TRAIN's steps
     of ``make_train_step`` (bf16 compute, f32 weights, AdamW,
     ``remat="full"``), each key block of 1024 keys: wall, device busy and
-    peak; then one f32 step at the default tiles (2 key blocks) against one
-    block: the loss within ``_train_parity``'s TRAIN_LOSS_RTOL, and the
-    gradients' gap printed beside ``_train_parity``'s bar (twice the larger
-    of the two paths' spreads when every weight moves one ulp), which the
-    gap does not meet at this step's 16384 tokens (PERF.md §6: each
-    blocking rounds dq apart element by element, and the weights' gradients
-    sum 16384 such terms with cancellation, where the weights' one-ulp move
-    shifts dq smoothly); ``_flash_f64`` gates the attention's gradients
-    instead."""
+    peak; then one f32 step on FLASH_CHECK_ROWS of its rows at the default
+    tiles (2 key blocks) against one block: the loss within
+    ``_train_parity``'s TRAIN_LOSS_RTOL, and each
+    leaf's gradient at 2 blocks against the same step in float64 on one
+    process (``f64_step``) within F64_SPREAD of one block's worst leaf
+    distance."""
     import torch
 
     from repro_torch import DecoderLM, get_config
@@ -4034,113 +4442,53 @@ def _flash_train():
     del state, opt, step_fn
     free_memory()
 
-    batch = batches[-1]
-    params = dict(model.named_parameters())
-    seed_weights = {n: p.detach().clone() for n, p in params.items()}
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    # the f32 and float64 steps on the first rows: the same 2 key blocks a
+    # layer, a quarter of the float64 step's time
+    batch = {k: v[:FLASH_CHECK_ROWS] for k, v in batches[-1].items()}
+    n_blocks = -(-t["seq_len"] // cfg.layer_list[0].attn.block_kv)
     grads, losses32 = {}, {}
     one = {"block_kv": t["seq_len"]}
     model.cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
     try:
-        for moved in (False, True):
-            if moved:
-                with torch.no_grad():   # every weight one f32 ulp up or down
-                    for p in params.values():
-                        up = torch.rand(p.shape, generator=gen, device=DEVICE) < 0.5
-                        p.copy_(torch.nextafter(p, torch.where(up, torch.inf, -torch.inf)))
-            for path, tiles in (("one", one), ("blocks", {})):
-                with attention_tiles(model, **tiles):
-                    loss32, grads[path, moved] = _grads(model, batch)
-                if not moved:
-                    losses32[path] = float(loss32.detach())
-        with torch.no_grad():
-            for n, p in params.items():
-                p.copy_(seed_weights[n])
+        for path, tiles in (("one", one), ("blocks", {})):
+            with attention_tiles(model, **tiles):
+                loss32, g = _grads(model, batch)
+            losses32[path] = float(loss32.detach())
+            grads[path] = {n: x.detach() for n, x in g.items()}
+            del g, loss32
     finally:
         model.cfg = cfg
     loss_gap = abs(losses32["blocks"] - losses32["one"]) / abs(losses32["one"])
-    worst = _worst(_grad_gaps(grads["blocks", False], grads["one", False]))
-    spreads = {path: _worst(_grad_gaps(grads[path, True], grads[path, False]))
-               for path in ("one", "blocks")}
-    spread = max(spreads.values(), key=lambda kv: kv[1])
-    bound = TRAIN_SPREAD_FACTOR * spread[1]
-    n_blocks = -(-t["seq_len"] // cfg.layer_list[0].attn.block_kv)
+    check(loss_gap <= TRAIN_LOSS_RTOL and all(
+        bool(torch.isfinite(g).all()) for g in grads["blocks"].values()),
+          f"flash train [{t['arch']}]: f32 loss at {n_blocks} key blocks "
+          f"{losses32['blocks']} vs one block's {losses32['one']}, or a gradient not finite")
+    loss64, g64, _, _ = f64_step(model, batch)
+    dist = {path: {n: leaf_distance(grads[path][n], g64[n]) for n in g64} for path in grads}
+    worst = {path: max(d.items(), key=lambda kv: kv[1]) for path, d in dist.items()}
+    bound = F64_SPREAD * worst["one"][1]
     out = dict(step_ms=statistics.median(walls), busy_ms=busy, kernels=n_kernels,
                peak_gib=peak / 2**30, floor_gib=floor / 2**30, losses=losses,
-               loss_gap=loss_gap, grad_err=worst[1], grad_err_at=worst[0],
-               spread=spread[1], bound=bound)
+               loss_gap=loss_gap, grad_err=worst["blocks"][1], grad_err_at=worst["blocks"][0],
+               one_err=worst["one"][1], bound=bound,
+               loss64_gap={p: abs(v - loss64) / abs(loss64) for p, v in losses32.items()})
     print(f"flash train [{t['arch']}]: B={t['batch']} S={t['seq_len']}, bf16, remat full, "
           f"{n_blocks} key blocks a layer: step {out['step_ms']:.1f} ms wall (median of "
           f"{t['steps']}), {busy:.3f} ms device busy in {n_kernels} kernels, peak "
           f"{out['peak_gib']:.2f} GiB ({out['floor_gib']:.2f} allocated at the reset); loss "
-          f"{losses[0]:.4f} -> {losses[-1]:.4f}; f32 step at {n_blocks} blocks against one: "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; f32 step ({FLASH_CHECK_ROWS} rows) at "
+          f"{n_blocks} blocks against one: "
           f"loss {losses32['blocks']:.6f} vs {losses32['one']:.6f} (relative gap "
-          f"{loss_gap:.2e}, bound {TRAIN_LOSS_RTOL:.0e}), grads' worst max-normalised gap "
-          f"{worst[1]:.2e} at {worst[0]}; each path's spread, "
-          f"weights one ulp apart: one block {spreads['one'][1]:.2e} at {spreads['one'][0]}, "
-          f"{n_blocks} blocks {spreads['blocks'][1]:.2e} at {spreads['blocks'][0]}; twice "
-          f"the larger {bound:.2e} (not a gate here: see the docstring); {card_line()}",
-          flush=True)
-    check(loss_gap <= TRAIN_LOSS_RTOL and all(
-        bool(torch.isfinite(g).all()) for g in grads["blocks", False].values()),
-          f"flash train [{t['arch']}]: f32 loss at {n_blocks} key blocks "
-          f"{losses32['blocks']} vs one block's {losses32['one']}, or a gradient not finite")
-    del model, grads, seed_weights
+          f"{loss_gap:.2e}, bound {TRAIN_LOSS_RTOL:.0e}; float64 {loss64:.6f}); each leaf's "
+          f"gradient against the float64 step on one process: {n_blocks} blocks' worst "
+          f"{worst['blocks'][0]} {worst['blocks'][1]:.3e}, one block's worst "
+          f"{worst['one'][0]} {worst['one'][1]:.3e}, bound {F64_SPREAD} x one block's "
+          f"{bound:.3e}; {card_line()}", flush=True)
+    check(worst["blocks"][1] <= bound, f"flash train [{t['arch']}]: {n_blocks} key blocks' "
+          f"gradients {worst['blocks']} from float64, one block's {worst['one']}")
+    del model, grads, g64
     free_memory()
-    out["f64"] = _flash_f64(cfg)
     return out
-
-
-def _flash_f64(cfg):
-    """Flash attention at ``cfg``'s attention shape and FLASH_TRAIN's batch
-    and length (causal), f32 on the card, at the default tiles and at one
-    key block, against a float64 dense softmax attention and its autograd
-    on the same inputs (N(0, 1) q, k, v and output gradient): the output and
-    dq, dk, dv at several blocks each within TRAIN_SPREAD_FACTOR of one
-    block's distance to float64 (max |x - exact| / max |exact|)."""
-    import torch
-
-    from repro_torch.models.attention import flash_attention
-
-    t, a = FLASH_TRAIN, cfg.layer_list[0].attn
-    b, s = t["batch"], t["seq_len"]
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 43)
-
-    def draw(heads):
-        return torch.randn(b, s, heads, a.head_dim, generator=gen, device=DEVICE,
-                           dtype=torch.float64)
-
-    q, k, v, dout = draw(a.n_heads), draw(a.n_kv_heads), draw(a.n_kv_heads), draw(a.n_heads)
-    scale = a.head_dim ** -0.5
-    x64 = [x.clone().requires_grad_() for x in (q, k, v)]
-    g = a.n_heads // a.n_kv_heads
-    sc = torch.einsum("bqhd,bkhd->bhqk", x64[0], x64[1].repeat_interleave(g, 2)) * scale
-    causal = torch.ones(s, s, dtype=torch.bool, device=DEVICE).tril()
-    p = torch.softmax(sc.masked_fill(~causal, -torch.inf), -1)
-    o64 = torch.einsum("bhqk,bkhd->bqhd", p, x64[2].repeat_interleave(g, 2))
-    o64.backward(dout)
-    exact = [o64.detach()] + [x.grad for x in x64]
-    del sc, p, o64, x64
-    free_memory()
-    pos = torch.arange(s, device=DEVICE)
-    dist = {}
-    for path, bk in (("one", s), ("blocks", a.block_kv)):
-        x32 = [x.float().requires_grad_() for x in (q, k, v)]
-        out = flash_attention(*x32, q_positions=pos, kv_positions=pos, window=a.window,
-                              scale=scale, block_q=a.block_q, block_kv=bk)
-        out.backward(dout.float())
-        got = [out.detach()] + [x.grad for x in x32]
-        dist[path] = [float((y.double() - e).abs().max() / e.abs().max())
-                      for y, e in zip(got, exact)]
-    names = ("out", "dq", "dk", "dv")
-    n_blocks = -(-s // a.block_kv)
-    print(f"flash f64 [{t['arch']} attention, B={b} S={s}, {a.n_heads} heads of {a.head_dim}, "
-          f"causal]: distance to float64 at {n_blocks} blocks / one block: " + ", ".join(
-              f"{n} {x:.2e} / {y:.2e}" for n, x, y in zip(names, dist["blocks"], dist["one"]))
-          + f"; bound {TRAIN_SPREAD_FACTOR} x one block's", flush=True)
-    check(all(x <= TRAIN_SPREAD_FACTOR * y for x, y in zip(dist["blocks"], dist["one"])),
-          f"flash f64: {n_blocks} blocks {dist['blocks']} against one block {dist['one']}")
-    return dict(zip(names, dist["blocks"]), one=dict(zip(names, dist["one"])))
 
 
 def _jamba_train():
@@ -4215,6 +4563,21 @@ def long_attention_phase(dry_cell):
     return out
 
 
+def model_axis_summary(ma: dict, dist_runs: dict, card: str) -> str:
+    """The summary line of ``model_axis_phase`` and the launcher's float64
+    checks."""
+    f, d = ma["f64"], dist_runs["f64"]
+    pre = ma["prefill"]
+    return (f"summary [model axis]: goom-rnn-124m (1, 2) bf16 first step worst leaf "
+            f"{f['worst']:.3e} from float64 (one process {f['one_worst']:.3e}), peak above "
+            f"the floor / dry-run {[round(1 / x, 4) for x in ma['ratios']]}; olmo-1b "
+            f"{MODEL_AXIS_PREFILL[0]}x{MODEL_AXIS_PREFILL[1]} prefill KV bytes a rank "
+            f"{[r['cache_bytes'] for r in pre]} of {ma['one_cache_bytes']}, logits "
+            f"{[round(r['logit_gap'], 6) for r in pre]}·std; f32 launcher runs' worst leaf "
+            f"from float64: (2, 2) seq {d['seq']['worst']:.3e}, FSDP {d['fsdp']['worst']:.3e} "
+            f"(one process {d['seq']['one_worst']:.3e}); {card}")
+
+
 def long_summary(flash: dict, card: str) -> str:
     """The summary line of ``long_attention_phase``."""
     lg, tr, jb = flash["long"], flash["train"], flash["jamba"]
@@ -4226,9 +4589,9 @@ def long_summary(flash: dict, card: str) -> str:
             f"f32 blocks vs one {flash['f32']['gap']:.2e}·std; {FLASH_TRAIN['arch']} train "
             f"B={FLASH_TRAIN['batch']} S={FLASH_TRAIN['seq_len']} {tr['step_ms']:.1f} ms wall / "
             f"{tr['busy_ms']:.3f} ms busy, peak {tr['peak_gib']:.2f} GiB, f32 loss gap "
-            f"{tr['loss_gap']:.2e}, grads gap {tr['grad_err']:.2e} (twice the one-ulp spread "
-            f"{tr['bound']:.2e}), attention dq to float64 {tr['f64']['dq']:.2e} (one block "
-            f"{tr['f64']['one']['dq']:.2e}); jamba smoke train gap {jb['gap']:.2e}; {card}")
+            f"{tr['loss_gap']:.2e}, grads' worst leaf to float64 {tr['grad_err']:.2e} (one "
+            f"block {tr['one_err']:.2e}, bound {tr['bound']:.2e}); jamba smoke train gap "
+            f"{jb['gap']:.2e}; {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -4355,6 +4718,7 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
+    print(f"decode attention: {out_dtype_probe()}", flush=True)
 
     import os
 
@@ -4434,6 +4798,9 @@ def main() -> int:
     dist_runs = dist_launcher_phase(fsdp_cells)
     free_memory()
     elapsed("launcher ranks")
+    model_axis = model_axis_phase(dry["model_axis"], dist_runs)
+    free_memory()
+    elapsed("model axis")
     exp_launches = experiments_phase()
     elapsed("experiments")
     cfg_j = jamba_config()
@@ -4506,6 +4873,7 @@ def main() -> int:
               f"P={p} {[round(b / 2**30, 3) for b in dist_runs['peaks'][p]]}" for p in FSDP_P)
           + f"; {card}", flush=True)
     print(long_summary(flash, card), flush=True)
+    print(model_axis_summary(model_axis, dist_runs, card), flush=True)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {sum(phase_s.values()):.1f}", flush=True)
 
@@ -4522,6 +4890,8 @@ def main() -> int:
                    "train seq-shards 2": dist_runs["seq"][k],
                    **{f"train fsdp P={p} (ranks summed)": dist_runs[f"fsdp {p}"][k]
                       for p in FSDP_P},
+                   "train model axis (1, 2) (ranks summed)": sum(
+                       r["launches"][k] for r in dist_runs["model_axis"]["run"]["ranks"]),
                    "autotune": tune_launches[k],
                    **{f"train remat {r} {v}": remat[v][r]["per_step"][k]
                       for v in remat for r in ("full", "dots")},
@@ -4530,6 +4900,14 @@ def main() -> int:
                    "train jamba smoke": flash["jamba"]["launches"][k]}
                for k in ("lmme", "matrix_scan", "matrix_scan_zero_b", "diag_scan")}
     lmme_row = next(r for r in rows if r["shape"].startswith("decode"))
+    split_rows = {"lmme": next(r for r in rows if r["shape"].startswith("model axis")),
+                  **{k: next(dict(v, shape=n) for n, v in table.items()
+                             if n.startswith("model axis"))
+                     for k, table in (("matrix_scan", scan_rows), ("diag_scan", diag_rows))}}
+    split_launches = {"lmme": [r["launches"]["lmme"]
+                               for r in dist_runs["model_axis"]["run"]["ranks"]],
+                      "matrix_scan": [model_axis["kernels"]["launches"]["matrix_scan"]],
+                      "diag_scan": [model_axis["kernels"]["launches"]["diag_scan"]]}
     scan_row = next(v for k, v in scan_rows.items() if k.startswith("decode"))
     zb_row = next(v for k, v in scan_rows.items() if k.startswith("zero-B d=128"))
     diag_row = next(v for k, v in diag_rows.items() if k.startswith("decode"))
@@ -4561,6 +4939,11 @@ def main() -> int:
         "main_path": path, "launches_by_path": by_path[name],
         "kernels_per_call": row.get("kernels_per_call"), "event_ms": row.get("event_ms"),
         **({"rwkv6_shapes": rwkv6_rows} if name == "lmme" else {}),
+        **({"model_axis": {"shape": split_rows[name]["shape"], "ms": split_rows[name]["ms"],
+                           "plain_ms": split_rows[name]["plain_ms"],
+                           "bound_ms": split_rows[name]["bound_ms"],
+                           "launches_a_rank": split_launches[name]}}
+           if name in split_rows else {}),
     } for name, source, replaces, launches, err, row, shape, path in entries]}))
     print(f"jamba: decode step device busy {trace_j['busy_ms']:.3f} ms, of which the "
           f"diagonal scan {trace_j['diag_scan']:.3f} ms; {card}", flush=True)

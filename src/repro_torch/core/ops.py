@@ -11,7 +11,7 @@ signed log-sum-exp (Example 2); matrix products are LMME (eq. 9).
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -143,11 +143,15 @@ def goom_normalize_cols(a: Goom) -> Goom:
     return Goom(a.log_abs - ln, a.sign)
 
 
-def scaled_exp(a: Goom, dim: Dims = None, shift: float = 2.0):
+def scaled_exp(a: Goom, dim: Dims = None, shift: float = 2.0,
+               reduce_max: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
     """exp(x' - max + shift): a bounded map back to floats (paper eq. 27).
+    ``reduce_max`` maps the local max to the one over every rank's part
+    (heads split across ranks).
 
     Returns ``(values, log_scale)`` so callers can undo the scaling."""
     dims = _dims(a.log_abs, dim)
-    c = _finite_or_zero(torch.amax(a.log_abs, dim=dims, keepdim=True).detach())
+    m = torch.amax(a.log_abs, dim=dims, keepdim=True).detach()
+    c = _finite_or_zero(m if reduce_max is None else reduce_max(m))
     vals = from_goom(Goom(a.log_abs - c + shift, a.sign))
     return vals, c - shift

@@ -25,6 +25,11 @@ compiled HLO module, the port runs its real step under ``FakeTensorMode``
   * **Launches**: each GOOM kernel's shape-only calls in the pass
     (``kernels/shape_only.py``), counted here: the wrappers' own
     ``launches`` counters do not move.
+  * **The model axis's collectives**: the bytes of each all-reduce and
+    all-gather a split module runs (``sharding/tensor_parallel.py``'s
+    listener), summed by kind and group size (``collectives``); they move
+    nothing over the fake process group, and the dry-run adds them to the
+    parameters' collectives (``launch/dryrun.py``).
 
 :func:`periods` makes a model's cost from one period of each group: a
 trace at one period a group, and one more for each group with two; the
@@ -62,6 +67,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from ..kernels import shape_only
+from ..sharding import tensor_parallel
 from . import roofline
 
 __all__ = ["Cost", "KERNELS", "lengths", "measure", "periods", "with_periods"]
@@ -94,14 +100,18 @@ class Cost:
         default_factory=lambda: dict.fromkeys(MEMORY, 0))
     host_s: float = 0.0
     n_metrics: int = 0        # a train step's metrics reduced over the batch
+    #: the model axis's collectives: "kind/group size" -> result bytes summed
+    collectives: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def _map(self, other: Optional["Cost"], fn) -> "Cost":
         o = other if other is not None else Cost()
+        keys = sorted(set(self.collectives) | set(o.collectives))
         return Cost(fn(self.flops, o.flops), fn(self.f32_flops, o.f32_flops),
                     fn(self.bytes, o.bytes), fn(self.written, o.written),
                     {k: fn(self.launches[k], o.launches[k]) for k in KERNELS},
                     {k: fn(self.memory[k], o.memory[k]) for k in MEMORY}, self.host_s,
-                    self.n_metrics)
+                    self.n_metrics, {k: fn(self.collectives.get(k, 0), o.collectives.get(k, 0))
+                                     for k in keys})
 
     def __add__(self, other: "Cost") -> "Cost":
         return self._map(other, lambda a, b: a + b)
@@ -146,6 +156,10 @@ class _Counter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.cost = Cost()
+
+    def on_collective(self, kind: str, nbytes: int, size: int) -> None:
+        key = f"{kind}/{size}"
+        self.cost.collectives[key] = self.cost.collectives.get(key, 0) + nbytes
 
     def on_kernel(self, kernel: str, dims: Dict[str, Any]) -> None:
         nbytes, ops = _work(kernel, dims)
@@ -299,7 +313,8 @@ def measure(fn: Callable[[], Any], *, modules: Sequence[torch.nn.Module] = (),
     if memory:
         tracker.track_external(*modules, *state)
     t0 = time.perf_counter()
-    with shape_only.listening(counter.on_kernel), tracker, counter:
+    with shape_only.listening(counter.on_kernel), \
+            tensor_parallel.listening(counter.on_collective), tracker, counter:
         out = fn()
     cost = counter.cost
     cost.host_s = time.perf_counter() - t0

@@ -39,9 +39,18 @@ a time without a gradient; a device holds its rows' whole caches, and the
 bytes JAX's cache layout (``_CACHE_AXES``, ``cache_shardings``) would leave
 it are reported beside them (``cache_shard_bytes``).  Decode cells (the
 Engine, whose CUDA graphs keep plain parameters) hold the whole
-parameters.  The model axis splits the parameters but not the activations,
-so every rank of it repeats the compute of its batch slice.  Cells whose
-peak passes the card's 80 GB are marked ``over_hbm``.
+parameters.  Cells whose peak passes the card's 80 GB are marked
+``over_hbm``.
+
+**The model axis.**  The traces run under the cell's rules, so a rank
+splits what the port splits (``sharding/tensor_parallel.py``): the
+attention heads, the dense MLP's channels, the goom layer's heads, Mamba's
+channels and the vocabulary run on the rank's block, their split weights
+gathered over the batch axes only.  A prefill rank's caches hold its
+block of the KV heads where they divide the model axis; where they do
+not, JAX puts the cache's sequence on "model" and the rank holds its
+caches whole (``cache_bytes``), JAX's figure beside them as before.  MoE
+experts and RWKV6 stay whole on every rank.
 
 **Collectives** (train cells on more than one device), as the port's step
 runs them, one op per mesh dim: each parameter's gather, the last mesh dim
@@ -53,7 +62,14 @@ where the parameter is sharded on it, else an all-reduce; an all-reduce
 of the metrics over each batch dim; one of the clip's sum of squares over each mesh dim any parameter is
 sharded on; and, when ``scan_seq`` maps to a mesh axis, the recurrent
 layers' time shards (an all-gather of each one's output, an all-reduce of
-each gradient it reads replicated).  Serve steps' gathers are not counted.
+each gradient it reads replicated).  A split module's weight (``roles``,
+``DecoderLM.split_roles``) is gathered over the batch dims only where the
+layout splits the dim it reads on the model axis; one it reads whole has
+its gradient summed over the model axis too.  The split modules'
+activation collectives (the all-reduces where partial sums leave a split
+region and gradients enter one, the goom layer's max, the split NLL's
+all-gather and all-reduce) are the trace's own, summed by kind
+(``cost.Cost.collectives``).  Serve steps' collectives are not counted.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
@@ -83,7 +99,7 @@ from ..core import engine
 from ..kernels.dispatch import current_platform
 from ..sharding.layout import shard_shape
 from ..sharding.mesh import NamedMesh
-from ..sharding.rules import AxisRules, distribute_model, make_rules, param_specs
+from ..sharding.rules import AxisRules, distribute_model, make_rules, param_specs, use_rules
 from . import cost
 from .mesh import make_production_mesh
 from .roofline import (
@@ -95,7 +111,8 @@ from .roofline import (
 )
 
 __all__ = ["SkipCell", "fake_ranks", "lower_cell", "serve_cache_report", "cache_specs",
-           "gather_counts", "gathered_bytes", "train_collectives", "main"]
+           "gather_counts", "gathered_bytes", "train_collectives", "activation_collectives",
+           "main"]
 
 GIB = 2 ** 30
 
@@ -172,13 +189,16 @@ def gather_counts(cfg, names, *, microbatches: int = 1) -> Dict[str, Tuple[int, 
 def train_collectives(rules: AxisRules, params: Dict[str, Tuple[tuple, torch.dtype]],
                       specs: Dict[str, tuple], *, cast_params_bf16: bool = False,
                       n_metrics: int = 3, time_shards: Optional[List[Tuple[int, list]]] = None,
-                      counts: Optional[Dict[str, Tuple[int, int]]] = None
+                      counts: Optional[Dict[str, Tuple[int, int]]] = None,
+                      roles: Optional[Dict[str, Tuple[str, Optional[int]]]] = None
                       ) -> List[CollectiveOp]:
-    """The collectives of one laid-out train step (module docstring).
-    ``params``: name -> (whole shape, dtype); ``counts``: name -> (gathers,
-    reductions) (``gather_counts``; default one each); ``time_shards``: per
-    recurrent layer, (its output's bytes, the bytes of each gradient it
-    reads replicated), when ``scan_seq`` maps to a mesh axis."""
+    """The collectives of one laid-out train step's parameters (module
+    docstring).  ``params``: name -> (whole shape, dtype); ``counts``: name
+    -> (gathers, reductions) (``gather_counts``; default one each);
+    ``time_shards``: per recurrent layer, (its output's bytes, the bytes of
+    each gradient it reads replicated), when ``scan_seq`` maps to a mesh
+    axis; ``roles``: name -> (mesh axis, dim) of the weights split modules
+    read (``DecoderLM.split_roles``)."""
     size = rules.mesh.shape
     names = list(rules.mesh.axis_names)
     batch = set(a for a in rules.mesh_axes_for("batch") if a in size)
@@ -188,22 +208,24 @@ def train_collectives(rules: AxisRules, params: Dict[str, Tuple[tuple, torch.dty
         if cast_params_bf16 and dtype == torch.float32:
             dtype = torch.bfloat16
         whole = _bytes(shape, dtype)
-        axes = sorted(_axes_of(specs[name]), key=names.index)   # mesh order
+        spec = specs[name]
+        axes = sorted(_axes_of(spec), key=names.index)   # mesh order
         sharded_dims.update(axes)
         axes = [a for a in axes if size[a] > 1]   # a 1-sized dim moves nothing
+        kept, summed = _split_role(spec, (roles or {}).get(name))
         gathers, reductions = (counts or {}).get(name, (1, 1))
         part = whole // math.prod(size[a] for a in axes)
         for a in reversed(axes):           # gathered the last mesh dim first
-            part *= size[a]
-            ops.extend([CollectiveOp("all-gather", part, size[a])] * gathers)
-        local = whole                      # the gradient, whole on every rank
-        for a in (a for a in names if size[a] > 1):
-            if a in batch and a in axes:
+            if a != kept:
+                part *= size[a]
+                ops.extend([CollectiveOp("all-gather", part, size[a])] * gathers)
+        local = part                       # the gradient as the step makes it
+        for a in (a for a in names if size[a] > 1 and a != kept):
+            if (a in batch or a == summed) and a in axes:
                 local //= size[a]
                 ops.extend([CollectiveOp("reduce-scatter", local, size[a])] * reductions)
-            elif a in batch:
+            elif a in batch or a == summed:
                 ops.extend([CollectiveOp("all-reduce", local, size[a])] * reductions)
-                local //= size[a] if a in axes else 1
             elif a in axes:
                 local //= size[a]          # this rank's slice, no collective
     ops.extend(CollectiveOp("all-reduce", 4 * n_metrics, size[a]) for a in names
@@ -215,6 +237,29 @@ def train_collectives(rules: AxisRules, params: Dict[str, Tuple[tuple, torch.dty
             ops.append(CollectiveOp("all-gather", out_bytes, size[seq[0]]))
             ops.extend(CollectiveOp("all-reduce", b, size[seq[0]]) for b in replicated)
     return ops
+
+
+def _split_role(spec, role) -> Tuple[Optional[str], Optional[str]]:
+    """(the mesh axis whose block a split module reads as the layout holds
+    it, the mesh axis its gradient is summed over instead) for a parameter
+    of ``spec`` read with ``role`` (``sharding/gather.py``); (None, None)
+    for a parameter no split module reads."""
+    if role is None:
+        return None, None
+    axis, dim = role
+    entry = spec[dim] if dim is not None and dim < len(spec) else None
+    return (axis, None) if entry == axis else (None, axis)
+
+
+def activation_collectives(c: cost.Cost) -> List[CollectiveOp]:
+    """The split modules' collectives of a traced step, one op a kind and
+    group size carrying their summed bytes (the roofline's term is linear in
+    them)."""
+    out = []
+    for key, nbytes in sorted(c.collectives.items()):
+        kind, size = key.rsplit("/", 1)
+        out.append(CollectiveOp(kind, int(round(nbytes)), int(size)))
+    return out
 
 
 def _time_shard_bytes(cfg, rows: int, seq_len: int, cast: bool) -> List[Tuple[int, list]]:
@@ -309,6 +354,11 @@ def _fake_inputs(cfg, shape: ShapeCfg, rows: int) -> Dict[str, torch.Tensor]:
     return {k: torch.zeros(v.shape, dtype=v.dtype) for k, v in specs.items()}
 
 
+def _rules(rules: Optional[AxisRules]):
+    """The rules active for a trace (nothing without them)."""
+    return contextlib.nullcontext() if rules is None else use_rules(rules)
+
+
 def _model(cfg):
     from ..models.model import DecoderLM
 
@@ -329,7 +379,7 @@ def train_trace(cfg, shape: ShapeCfg, rows: int, microbatches: int = 1,
 
     from ..train import AdamW, cosine_schedule, init_train_state, make_train_step
 
-    with FakeTensorMode(), engine.use_backend(backend):
+    with FakeTensorMode(), engine.use_backend(backend), _rules(rules):
         model = _model(cfg)
         if rules is not None:
             distribute_model(model, rules)
@@ -394,7 +444,7 @@ def serve_trace(cfg, shape: ShapeCfg, rows: int, rules: Optional[AxisRules] = No
 
     from ..serve.steps import make_decode_step, make_prefill_step
 
-    with FakeTensorMode():
+    with FakeTensorMode(), _rules(rules):
         model = _model(cfg)
         if rules is not None:
             distribute_model(model, rules)
@@ -420,17 +470,24 @@ def serve_cost(cfg, shape: ShapeCfg, rows: int, rules: Optional[AxisRules] = Non
     return cost.periods(cfg, lambda c, _mb: serve_trace(c, shape, rows, rules))
 
 
-def gathered_bytes(model, dtype: Optional[torch.dtype] = None) -> int:
+def gathered_bytes(model, dtype: Optional[torch.dtype] = None,
+                   rules: Optional[AxisRules] = None) -> int:
     """The most parameter bytes a laid-out rank holds gathered at once: the
     largest period's and those outside the periods (f32 ones cast to
-    ``dtype``)."""
-    def nbytes(p):
-        cast = dtype if dtype is not None and p.dtype == torch.float32 else p.dtype
-        return _bytes(tuple(p.shape), cast)
+    ``dtype``); under ``rules``, a split module's weight whose block the
+    layout keeps (``_split_role``) at its block."""
+    roles = model.split_roles(rules) if rules is not None else {}
+    specs = param_specs(rules, model) if roles else {}
 
-    period = max(sum(nbytes(p) for i in range(lo, hi)
-                     for p in model.layers[i].parameters()) for lo, hi in model._periods)
-    return period + sum(nbytes(p) for n, p in model.named_parameters()
+    def nbytes(name, p):
+        cast = dtype if dtype is not None and p.dtype == torch.float32 else p.dtype
+        kept = _split_role(specs.get(name, ()), roles.get(name))[0]
+        return _bytes(tuple(p.shape), cast) // (rules.mesh.shape[kept] if kept else 1)
+
+    period = max(sum(nbytes(f"layers.{i}.{n}", p) for i in range(lo, hi)
+                     for n, p in model.layers[i].named_parameters())
+                 for lo, hi in model._periods)
+    return period + sum(nbytes(n, p) for n, p in model.named_parameters()
                         if not n.startswith("layers."))
 
 
@@ -462,7 +519,8 @@ _PERF_TOGGLES = {"banded", "pure_fsdp", "cast_params_bf16", "microbatches", "rem
                  "logit_chunk"}
 _DEPARTURES = {
     "seq_parallel": "the port's activations stay whole along time on every rank of the "
-                    "model axis, so sequence parallelism has nothing to shard",
+                    "model axis (it splits heads, channels and the vocabulary), so "
+                    "sequence parallelism has nothing to shard",
     "constrain_grads": "the port's step always reduce-scatters the gradients into the "
                        "parameters' layout; there is no other behaviour to switch to",
 }
@@ -479,7 +537,10 @@ def _check_perf(perf: Dict) -> None:
 def _serve_overrides(cfg, shape: ShapeCfg, mesh, overrides: Dict) -> Dict:
     """JAX's KV-cache rules: heads over "model" when every attention layer's
     KV heads divide it, else the cache's sequence on "model"; long decode
-    shards the cache's sequence over "data" too (context parallelism)."""
+    shards the cache's sequence over "data" too (context parallelism).
+    These rules give ``cache_shard_bytes``; the traced prefill rank holds
+    its block of each layer's KV heads where they divide the model axis
+    (``act_kv_heads``), else that layer's caches whole."""
     overrides = dict(overrides)
     min_kv = min((blk.attn.n_kv_heads for blk in cfg.layer_list if blk.attn is not None),
                  default=0)
@@ -513,7 +574,8 @@ def lower_cell(arch, shape: Union[str, ShapeCfg], mesh, *, perf: Optional[Dict] 
 
     Two of JAX's toggles are departures and raise ``ValueError``, since no
     cost of the port would move with them: ``seq_parallel`` (the port's
-    activations stay whole along time on every rank of the model axis)
+    activations stay whole along time on every rank of the model axis,
+    which splits heads, channels and the vocabulary)
     and ``constrain_grads`` (the port's step always reduce-scatters the
     gradients into the parameters' layout).  An unknown toggle raises too.
     """
@@ -548,7 +610,8 @@ def lower_cell(arch, shape: Union[str, ShapeCfg], mesh, *, perf: Optional[Dict] 
         dtype = torch.bfloat16 if cast and shape_cfg.kind == "train" else None
         mem.update(param_shard_bytes=float(sum(
             _bytes(shard_shape(s, specs[n], mesh.shape), d) for n, (s, d) in params.items())),
-            gathered_param_bytes=float(gathered_bytes(whole_model, dtype) if laid_out else 0))
+            gathered_param_bytes=float(gathered_bytes(whole_model, dtype, rules)
+                                       if laid_out else 0))
     with fake_ranks(mesh) if laid_out else contextlib.nullcontext() as ranks:
         rank_rules = make_rules(ranks, overrides) if laid_out else None
         if shape_cfg.kind == "train":
@@ -563,7 +626,8 @@ def lower_cell(arch, shape: Union[str, ShapeCfg], mesh, *, perf: Optional[Dict] 
             ops = train_collectives(
                 rules, params, specs, cast_params_bf16=cast, n_metrics=c.n_metrics,
                 time_shards=_time_shard_bytes(cfg, rows, shape_cfg.seq_len, cast),
-                counts=gather_counts(cfg, params, microbatches=mb))
+                counts=gather_counts(cfg, params, microbatches=mb),
+                roles=whole_model.split_roles(rules)) + activation_collectives(c)
         mem.update(moment_shard_bytes=float(sum(
             _bytes(shard_shape(s, specs[n], mesh.shape), torch.float32)
             for n, (s, _) in params.items()) * 2), microbatches=mb)

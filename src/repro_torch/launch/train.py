@@ -13,7 +13,7 @@ repro_torch.launch.train ...`` the N ranks join one process group
 carries the collectives of CUDA tensors through its own host copies) and
 form a mesh: ``--mesh host`` (the
 default), this host's ranks as ("data", "model") of shape
-(N / seq_shards, seq_shards); ``--mesh production`` and
+(N / M, M), M the ``--seq-shards`` or ``--model-shards`` count; ``--mesh production`` and
 ``production-multipod``, JAX's (16, 16) and (2, 16, 16), which need a world
 of 256 and 512 ranks and refuse any other, naming the world they need
 (``launch/mesh.py``).  Rank r runs on ``cuda:{local_rank % device_count}``.
@@ -32,6 +32,12 @@ share a card lay their parameters out as well.
 ``--seq-shards`` maps the ``scan_seq`` logical axis to "model": every
 recurrent layer time-shards its scan over the rank's seq group, each rank
 building and holding its ⌈T/P⌉ steps (``sharding/layout.py``).
+Whatever sizes the model axis, the rules split the attention heads, the
+dense MLP's channels and the vocabulary (the embedding and the head) on it,
+as JAX's do (``sharding/tensor_parallel.py``); with ``--model-shards M``
+(a (world / M, M) host mesh, no time shards) the goom layer's heads and
+Mamba's channels split too, where under ``--seq-shards`` those layers keep
+whole heads and time-shard.
 Checkpoints hold whole tensors in the JAX layout, gathered from every
 rank and written by rank 0, and restore at any rank count.
 
@@ -126,6 +132,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seq-shards", type=int, default=1,
                     help="time-shard every GOOM scan over this many ranks (the "
                          "mesh's model axis); 1 = off")
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="split heads, MLP and Mamba channels and the vocabulary over "
+                         "this many ranks (the mesh's model axis, no time shards); "
+                         "1 = off")
     ap.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
                     help="process-group backend under torch.distributed.run")
     ap.add_argument("--autotune", action="store_true",
@@ -178,16 +188,21 @@ def main(argv=None):
 
 
 def _mesh(args, dev) -> NamedMesh:
+    if args.seq_shards > 1 and args.model_shards > 1:
+        raise ValueError("--seq-shards and --model-shards both size the model axis; "
+                         "pass one of them")
     if args.mesh == "host":
-        return make_host_mesh(seq_shards=args.seq_shards, device_type=dev.type)
+        return make_host_mesh(seq_shards=args.seq_shards * args.model_shards,
+                              device_type=dev.type)
     mesh = make_production_mesh(multi_pod=args.mesh.endswith("multipod"),
                                 device_type=dev.type)
     if mesh.device_mesh is None:   # as jax.make_mesh, refuse another world
         world = dist.get_world_size() if dist.is_initialized() else 1
         raise ValueError(f"--mesh {args.mesh} {dict(mesh.shape)} needs a world of "
                          f"{math.prod(mesh.shape.values())} ranks; this one has {world}")
-    if args.seq_shards > 1 and mesh.shape["model"] != args.seq_shards:
-        raise ValueError(f"--seq-shards {args.seq_shards} must equal the production "
+    if max(args.seq_shards, args.model_shards) > 1 and \
+            mesh.shape["model"] != max(args.seq_shards, args.model_shards):
+        raise ValueError(f"--seq-shards/--model-shards must equal the production "
                          f"mesh's model axis ({mesh.shape['model']})")
     return mesh
 

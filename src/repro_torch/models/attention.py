@@ -34,8 +34,17 @@ given) and sliding windows.  Four paths, each the JAX package's arithmetic:
 Scores and the softmax are f32; ``p`` is cast to the value dtype before
 the product and the sum is divided out after the f32 accumulation.  The KV
 cache is bf16 whatever the compute dtype, as the JAX package stores it.
-These are plain tensor ops: the JAX package leaves attention to XLA, no
-Pallas kernel, so the port has no kernel here either.
+Decode contracts a bf16 cache on the card in bf16 with f32 outputs, as
+JAX's ``preferred_element_type`` (:func:`_attend`).  These are plain tensor
+ops: the JAX package leaves attention to XLA, no Pallas kernel, so the port
+has no kernel here either.
+
+The model axis (``sharding/tensor_parallel.py``): under rules that split
+``act_heads``, a rank runs its block of query heads (q column-split, o
+row-split and all-reduced) and of KV heads where ``act_kv_heads`` splits on
+the same axis; where it does not (KV heads that do not divide the axis),
+k and v are computed whole, the caches hold them whole, and each rank
+attends with the KV heads its query heads need.
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ from torch import nn
 from ..configs.base import AttentionCfg
 from ..core.goom import safe_log
 from ..sharding.rules import constrain
-from .common import Dense
+from ..sharding.tensor_parallel import Split, enter, leave, split_of
+from .common import Dense, wide
 from .norms import RMSNorm
 from .rope import apply_mrope, apply_rope
 
@@ -63,15 +73,44 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tens
     """Decode's masked softmax over a whole cache row, GQA by head groups
     (JAX's ``_decode_attention``): q (B, 1, H, D); k, v (B, L, KVH, D);
     ``valid`` broadcasts to (B, 1, L).  Masked scores are ``NEG_INF``; ``p``
-    is rounded to v's dtype before the product.  Returns (B, 1, H, D) f32."""
+    is rounded to v's dtype before the product.  Returns (B, 1, H, D) f32
+    (f64 for f64 inputs).
+
+    As JAX's ``preferred_element_type``, a bf16 cache on the card is
+    contracted in its own dtype with f32 products out (``torch.bmm(...,
+    out_dtype=torch.float32)``, one call a KV head over the cache's strided
+    rows, nothing of the cache copied); elsewhere the operands go to f32
+    first, which gives the same products (bf16 products are exact in
+    f32)."""
     b, sq, h, d = q.shape
     kvh = k.shape[2]
-    qg = q.float().reshape(b, sq, kvh, h // kvh, d)
-    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.float()) * scale
+    if k.is_cuda and k.dtype in (torch.bfloat16, torch.float16):
+        return _attend_narrow(q, k, v, valid, scale)
+    qg = wide(q).reshape(b, sq, kvh, h // kvh, d)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, wide(k)) * scale
     s = s.masked_fill(~valid[:, :, None, None, :], NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))   # max-rescaled softmax; goomcheck: disable=GC202
-    acc = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    acc = torch.einsum("bqhgk,bkhd->bqhgd", wide(p.to(v.dtype)), wide(v))
     return (acc / p.sum(dim=-1, keepdim=True)).reshape(b, sq, h, d)
+
+
+def _attend_narrow(q, k, v, valid, scale):
+    """:func:`_attend` on a bf16 (or f16) cache on the card: each KV head's
+    scores and its values' sum as bf16 products with f32 outputs."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    # (B, KVH, Sq·G, D) queries in the cache's dtype, as JAX's einsum has them
+    qg = q.to(k.dtype).reshape(b, sq, kvh, g, d).permute(0, 2, 1, 3, 4).reshape(b, kvh, sq * g, d)
+    s = torch.stack([torch.bmm(qg[:, i], k[:, :, i].transpose(1, 2), out_dtype=torch.float32)
+                     for i in range(kvh)], 1).mul_(scale)          # (B, KVH, Sq·G, L)
+    s = s.view(b, kvh, sq, g, -1).masked_fill_(~valid[:, None, :, None, :], NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))   # max-rescaled softmax; goomcheck: disable=GC202
+    pv = p.to(v.dtype).view(b, kvh, sq * g, -1)
+    acc = torch.stack([torch.bmm(pv[:, i], v[:, :, i], out_dtype=torch.float32)
+                       for i in range(kvh)], 1)                    # (B, KVH, Sq·G, D)
+    out = acc.view(b, kvh, sq, g, d) / p.sum(dim=-1, keepdim=True)
+    return out.permute(0, 2, 1, 3, 4).reshape(b, sq, h, d)
 
 
 # ---------------------------------------------------------------------------
@@ -116,10 +155,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _grouped(x: torch.Tensor, kvh: int) -> torch.Tensor:
-    """(B, S, H, D) -> (B, KVH, S·G, D) f32, each KV head's query rows in
-    (position, group) order: one batched product per block over them."""
+    """(B, S, H, D) -> (B, KVH, S·G, D) f32 (f64 for f64), each KV head's
+    query rows in (position, group) order: one batched product per block
+    over them."""
     b, s, h, d = x.shape
-    return (x.float().reshape(b, s, kvh, h // kvh, d).transpose(1, 2)
+    return (wide(x).reshape(b, s, kvh, h // kvh, d).transpose(1, 2)
             .reshape(b, kvh, s * (h // kvh), d).contiguous())
 
 
@@ -133,7 +173,7 @@ def _block_scores(qg, k_blk, qpos, kp, window: int, scale: float, sq: int):
     """One block's f32 scores (B, KVH, Sq·G, Bk) times ``scale``, -inf
     where the causal (and window) mask drops a key (JAX's ``_mask_block``)."""
     b, kvh, rows, _ = qg.shape
-    s = torch.matmul(qg, k_blk.float().permute(0, 2, 3, 1)).mul_(scale)
+    s = torch.matmul(qg, k_blk.to(qg.dtype).permute(0, 2, 3, 1)).mul_(scale)
     keep = kp[None, :] <= qpos[:, None]
     if window >= 0:
         keep = keep & (kp[None, :] > qpos[:, None] - window)
@@ -151,9 +191,9 @@ class _Flash(torch.autograd.Function):
         sq, kvh = q.shape[1], k.shape[2]
         qg = _grouped(q, kvh)
         shape = qg.shape[:3]
-        m = torch.full(shape, -torch.inf, device=q.device)
-        l = torch.zeros(shape, device=q.device)
-        acc = torch.zeros(qg.shape, device=q.device)
+        m = torch.full(shape, -torch.inf, device=q.device, dtype=qg.dtype)
+        l = torch.zeros(shape, device=q.device, dtype=qg.dtype)
+        acc = torch.zeros_like(qg)
         for lo in range(0, k.shape[1], block_kv):
             s = _block_scores(qg, k[:, lo:lo + block_kv], qpos, kpos[lo:lo + block_kv],
                               window, scale, sq)
@@ -165,7 +205,7 @@ class _Flash(torch.autograd.Function):
             l = l * alpha + p.sum(-1)
             if v.dtype != p.dtype:
                 p.copy_(p.to(v.dtype))      # p rounded to v's dtype, in place
-            v_blk = v[:, lo:lo + block_kv].float().transpose(1, 2)
+            v_blk = v[:, lo:lo + block_kv].to(qg.dtype).transpose(1, 2)
             acc = acc * alpha[..., None] + torch.matmul(p, v_blk)
             m = m_new
         l_safe = l.clamp_min(1e-30)
@@ -187,11 +227,11 @@ class _Flash(torch.autograd.Function):
         delta = (dout * _grouped(out, kvh)).sum(-1)     # rowsum(dO ⊙ O)
         qg = _grouped(q, kvh)
         dq = torch.zeros_like(qg)
-        dk = torch.empty(k.shape, device=k.device)
-        dv = torch.empty(v.shape, device=v.device)
+        dk = torch.empty(k.shape, device=k.device, dtype=qg.dtype)
+        dv = torch.empty(v.shape, device=v.device, dtype=qg.dtype)
         for lo in range(0, k.shape[1], block_kv):
-            k_blk = k[:, lo:lo + block_kv].float().transpose(1, 2)
-            v_blk = v[:, lo:lo + block_kv].float().transpose(1, 2)
+            k_blk = k[:, lo:lo + block_kv].to(qg.dtype).transpose(1, 2)
+            v_blk = v[:, lo:lo + block_kv].to(qg.dtype).transpose(1, 2)
             s = _block_scores(qg, k[:, lo:lo + block_kv], qpos, kpos[lo:lo + block_kv],
                               window, scale, sq)
             p = s.sub_(lse[..., None]).exp_()  # exact probabilities, lse-rescaled; goomcheck: disable=GC202
@@ -236,7 +276,7 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pos_prev = torch.nn.functional.pad(pos_b, (0, 0, 1, 0), value=-(2 ** 30))[:-1]
     pos_pair = torch.cat([pos_prev, pos_b], 1)                       # (nb, 2W)
 
-    scores = torch.einsum("bnqhgd,bnkhd->bnqhgk", qb.float(), k_pair.float()) * scale
+    scores = torch.einsum("bnqhgd,bnkhd->bnqhgk", wide(qb), wide(k_pair)) * scale
     mask = ((pos_pair[:, None, :] <= pos_b[:, :, None])
             & (pos_pair[:, None, :] > pos_b[:, :, None] - w))        # (nb, W, 2W)
     scores = scores.masked_fill(~mask[None, :, :, None, None, :], -torch.inf)
@@ -244,8 +284,8 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(scores - m)   # max-rescaled softmax; goomcheck: disable=GC202
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bnqhgk,bnkhd->bnqhgd", (p / l).to(v_pair.dtype).float(),
-                       v_pair.float())
+    out = torch.einsum("bnqhgk,bnkhd->bnqhgd", wide((p / l).to(v_pair.dtype)),
+                       wide(v_pair))
     return out.reshape(b, nb * w, h, d)[:, :s].to(q.dtype)
 
 
@@ -286,6 +326,26 @@ class Attention(nn.Module):
             self.q_norm = RMSNorm(hd, device=device, dtype=dtype)
             self.k_norm = RMSNorm(hd, device=device, dtype=dtype)
 
+    def split_dims(self, rules) -> Tuple[Optional[str], Dict[str, Optional[int]]]:
+        """The mesh axis the heads split on under ``rules`` (None: whole) and
+        the dim of each parameter whose block a rank reads (None: read whole,
+        its gradient partial on each rank; ``sharding/tensor_parallel.py``):
+        q column-split, o row-split, k and v column-split where the KV heads
+        split on the same axis, else read whole (each rank picks the KV heads
+        its query heads need), the q/k norms' scales whole."""
+        cfg = self.cfg
+        axis = rules.split_axis("act_heads", cfg.n_heads)
+        if axis is None:
+            return None, {}
+        kv = 1 if rules.split_axis("act_kv_heads", cfg.n_kv_heads) == axis else None
+        dims = {"q.w": 1, "o.w": 0, "k.w": kv, "v.w": kv}
+        if cfg.qkv_bias:
+            dims.update({"q.b": 0, "k.b": None if kv is None else 0,
+                         "v.b": None if kv is None else 0})
+        if cfg.qk_norm:
+            dims.update({"q_norm.scale": None, "k_norm.scale": None})
+        return axis, dims
+
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 mrope_positions: Optional[torch.Tensor] = None,
                 cache: Optional[Cache] = None,
@@ -295,13 +355,25 @@ class Attention(nn.Module):
         """x (B, S, d) at absolute ``positions`` (B, S), and for M-RoPE at
         ``mrope_positions`` (3, B, S) → (y (B, S, d), new cache or None).
         ``fresh_cache`` (static) promises that ``cache`` holds nothing yet:
-        a prompt then attends over itself (single-shot prefill)."""
+        a prompt then attends over itself (single-shot prefill).
+
+        Under rules that split the heads (:meth:`split_dims`) a rank runs
+        its block of query heads, and of KV heads where those split too
+        (its caches then hold them alone); o's partial sums are all-reduced
+        over the model group."""
         cfg, cd = self.cfg, compute_dtype
         b, s, _ = x.shape
+        h, kvh = cfg.n_heads, cfg.n_kv_heads
         scale = cfg.query_scale if cfg.query_scale is not None else cfg.head_dim ** -0.5
-        q = self.q(x, compute_dtype=cd)
-        k = self.k(x, compute_dtype=cd)
-        v = self.v(x, compute_dtype=cd)
+        sp = split_of("act_heads", h)
+        kv_sp = split_of("act_kv_heads", kvh) if sp is not None else None
+        if kv_sp is not None and kv_sp.axis != sp.axis:
+            kv_sp = None
+        sel = _kv_select(sp, h, kvh) if sp is not None and kv_sp is None else None
+        x = enter(x, sp)
+        q = self.q(x, compute_dtype=cd, split=(sp, 1, h))
+        k = self.k(x, compute_dtype=cd, split=(kv_sp, 1, kvh))
+        v = self.v(x, compute_dtype=cd, split=(kv_sp, 1, kvh))
         if cfg.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         if cfg.mrope_sections is not None:
@@ -321,35 +393,41 @@ class Attention(nn.Module):
         new_cache = None
         if cache is None:
             pos = positions[0]
+            kk, vv = _selected(sel, k, v)
             if cfg.use_banded and cfg.window is not None and 2 * cfg.window <= s:
-                out = banded_attention(q, k, v, positions=pos, window=cfg.window,
+                out = banded_attention(q, kk, vv, positions=pos, window=cfg.window,
                                        scale=scale)
             else:
-                out = flash_attention(q, k, v, q_positions=pos, kv_positions=pos,
+                out = flash_attention(q, kk, vv, q_positions=pos, kv_positions=pos,
                                       window=cfg.window, scale=scale,
                                       block_q=cfg.block_q, block_kv=cfg.block_kv)
         elif "pages" in cache:
             if s != 1:
                 raise ValueError("a paged KV cache takes one token per row")
-            out, new_cache = self._paged_decode(q, k, v, cache, scale)
+            out, new_cache = self._paged_decode(q, k, v, cache, scale, sel)
         elif s > 1:
             out, new_cache = self._prefill(q, k, v, cache, positions, scale,
-                                           fresh=fresh_cache)
+                                           fresh=fresh_cache, sel=sel)
         else:
-            out, new_cache = self._decode(q, k, v, cache, scale)
+            out, new_cache = self._decode(q, k, v, cache, scale, sel)
         out = constrain(out.to(cd), "batch", "act_seq", "act_heads", None).reshape(b, s, -1)
-        y = out @ self.o.w.to(cd).reshape(-1, cfg.d_model)
-        return y, new_cache
+        o = self.o.w if sp is None else sp.take(self.o.w, 0, h)
+        y = out @ o.to(cd).reshape(-1, cfg.d_model)
+        return leave(y, sp), new_cache
 
-    def _flash(self, q, k, v, q_pos, kv_pos, scale, window):
+    def _flash(self, q, k, v, q_pos, kv_pos, scale, window, sel=None):
+        k, v = _selected(sel, k, v)
         return flash_attention(q, k, v, q_positions=q_pos, kv_positions=kv_pos,
                                window=window, scale=scale, block_q=self.cfg.block_q,
                                block_kv=self.cfg.block_kv)
 
-    def _prefill(self, q, k_new, v_new, cache: Cache, positions, scale, *, fresh: bool):
+    def _prefill(self, q, k_new, v_new, cache: Cache, positions, scale, *, fresh: bool,
+                 sel=None):
         """One prompt chunk from row 0's ``index`` (a prefill batch shares
         its positions), JAX's ``_prefill_attention`` branch for branch (the
-        module docstring); ``fresh`` (static) takes the index as 0."""
+        module docstring); ``fresh`` (static) takes the index as 0.  ``sel``
+        picks a split rank's KV heads from whole ones (:func:`_kv_select`)
+        where the attention reads them; the cache keeps what it is given."""
         s = q.shape[1]
         window = self.cfg.window
         length = cache["k"].shape[1]
@@ -358,14 +436,14 @@ class Attention(nn.Module):
         start = 0 if fresh else cache["index"][0]
         new_index = cache["index"] + s
         if fresh:   # nothing cached: the chunk is all there is to attend to
-            out = self._flash(q, k_new, v_new, pos, pos, scale, window)
+            out = self._flash(q, k_new, v_new, pos, pos, scale, window, sel)
 
         if window is None:
             if s >= length:
                 # the whole prompt at the cache's length or beyond (start 0):
                 # keep its last `length` tokens, each in its row
                 if not fresh:
-                    out = self._flash(q, k_new, v_new, pos, pos, scale, None)
+                    out = self._flash(q, k_new, v_new, pos, pos, scale, None, sel)
                 return out, {"k": k_new[:, s - length:].to(dt),
                              "v": v_new[:, s - length:].to(dt), "index": new_index}
             # the chunk's rows from `start`, clamped into the cache as JAX's
@@ -378,7 +456,8 @@ class Attention(nn.Module):
                 # row i holds position i once written (up to the chunk's last)
                 slots = torch.arange(length, device=q.device)
                 kv_pos = torch.where(slots <= start + (s - 1), slots, _PAD_KV_POS)
-                out = self._flash(q, k.to(q.dtype), v.to(q.dtype), pos, kv_pos, scale, None)
+                out = self._flash(q, k.to(q.dtype), v.to(q.dtype), pos, kv_pos, scale, None,
+                                  sel)
             return out, {"k": k, "v": v, "index": new_index}
 
         if not fresh:
@@ -388,7 +467,8 @@ class Attention(nn.Module):
             kv_pos = torch.where(abs_prev >= 0, abs_prev, _PAD_KV_POS)
             k_cat = torch.cat([cache["k"].to(q.dtype), k_new], dim=1)
             v_cat = torch.cat([cache["v"].to(q.dtype), v_new], dim=1)
-            out = self._flash(q, k_cat, v_cat, pos, torch.cat([kv_pos, pos]), scale, window)
+            out = self._flash(q, k_cat, v_cat, pos, torch.cat([kv_pos, pos]), scale, window,
+                              sel)
         if s >= length:
             # the chunk's tail fills the buffer: position p goes to row p % length
             shift = (start + s - length) % length
@@ -400,7 +480,7 @@ class Attention(nn.Module):
             v = cache["v"].index_copy(1, at, v_new.to(dt))
         return out, {"k": k, "v": v, "index": new_index}
 
-    def _decode(self, q, k_new, v_new, cache: Cache, scale):
+    def _decode(self, q, k_new, v_new, cache: Cache, scale, sel=None):
         """One token per row, written at the row's own ``index`` (a write
         past the end of a global row is dropped; a rolling buffer writes at
         ``index % length``), attending over the row's valid positions."""
@@ -423,11 +503,11 @@ class Attention(nn.Module):
             v[rows, at] = v_new[:, 0].to(v.dtype)
             abs_pos = _ring_positions(index, length)
             valid = (abs_pos >= 0) & (abs_pos > index[:, None] - window)
-        out = _attend(q, k, v, valid[:, None, :], scale)
+        out = _attend(q, *_selected(sel, k, v), valid[:, None, :], scale)
         return out, {"k": k, "v": v, "index": index + 1}
 
     @staticmethod
-    def _paged_decode(q, k_new, v_new, cache: Cache, scale):
+    def _paged_decode(q, k_new, v_new, cache: Cache, scale, sel=None):
         """One token per row against the page pool: write the new K/V at
         ``(pages[row, index // ps], index % ps)``, then gather each row's
         pages into a dense (B, L, KVH, D) view and attend over positions
@@ -453,8 +533,35 @@ class Attention(nn.Module):
         vg = pool_v[pages].reshape((b, length) + pool_v.shape[2:])
         slots = torch.arange(length, device=q.device)
         valid = (slots[None, :] <= index[:, None])[:, None, :]
-        out = _attend(q, kg, vg, valid, scale)
+        out = _attend(q, *_selected(sel, kg, vg), valid, scale)
         return out, {"k": pool_k, "v": pool_v, "pages": pages, "index": index + 1}
+
+
+def _kv_select(sp: Split, h: int, kvh: int):
+    """A rank's pick of whole KV heads (B, S, KVH, D) for its block of
+    query heads: the KV heads of their groups, a contiguous run where the
+    block covers whole groups or lies in one, else one KV head a query
+    head (groups of one)."""
+    lo, hl = sp.block(h)
+    g = h // kvh
+    idx = [(lo + j) // g for j in range(hl)]
+    if hl % g == 0 or g % hl == 0:
+        first, n = idx[0], max(1, hl // g)
+        return lambda t: t.narrow(2, first, n)
+    at = torch.tensor(idx)
+    return lambda t: t.index_select(2, at.to(t.device))
+
+
+def _selected(sel, k, v):
+    return (k, v) if sel is None else (sel(k), sel(v))
+
+
+def kv_heads(cfg: AttentionCfg) -> int:
+    """The KV heads a rank's cache holds under the active rules: its block
+    where the KV heads split with the query heads, else all of them."""
+    sp = split_of("act_heads", cfg.n_heads)
+    kv = split_of("act_kv_heads", cfg.n_kv_heads) if sp is not None else None
+    return cfg.n_kv_heads if kv is None or kv.axis != sp.axis else kv.block(cfg.n_kv_heads)[1]
 
 
 def _roll_rows(x: torch.Tensor, shift) -> torch.Tensor:
@@ -470,9 +577,10 @@ def attention_init_cache(batch: int, cfg: AttentionCfg, max_len: int, *,
     """Dense bf16 KV rows and a per-row ``index`` (the absolute position of
     the next token): every row is its own slot.  A global layer holds
     ``max_len`` positions; a windowed one a rolling buffer of ``min(max_len,
-    window)`` rows."""
+    window)`` rows; of the rank's KV heads under rules that split them
+    (:func:`kv_heads`)."""
     length = max_len if cfg.window is None else min(max_len, cfg.window)
-    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    shape = (batch, length, kv_heads(cfg), cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "index": torch.zeros(batch, dtype=torch.long, device=device)}
@@ -492,7 +600,7 @@ def init_paged_cache(batch: int, cfg: AttentionCfg, page_size: int, n_pages: int
     the trash page and sentinel reads come from it, masked to zero
     probability.  Tables start at the sentinel: no slot owns a page until
     admission assigns it."""
-    shape = (n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
+    shape = (n_pages + 1, page_size, kv_heads(cfg), cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "pages": torch.full((batch, max_blocks), n_pages, dtype=torch.long,

@@ -12,6 +12,12 @@ capacity dropping without one, as in the JAX package, and its aux losses
 come back beside the block's output (empty for the other channels and when
 serving).  RWKV6's channel mix token-shifts its *normed* input, so the
 block caches that (``cm_x_prev``) beside the time mix's state.
+
+Under rules that split heads or channels across ranks (the model axis,
+``sharding/tensor_parallel.py``) the attention, goom and Mamba mixers and
+the dense MLP run the rank's block and all-reduce what leaves it, so a
+block's input and output are whole on every rank; ``block_init_cache``
+then holds the rank's KV heads, goom heads and Mamba channels.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Shared model helpers: the scan chunk length, parameter init and the
-dense projection.
+"""Shared model helpers: the scan chunk length, parameter init, the dense
+projection and the f32-or-wider dtype.
 
 Every parameter carries JAX's logical axes (``repro/models/common.py``'s
 ``Param(value, axes)``) as its ``axes`` attribute, set where it is made
@@ -12,6 +12,22 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from ..sharding.tensor_parallel import Split
+
+#: a split read of a weight: (the split, the weight's dim, its whole size)
+SplitRead = Tuple[Optional[Split], int, int]
+
+
+def wide_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the f32 islands (norms, softmax, GOOM operands, the
+    loss): f32, or f64 for f64 inputs (the one-process float64 yardstick)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in :func:`wide_dtype`."""
+    return x.to(wide_dtype(x.dtype))
 
 
 def chunk_len(s: int, chunk: int) -> int:
@@ -66,7 +82,8 @@ class Dense(nn.Module):
     initialised LeCun-normal (std 1/sqrt(in_dim), or ``std``) from
     ``generator``; with ``bias``, a zero bias ``b`` of shape out_dims.  Its
     logical axes are ``(in_axis, *out_axes)``, the bias's ``out_axes``
-    (JAX's ``dense_init`` defaults)."""
+    (JAX's ``dense_init`` defaults).  Its in and out sizes are those of the
+    weight it is handed: a split module's block (``split``)."""
 
     def __init__(self, in_dim: int, out_dims, *, device=None,
                  dtype=torch.float32, generator: Optional[torch.Generator] = None,
@@ -81,6 +98,17 @@ class Dense(nn.Module):
         self.b = (with_axes(torch.zeros(tuple(out_dims), device=device, dtype=dtype),
                             out_axes) if bias else None)
 
-    def forward(self, x: torch.Tensor, *,
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        return dense_apply(self.w, x, compute_dtype=compute_dtype, b=self.b)
+    def forward(self, x: torch.Tensor, *, compute_dtype: Optional[torch.dtype] = None,
+                split: Optional[SplitRead] = None) -> torch.Tensor:
+        """``split=(sp, dim, n)``: the rank's block of the weight's ``dim``
+        (``n`` whole; the bias's block alike), handed whole or as the
+        block; ``sp`` None reads the whole."""
+        w, b = self.w, self.b
+        if split is not None and split[0] is not None:
+            sp, dim, n = split
+            w = sp.take(w, dim, n)
+            if b is not None:
+                if dim == 0:
+                    raise ValueError("a Dense split on its input dim has no bias to split")
+                b = sp.take(b, dim - 1, n)
+        return dense_apply(w, x, compute_dtype=compute_dtype, b=b)

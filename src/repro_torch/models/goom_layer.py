@@ -21,6 +21,19 @@ picks the scan:
     alone, and the GLU's output is gathered along time before ``out_proj``.
 
 B·u is an ``engine.lmme`` call in both.
+
+The model axis (``sharding/tensor_parallel.py``): under rules that split
+``act_heads``, a rank runs its block of H/M heads (``in_proj``, A, B, C and
+D column-split, ``out_proj`` row-split and all-reduced), so every GOOM op of
+the layer (the LMMEs of ``shared_a``, the with-B matrix scan of
+``generic``) runs on H/M heads; the max of eq. 27's scaled exponentiation,
+over every head, is all-reduced.  Under rules that also time-shard the
+scans on that axis (the launcher's ``--seq-shards``) the layer keeps whole
+heads and time-shards as above: a departure from JAX, which reshards the
+heads to time there, with equal values.
+
+The GOOM operands and states are f32 whatever the compute dtype, f64 for
+f64 parameters (the one-process float64 yardstick).
 """
 
 from __future__ import annotations
@@ -36,7 +49,8 @@ from ..core.goom import Goom, finite_floor, to_goom
 from ..core.ops import goom_add, scaled_exp
 from ..sharding.layout import TimeShards, time_shards
 from ..sharding.rules import constrain
-from .common import Dense, chunk_len, with_axes
+from ..sharding.tensor_parallel import all_max, enter, leave, split_of
+from .common import Dense, chunk_len, wide, wide_dtype, with_axes
 from .norms import LayerNorm
 
 _FLOOR = finite_floor(torch.float32)
@@ -89,8 +103,8 @@ def _scan_shared_a(
     if x0 is None:
         bsz, h, hd = bu_g.shape[1], bu_g.shape[2], a_g.shape[-1]
         shape = (bsz, h, hd, 1)
-        x0 = Goom(torch.full(shape, _FLOOR, device=bu_g.device),
-                  torch.ones(shape, device=bu_g.device))
+        x0 = Goom(torch.full(shape, _FLOOR, device=bu_g.device, dtype=bu_g.dtype),
+                  torch.ones(shape, device=bu_g.device, dtype=bu_g.dtype))
 
     carry = x0
     states = []
@@ -176,26 +190,39 @@ class GoomSSM(nn.Module):
         self.out_proj = Dense(h * hd, (d,), generator=generator, in_axis="heads",
                               out_axes=("embed",), **kw)
 
+    def split_dims(self, rules) -> Tuple[Optional[str], Dict[str, Optional[int]]]:
+        """The axis the heads split on (None: whole, also where the rules
+        time-shard the scans on it) and the dim of each weight a rank reads
+        a block of (``Attention.split_dims``); ``ln`` runs before the split."""
+        axis = rules.split_axis("act_heads", self.cfg.n_heads, scans=True)
+        if axis is None:
+            return None, {}
+        return axis, {"in_proj.w": 1, "A": 0, "B": 0, "C": 0, "D": 0, "out_proj.w": 0}
+
     def forward(self, x: torch.Tensor, *,
                 state: Optional[Dict[str, torch.Tensor]] = None,
                 compute_dtype: torch.dtype = torch.bfloat16):
         """x (B, S, d) → (out (B, S, d), new state or None)."""
         b, s, _ = x.shape
         h, hd = self.cfg.n_heads, self.cfg.head_dim
+        sp = split_of("act_heads", h, scans=True)
+        wd = wide_dtype(self.A.dtype)
 
-        xin = self.ln(x)
-        u = self.in_proj(xin, compute_dtype=torch.float32)   # (B,S,H,hd)
+        xin = enter(self.ln(x), sp)
+        u = self.in_proj(xin, compute_dtype=wd, split=(sp, 1, h))   # (B,S,H,hd)
         u = constrain(u, "batch", "act_seq", "act_heads", None)
 
         # under rules that time-shard the scans, each rank builds its time
         # shard's operands and states only; the GLU's output is gathered
         layout = time_shards() if state is None else None
         A, B, C, D = self.A, self.B, self.C, self.D
+        if sp is not None:
+            A, B, C, D = (sp.take(w, 0, h) for w in (A, B, C, D))
         if layout is not None:
             u = layout.shard(u, 1)
             A, B, C, D = (layout.replicated(w) for w in (A, B, C, D))
-        a_g = to_goom(A.float(), use_floor=True)
-        b_g = to_goom(B.float(), use_floor=True)
+        a_g = to_goom(wide(A), use_floor=True)
+        b_g = to_goom(wide(B), use_floor=True)
         u_g = to_goom(u, use_floor=True)
 
         # B·u_t over GOOMs: (H,hd,hd) ∘ (S,B,H,hd,1), A broadcast by strides
@@ -212,10 +239,12 @@ class GoomSSM(nn.Module):
         else:
             states, final = _scan_generic(a_g, bu, x0, layout)
 
-        # back to floats (eq. 27): one max over heads and head_dim per position
+        # back to floats (eq. 27): one max over heads and head_dim per
+        # position (over every rank's heads when they are split)
         xs = Goom(states.log_abs[..., 0].permute(1, 0, 2, 3),   # (B,S,H,hd)
                   states.sign[..., 0].permute(1, 0, 2, 3))
-        vals, _ = scaled_exp(xs, dim=(-2, -1), shift=2.0)
+        over = {} if sp is None else {"reduce_max": lambda m: all_max(m, sp)}
+        vals, _ = scaled_exp(xs, dim=(-2, -1), shift=2.0, **over)
 
         cd = compute_dtype
         y = torch.einsum("bshd,hde->bshe", vals.to(cd), C.to(cd))
@@ -224,7 +253,7 @@ class GoomSSM(nn.Module):
         y = (y1 * torch.sigmoid(y2)).flatten(2)              # GLU (B,S,H·hd)
         if layout is not None:
             y = layout.gather(y, 1, s)
-        out = self.out_proj(y, compute_dtype=cd)
+        out = leave(self.out_proj(y, compute_dtype=cd, split=(sp, 0, h * hd)), sp)
 
         new_state = None
         if state is not None:
@@ -233,8 +262,11 @@ class GoomSSM(nn.Module):
 
 
 def goom_ssm_init_state(batch: int, cfg: GoomSSMCfg, *, device) -> Dict[str, torch.Tensor]:
-    """The fixed-size decode state: an all-zero (floored) (B,H,hd,1) carry."""
-    shape = (batch, cfg.n_heads, cfg.head_dim, 1)
+    """The fixed-size decode state: an all-zero (floored) (B,H,hd,1) carry,
+    of the rank's heads under rules that split them."""
+    sp = split_of("act_heads", cfg.n_heads, scans=True)
+    heads = cfg.n_heads if sp is None else sp.block(cfg.n_heads)[1]
+    shape = (batch, heads, cfg.head_dim, 1)
     return {
         "x_log": torch.full(shape, _FLOOR, dtype=torch.float32, device=device),
         "x_sign": torch.ones(shape, dtype=torch.float32, device=device),

@@ -33,6 +33,7 @@ from torch import nn
 
 from ..configs.base import MlpCfg, MoeCfg
 from ..sharding.rules import constrain
+from ..sharding.tensor_parallel import enter, leave, split_of
 from .common import Dense, dense_apply, normal_param
 
 
@@ -50,7 +51,10 @@ def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 class Mlp(nn.Module):
     """down(act(gate(x)) * up(x)), or down(act(up(x))) when not gated;
-    weights ``up.w``, ``gate.w`` (gated only), ``down.w``."""
+    weights ``up.w``, ``gate.w`` (gated only), ``down.w``.  Under rules
+    that split ``act_mlp`` a rank runs its block of the channels (up and
+    gate column-split, down row-split and all-reduced;
+    ``sharding/tensor_parallel.py``)."""
 
     def __init__(self, cfg: MlpCfg, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -60,16 +64,28 @@ class Mlp(nn.Module):
         self.up = Dense(cfg.d_model, (cfg.d_ff,), **kw)
         self.gate = Dense(cfg.d_model, (cfg.d_ff,), **kw) if cfg.gated else None
         self.down = Dense(cfg.d_ff, (cfg.d_model,), in_axis="mlp", out_axes=("embed",), **kw)
+        self.d_ff = cfg.d_ff
+
+    def split_dims(self, rules) -> Tuple[Optional[str], Dict[str, Optional[int]]]:
+        """The axis the channels split on (None: whole) and the dim of each
+        weight a rank reads a block of (``Attention.split_dims``)."""
+        axis = rules.split_axis("act_mlp", self.d_ff)
+        if axis is None:
+            return None, {}
+        return axis, {"up.w": 1, "down.w": 0, **({"gate.w": 1} if self.gate else {})}
 
     def forward(self, x: torch.Tensor, *,
                 compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-        h = self.up(x, compute_dtype=compute_dtype)
+        sp = split_of("act_mlp", self.d_ff)
+        x = enter(x, sp)
+        col = (sp, 1, self.d_ff)
+        h = self.up(x, compute_dtype=compute_dtype, split=col)
         if self.gate is not None:
-            h = self.act(self.gate(x, compute_dtype=compute_dtype)) * h
+            h = self.act(self.gate(x, compute_dtype=compute_dtype, split=col)) * h
         else:
             h = self.act(h)
         h = constrain(h, "batch", "act_seq", "act_mlp")
-        return self.down(h, compute_dtype=compute_dtype)
+        return leave(self.down(h, compute_dtype=compute_dtype, split=(sp, 0, self.d_ff)), sp)
 
 
 def top_k_lowest_index(probs: torch.Tensor, k: int):

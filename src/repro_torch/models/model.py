@@ -68,10 +68,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import LMConfig
 from ..kernels.dispatch import resolve_device
+from ..sharding import tensor_parallel as tp
 from ..sharding.gather import ParamGather
-from ..sharding.rules import constrain, is_dtensor
+from ..sharding.rules import constrain, current_rules, is_dtensor, use_rules
 from .blocks import Block, block_init_cache
-from .common import Dense, with_axes
+from .common import Dense, wide, with_axes
 from .norms import make_norm
 from .rope import sinusoidal_embedding
 
@@ -118,6 +119,42 @@ class DecoderLM(nn.Module):
         group adds; ``convert.param_axes_to_jax`` adds it)."""
         return dict(self._axes)
 
+    def split_roles(self, rules) -> Dict[str, Tuple[str, Optional[int]]]:
+        """Each parameter read by a module split across ranks under
+        ``rules``: (the mesh axis, the dim whose block the module reads, or
+        None for a weight read whole; ``sharding/gather.py``)."""
+        roles = {}
+        for i, layer in enumerate(self.layers):
+            for part in ("mixer", "channel"):
+                split_dims = getattr(getattr(layer, part, None), "split_dims", None)
+                if split_dims is None:
+                    continue
+                axis, dims = split_dims(rules)
+                roles.update({f"layers.{i}.{part}.{n}": (axis, d) for n, d in dims.items()})
+        axis = rules.split_axis("act_vocab", self.cfg.vocab)
+        if axis is not None:
+            roles["embed"] = (axis, 0)
+            if self.lm_head is not None:
+                roles["lm_head.w"] = (axis, 1)
+        return roles
+
+    def _reads(self, param_gather: Optional[ParamGather]):
+        """(the gather of this call, each split parameter's role under the
+        active rules as (Split, dim)): ``param_gather``, else the default
+        one for laid-out parameters or for a split model's plain ones, else
+        None (plain parameters, read as they are)."""
+        rules = current_rules()
+        roles = {}
+        if rules is not None and getattr(rules.mesh, "device_mesh", None) is not None:
+            splits = {}
+            for name, (axis, dim) in self.split_roles(rules).items():
+                if axis not in splits:
+                    splits[axis] = tp.split_on(rules, axis)
+                roles[name] = (splits[axis], dim)
+        if param_gather is not None:
+            return param_gather, roles
+        return (ParamGather() if roles or is_dtensor(self.embed) else None), roles
+
     def hidden_states(self, tokens: torch.Tensor,
                       caches: Optional[Caches] = None,
                       positions: Optional[torch.Tensor] = None, *,
@@ -131,14 +168,17 @@ class DecoderLM(nn.Module):
         positions; ``mrope_positions`` (3, B, S) go to M-RoPE layers;
         ``fresh_caches`` (static) promises empty caches (see ``prefill``);
         ``param_gather`` gathers laid-out parameters (module docstring)."""
-        gather = self._gather_of(param_gather)
+        gather, roles = self._reads(param_gather)
         cd = self.cfg.compute_dtype
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
         # F.embedding, not indexing: its backward gives the same bits every
-        # run (indexing's accumulating backward does not on the CPU)
-        x = F.embedding(tokens, self._whole("embed", self.embed, gather)).to(cd)
+        # run (indexing's accumulating backward does not on the CPU); the
+        # rank's rows of a vocabulary split, all-reduced
+        role = roles.get("embed")
+        x = tp.embedding(tokens, self._whole("embed", self.embed, gather, role),
+                         role and role[0], self.cfg.vocab).to(cd)
         if self.cfg.scale_embedding:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model)).to(cd)
         if prefix_embeds is not None:
@@ -155,11 +195,11 @@ class DecoderLM(nn.Module):
         for lo, hi in self._periods:
             if remat == "none":
                 x, cs, aux = self._period(x, positions, mrope_positions, lo, hi, caches,
-                                          fresh_caches, gather)
+                                          fresh_caches, gather, roles)
                 new_caches.extend(cs)
             else:
                 x, aux = checkpoint(self._period_remat, x, positions, mrope_positions, lo, hi,
-                                    gather, use_reentrant=False,
+                                    gather, roles, current_rules(), use_reentrant=False,
                                     context_fn=_REMAT_CONTEXT[remat])
             for k, v in aux.items():
                 aux_tot[k] = aux_tot.get(k, 0.0) + v
@@ -167,36 +207,35 @@ class DecoderLM(nn.Module):
             h = self.final_norm(x)
         return h, (new_caches if caches is not None else None), aux_tot
 
-    def _gather_of(self, param_gather: Optional[ParamGather]) -> Optional[ParamGather]:
-        """The gather of this call: ``param_gather``, the default one for
-        laid-out parameters, or None (plain parameters, read as they are)."""
-        if param_gather is not None:
-            return param_gather
-        return ParamGather() if is_dtensor(self.embed) else None
-
     @staticmethod
-    def _whole(name: str, p: torch.Tensor, gather: Optional[ParamGather]) -> torch.Tensor:
-        return p if gather is None else gather(name, p)
+    def _whole(name: str, p: torch.Tensor, gather: Optional[ParamGather],
+               role=None) -> torch.Tensor:
+        return p if gather is None else gather(name, p, role)
 
     @contextlib.contextmanager
-    def _gathered(self, prefixes: List[str], gather: Optional[ParamGather]):
-        """The parameters under ``prefixes`` (state-dict names) whole for
-        the block's duration, freed after (nothing when ``gather`` is None)."""
+    def _gathered(self, prefixes: List[str], gather: Optional[ParamGather], roles=None):
+        """The parameters under ``prefixes`` (state-dict names) whole (or a
+        split module's blocks, by ``roles``) for the block's duration, freed
+        after (nothing when ``gather`` is None)."""
         if gather is None:
             yield
             return
-        whole = {f"{pre}.{n}": gather(f"{pre}.{n}", p) for pre in prefixes
-                 for n, p in self.get_submodule(pre).named_parameters()}
+        roles = roles or {}
+        whole = {}
+        for pre in prefixes:
+            for n, p in self.get_submodule(pre).named_parameters():
+                name = f"{pre}.{n}"
+                whole[name] = gather(name, p, roles.get(name))
         with _reparametrize_module(self, whole):
             yield
 
     def _period(self, x, positions, mrope_positions, lo: int, hi: int,
                 caches: Optional[Caches], fresh_caches: bool = False,
-                gather: Optional[ParamGather] = None):
+                gather: Optional[ParamGather] = None, roles=None):
         """Layers ``lo:hi`` (one period of a group), their parameters
         gathered first → (x, their caches, aux)."""
         cs, aux_tot = [], {}
-        with self._gathered([f"layers.{i}" for i in range(lo, hi)], gather):
+        with self._gathered([f"layers.{i}" for i in range(lo, hi)], gather, roles):
             for i in range(lo, hi):
                 x, c, aux = self.layers[i](x, positions=positions,
                                            mrope_positions=mrope_positions,
@@ -208,22 +247,43 @@ class DecoderLM(nn.Module):
                     aux_tot[k] = aux_tot.get(k, 0.0) + v
         return x, cs, aux_tot
 
-    def _period_remat(self, x, positions, mrope_positions, lo: int, hi: int, gather):
-        x, _, aux = self._period(x, positions, mrope_positions, lo, hi, None, gather=gather)
+    def _period_remat(self, x, positions, mrope_positions, lo: int, hi: int, gather, roles,
+                      rules):
+        # the backward recomputes this on autograd's device thread (a CUDA
+        # tensor's), where the caller's thread-local rules are not active:
+        # the forward's rules go with it, so the recomputation splits alike
+        with use_rules(rules):
+            x, _, aux = self._period(x, positions, mrope_positions, lo, hi, None,
+                                     gather=gather, roles=roles)
         return x, aux
 
     def head_weight(self, param_gather: Optional[ParamGather] = None) -> torch.Tensor:
         """The (d, vocab) head in the compute dtype: ``embed.T`` when tied;
-        laid-out parameters gathered whole (``param_gather``)."""
-        gather = self._gather_of(param_gather)
-        w = (self._whole("embed", self.embed, gather).T if self.lm_head is None
-             else self._whole("lm_head.w", self.lm_head.w, gather))
-        return w.to(self.cfg.compute_dtype)
+        laid-out parameters gathered whole (``param_gather``); under a
+        vocabulary split the rank's (d, block)."""
+        return self._head(param_gather)[0]
+
+    def _head(self, param_gather: Optional[ParamGather]):
+        """(the head weight of ``head_weight``, the vocabulary's Split or None)."""
+        gather, roles = self._reads(param_gather)
+        v = self.cfg.vocab
+        if self.lm_head is None:
+            role = roles.get("embed")
+            w = self._whole("embed", self.embed, gather, role)
+            w = (w if role is None else role[0].take(w, 0, v)).T
+        else:
+            role = roles.get("lm_head.w")
+            w = self._whole("lm_head.w", self.lm_head.w, gather, role)
+            w = w if role is None else role[0].take(w, 1, v)
+        return w.to(self.cfg.compute_dtype), role and role[0]
 
     def logits(self, hidden: torch.Tensor,
                param_gather: Optional[ParamGather] = None) -> torch.Tensor:
-        return constrain(hidden @ self.head_weight(param_gather), "batch", "act_seq",
-                         "act_vocab")
+        """(..., vocab) logits; under a vocabulary split each rank's block,
+        all-gathered whole."""
+        w, sp = self._head(param_gather)
+        return constrain(tp.gather_last(tp.enter(hidden, sp) @ w, sp, self.cfg.vocab),
+                         "batch", "act_seq", "act_vocab")
 
     def forward(self, tokens: torch.Tensor, **kw) -> torch.Tensor:
         """Full forward to logits (B, S, vocab); ``kw`` as ``hidden_states``."""
@@ -241,9 +301,13 @@ class DecoderLM(nn.Module):
         The CE runs over pieces of ``min(logit_chunk, S)`` tokens, each
         recomputed in the backward (``jax.checkpoint`` in JAX), so no more
         than one piece's f32 logits are alive at a time; logits are the
-        compute-dtype product cast to f32, as in JAX."""
+        compute-dtype product cast to f32, as in JAX.  Under a vocabulary
+        split each rank makes its block of the logits only, and the NLL
+        combines the ranks' log-sum-exps and the gold logit
+        (``tensor_parallel.split_nll``)."""
         h, _, aux = self.hidden_states(tokens, **kw)
-        w = self.head_weight(kw.get("param_gather"))
+        w, sp = self._head(kw.get("param_gather"))
+        h = tp.enter(h, sp)
         s = h.shape[1]
         ck = min(self.cfg.logit_chunk, s)
         if s % ck:
@@ -251,8 +315,8 @@ class DecoderLM(nn.Module):
                              f"logit_chunk {ck}")
         tot = cnt = 0.0
         for i in range(0, s, ck):
-            nll, n = checkpoint(_piece_nll, h[:, i:i + ck], labels[:, i:i + ck], w,
-                                use_reentrant=False)
+            nll, n = checkpoint(_piece_nll, h[:, i:i + ck], labels[:, i:i + ck], w, sp,
+                                self.cfg.vocab, use_reentrant=False)
             tot, cnt = tot + nll, cnt + n
         ce = tot / cnt.clamp_min(1.0)
         loss = ce
@@ -346,11 +410,15 @@ _REMAT_CONTEXT = {
 }
 
 
-def _piece_nll(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor):
+def _piece_nll(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
+               sp: Optional[tp.Split] = None, vocab: int = 0):
     """(summed NLL, count) of one piece: hidden (B, k, d) in the compute
-    dtype, labels (B, k) with -1 masked, head weight (d, V)."""
-    logits = (h @ w).float()
+    dtype, labels (B, k) with -1 masked, head weight (d, V), or with ``sp``
+    the rank's (d, block) of a vocabulary of ``vocab``."""
+    logits = wide(h @ w)
+    mask = (labels >= 0).to(logits.dtype)
+    if sp is not None:
+        return tp.split_nll(logits, labels, sp, vocab), mask.sum()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
-    mask = (labels >= 0).float()
     return ((logz - gold) * mask).sum(), mask.sum()

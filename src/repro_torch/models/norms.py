@@ -1,5 +1,6 @@
-"""RMSNorm and LayerNorm with JAX-package semantics: statistics in f32,
-the result cast back to the input's dtype (``repro/models/norms.py``).
+"""RMSNorm and LayerNorm with JAX-package semantics: statistics in f32
+(f64 for f64 inputs), the result cast back to the input's dtype
+(``repro/models/norms.py``).
 
 Four kinds, as a config names them: ``rms``; ``rms_plus_one`` (gemma's
 scale, initialised to zeros and applied as 1 + w); ``ln`` (elementwise
@@ -13,15 +14,15 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .common import with_axes
+from .common import wide, with_axes
 
 
 def rmsnorm_apply(scale: torch.Tensor, x: torch.Tensor, *, eps: float = 1e-6,
                   plus_one: bool = False) -> torch.Tensor:
     dt = x.dtype
-    xf = x.float()
+    xf = wide(x)
     var = xf.square().mean(dim=-1, keepdim=True)
-    s = scale.float()
+    s = scale.to(xf.dtype)
     return (xf * torch.rsqrt(var + eps) * (1.0 + s if plus_one else s)).to(dt)
 
 
@@ -29,12 +30,12 @@ def layernorm_apply(scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
                     x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm; with no scale and bias it is OLMo's non-parametric LN."""
     dt = x.dtype
-    xf = x.float()
+    xf = wide(x)
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     if scale is not None:
-        y = y * scale.float() + bias.float()
+        y = y * scale.to(xf.dtype) + bias.to(xf.dtype)
     return y.to(dt)
 
 

@@ -12,22 +12,28 @@ from typing import Sequence
 
 import torch
 
+from .common import wide_dtype
 
-def rope_frequencies(head_dim: int, theta: float = 10000.0, *, device=None) -> torch.Tensor:
-    """Inverse frequencies for the rotating half (head_dim // 2 entries)."""
-    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0, *, device=None,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse frequencies for the rotating half (head_dim // 2 entries), in
+    ``dtype`` (f32; f64 for the float64 yardstick)."""
+    exponent = torch.arange(0, head_dim, 2, dtype=dtype, device=device) / head_dim
     return 1.0 / (theta ** exponent)
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int, theta: float = 10000.0) -> torch.Tensor:
-    """(..., S) int positions -> (..., S, head_dim // 2) angles."""
-    inv = rope_frequencies(head_dim, theta, device=positions.device)
-    return positions.float()[..., None] * inv
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float = 10000.0, *,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(..., S) int positions -> (..., S, head_dim // 2) angles in ``dtype``."""
+    inv = rope_frequencies(head_dim, theta, device=positions.device, dtype=dtype)
+    return positions.to(dtype)[..., None] * inv
 
 
 def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
     """Rotate x (B, S, H, 2n) by angles (B, S, n): the table is built in f32
-    and cast to ``x.dtype`` before the product, as in JAX."""
+    (f64 for f64 ``x``) and cast to ``x.dtype`` before the product, as in
+    JAX."""
     cos = torch.cos(ang)[..., None, :].to(x.dtype)       # (B, S, 1, n)
     sin = torch.sin(ang)[..., None, :].to(x.dtype)
     x1, x2 = x.chunk(2, dim=-1)
@@ -47,7 +53,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     if rot_d == 0:
         return x
     x_rot, x_pass = x[..., :rot_d], x[..., rot_d:]
-    return torch.cat([_rotate(x_rot, rope_angles(positions, rot_d, theta)), x_pass], dim=-1)
+    ang = rope_angles(positions, rot_d, theta, dtype=wide_dtype(x.dtype))
+    return torch.cat([_rotate(x_rot, ang), x_pass], dim=-1)
 
 
 def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, *,
@@ -60,8 +67,9 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, *,
     half = x.shape[-1] // 2
     if sum(sections) != half:
         raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to {half}")
-    inv = rope_frequencies(x.shape[-1], theta, device=x.device)       # (half,)
-    ang = positions3.float()[..., None] * inv                          # (3, B, S, half)
+    wd = wide_dtype(x.dtype)
+    inv = rope_frequencies(x.shape[-1], theta, device=x.device, dtype=wd)   # (half,)
+    ang = positions3.to(wd)[..., None] * inv                          # (3, B, S, half)
     # the stream of each slot, from arithmetic on the device alone (no host
     # copy, so that a CUDA graph can capture it)
     slot = torch.arange(half, device=x.device)

@@ -21,7 +21,9 @@ conventional baseline: decays exp'd up front and an associative scan of
 floats, no engine call.  Under an engine mesh the ``goom`` path makes the
 whole sequence one scan that the engine time-shards, as in JAX; under the
 launcher's rules (``sharding.layout.time_shards``) each rank builds and
-scans its own time shard.
+scans its own time shard.  Under rules that split ``act_mlp`` across
+ranks (``sharding/tensor_parallel.py``) a rank runs its block of di/M
+channels, the diagonal scan among them (``Mamba.split_dims``).
 
 **RWKV6** (``Rwkv6Cfg``, the time mix, ``rwkv6_scan``, the channel mix,
 ``rwkv6_init_state``): token shift, the data-dependent lerp (ddlerp) of
@@ -43,6 +45,7 @@ compute dtype; a step writes its last (compute-dtype) row back into them,
 which f32 holds exactly.  JAX instead replaces the f32 buffer by the
 compute-dtype row, so in JAX a cache's first bf16 step shifts in f32; one
 dtype per buffer is what a replayed CUDA graph's static tensors need.
+RWKV6 keeps whole heads and channels on every rank of the model axis.
 """
 
 from __future__ import annotations
@@ -61,7 +64,8 @@ from ..core.goom import Goom, from_goom, nonzero_sign, safe_abs, safe_log
 from ..core.scan import associative_scan
 from ..sharding.layout import TimeShards, time_shards
 from ..sharding.rules import constrain
-from .common import Dense, normal_param, with_axes
+from ..sharding.tensor_parallel import enter, leave, reduce, split_of
+from .common import Dense, dense_apply, normal_param, with_axes
 from .norms import RMSNorm
 
 __all__ = ["MambaCfg", "Mamba", "segment_states", "mamba_init_state", "Rwkv6Cfg",
@@ -135,14 +139,34 @@ class Mamba(nn.Module):
         self.d_skip = with_axes(torch.ones(di, device=device, dtype=dtype), ("mlp",))
         self.out_proj = Dense(di, (d,), in_axis="mlp", out_axes=("embed",), **kw)
 
+    def split_dims(self, rules) -> Tuple[Optional[str], Dict[str, Optional[int]]]:
+        """The axis the channels split on (None: whole, also where the rules
+        time-shard the scans on it) and the dim of each weight a rank reads
+        a block of (``Attention.split_dims``).  ``in_proj``'s one (2·di)
+        output holds [x; z], so a contiguous block of it is not a block of
+        each: it is read whole and both halves' blocks taken."""
+        axis = rules.split_axis("act_mlp", self.cfg.d_inner, scans=True)
+        if axis is None:
+            return None, {}
+        return axis, {"in_proj.w": None, "conv_w": 1, "conv_b": 0, "x_proj.w": 0,
+                      "dt_proj.w": 1, "dt_proj.b": 0, "a_log": 0, "d_skip": 0,
+                      "out_proj.w": 0}
+
     def forward(self, x: torch.Tensor, *, state: Optional[Dict[str, torch.Tensor]] = None,
                 compute_dtype: torch.dtype = torch.bfloat16):
-        """x (B, S, d) → (out (B, S, d), new state or None)."""
+        """x (B, S, d) → (out (B, S, d), new state or None).  Under rules
+        that split ``act_mlp`` a rank runs its block of the channels
+        (:meth:`split_dims`): (Δ, B, C) are ``x_proj``'s partial sums,
+        all-reduced, and ``out_proj``'s are all-reduced."""
         cfg, cd = self.cfg, compute_dtype
         b, s, _ = x.shape
         r, n, k = cfg.rank, cfg.d_state, cfg.d_conv
+        di = cfg.d_inner
+        sp = split_of("act_mlp", di, scans=True)
 
-        xi, z = self.in_proj(x, compute_dtype=cd).chunk(2, dim=-1)   # (B,S,di)
+        x = enter(x, sp)
+        w_in = self.in_proj.w if sp is None else in_proj_block(self.in_proj.w, sp, di)
+        xi, z = dense_apply(w_in, x, compute_dtype=cd).chunk(2, dim=-1)   # (B,S,di)
         xi = constrain(xi, "batch", "act_seq", "act_mlp")
 
         # depthwise causal conv over time, kernel d_conv
@@ -152,17 +176,23 @@ class Mamba(nn.Module):
         else:
             conv_in = xi
             ci = F.pad(xi, (0, 0, k - 1, 0))
-        w = self.conv_w.to(cd)
-        xconv = sum(ci[:, i:i + s] * w[i] for i in range(k)) + self.conv_b.to(cd)
+        conv_w, conv_b, a_log, d_skip = self.conv_w, self.conv_b, self.a_log, self.d_skip
+        if sp is not None:
+            conv_w = sp.take(conv_w, 1, di)
+            conv_b, a_log, d_skip = (sp.take(t, 0, di) for t in (conv_b, a_log, d_skip))
+        w = conv_w.to(cd)
+        xconv = sum(ci[:, i:i + s] * w[i] for i in range(k)) + conv_b.to(cd)
         xc = F.silu(xconv)
 
         # input-dependent Δ, B, C
-        dbc = self.x_proj(xc, compute_dtype=cd).float()
+        dbc = reduce(self.x_proj(xc, compute_dtype=cd, split=(sp, 0, di)).float(), sp)
         dt_low, b_in, c_in = dbc.split([r, n, n], dim=-1)
-        dt = _softplus(dt_low @ self.dt_proj.w.float() + self.dt_proj.b.float())
+        dt_w = self.dt_proj.w if sp is None else sp.take(self.dt_proj.w, 1, di)
+        dt_b = self.dt_proj.b if sp is None else sp.take(self.dt_proj.b, 0, di)
+        dt = _softplus(dt_low @ dt_w.float() + dt_b.float())
         # bounded S4D decay, negative; goomcheck: disable=GC202
-        a = -torch.exp(self.a_log.float())                           # (di, n)
-        h = (torch.zeros(b, cfg.d_inner, n, device=x.device) if state is None
+        a = -torch.exp(a_log.float())                                # (di, n)
+        h = (torch.zeros(b, xc.shape[-1], n, device=x.device) if state is None
              else state["ssm"])
 
         # under an engine mesh a loop of chunks would serialise the ranks:
@@ -203,14 +233,23 @@ class Mamba(nn.Module):
                 ys.append(yc)
             y = torch.cat(ys, dim=1)[:, :s]
 
-        y = y + xc.float() * self.d_skip.float()
+        y = y + xc.float() * d_skip.float()
         y = y.to(cd) * F.silu(z)
-        out = self.out_proj(y, compute_dtype=cd)
+        out = leave(self.out_proj(y, compute_dtype=cd, split=(sp, 0, di)), sp)
 
         new_state = None
         if state is not None:
             new_state = {"conv": conv_in[:, -(k - 1):].float(), "ssm": h}
         return out, new_state
+
+
+def in_proj_block(w: torch.Tensor, sp, di: int) -> torch.Tensor:
+    """The rank's (d, 2·di/M) block of Mamba's (d, 2·di) ``in_proj``, whose
+    output is [x; z]: its block of x's columns beside its block of z's, not
+    a contiguous block of the weight (on two ranks that would hand one rank
+    all of x and the other all of z)."""
+    lo, k = sp.block(di)
+    return torch.cat([w[:, lo:lo + k], w[:, di + lo:di + lo + k]], dim=1)
 
 
 def _chunk_step(dt, dtx, b_in, c_in, a, h, impl: str):
@@ -226,10 +265,13 @@ def mamba_init_state(batch: int, cfg: MambaCfg, *, device) -> Dict[str, torch.Te
     """Zero conv tail (B, d_conv-1, d_inner) and SSM state (B, d_inner,
     d_state), both f32: the conv tail re-enters the conv at every chunk
     boundary, and a bf16 round trip there is where chunked prefill would
-    part from the full-sequence scan."""
+    part from the full-sequence scan.  Of the rank's channels under rules
+    that split them."""
+    sp = split_of("act_mlp", cfg.d_inner, scans=True)
+    di = cfg.d_inner if sp is None else sp.block(cfg.d_inner)[1]
     return {
-        "conv": torch.zeros(batch, cfg.d_conv - 1, cfg.d_inner, device=device),
-        "ssm": torch.zeros(batch, cfg.d_inner, cfg.d_state, device=device),
+        "conv": torch.zeros(batch, cfg.d_conv - 1, di, device=device),
+        "ssm": torch.zeros(batch, di, cfg.d_state, device=device),
     }
 
 

@@ -55,7 +55,11 @@ def make_prefill_step(model: DecoderLM, *, backend: str = "auto", mesh=None,
     (``prefix_embeds``, ``mrope_positions``).  ``fresh_caches`` promises
     that every call feeds empty caches: the single-shot prefill then scales
     with the prompt, not the caches' length (a chunked prefill leaves it
-    False)."""
+    False).  Under active sharding rules (``sharding.use_rules``) a laid-out
+    model gathers its parameters a period at a time and, where the rules
+    split heads, channels or the vocabulary, each rank runs its block (its
+    caches, from ``model.init_caches`` under the same rules, hold its KV
+    heads) and the logits come back whole."""
 
     @torch.no_grad()
     def prefill_step(tokens, caches, **kw):

@@ -18,6 +18,18 @@ the ranks' batch slices); over the other mesh dims, where every rank
 computes alike, this rank's slice, with no sum.  ``to_local``'s backward
 then wraps the block as a DTensor of the parameter's placements.  A whole
 gradient therefore lives from the period's backward to its reduction.
+
+**The model axis.**  A parameter read by a module split across ranks
+(``sharding/tensor_parallel.py``) comes with its role, ``(split, dim)``:
+the module reads the rank's block of tensor dim ``dim``.  Where the layout
+splits that dim on the split's mesh dim (and no other mesh dim splits it),
+the block stays as it is: gathered over the batch dims only, its gradient
+reduced over them and never sliced on the model dim.  Otherwise (``dim``
+None: a weight read whole, as Mamba's [x; z] ``in_proj``; or a layout that
+keeps the dim whole, as indivisible KV heads or vocabulary) the parameter
+is gathered whole and its gradient summed over the model dim like a batch
+dim, since each rank's covers only its own use.  A plain parameter with a
+role gets the same sum (``tensor_parallel.sum_grad``).
 With ``dtype`` (``cast_params_bf16``) each rank casts its block before
 the gather, so the gather and the reduction move bf16.
 
@@ -47,8 +59,13 @@ import torch
 import torch.distributed as dist
 
 from .rules import is_dtensor
+from .tensor_parallel import Split, sum_grad
 
 __all__ = ["ParamGather", "full_tensor", "batch_mesh_dims"]
+
+#: a split module's read of a parameter: the split and the tensor dim it
+#: reads a block of (None: the whole)
+Role = Tuple[Split, Optional[int]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,21 +87,29 @@ def batch_mesh_dims(mesh_dim_names: Sequence[str], rules=None) -> Tuple[int, ...
     return tuple(i for i, a in enumerate(mesh_dim_names) if a in axes)
 
 
-def _plan(p, batch_dims: Tuple[int, ...]) -> Tuple[_MeshDim, ...]:
+def _plan(p, batch_dims: Tuple[int, ...], role: Optional[Role] = None
+          ) -> Tuple[_MeshDim, ...]:
     """The mesh dims of a DTensor ``p`` of more than one rank, in mesh
-    order."""
+    order, but the model dim whose block a split module reads (``role``,
+    module docstring)."""
     mesh = p.device_mesh
+    split, keep = role if role is not None else (None, None)
+    shards = [pl.dim if pl.is_shard() else None for pl in p.placements]
     dims = []
     for i, pl in enumerate(p.placements):
         if not (pl.is_shard() or pl.is_replicate()):
             raise ValueError(f"a parameter's placement {pl} is neither Shard nor Replicate")
         n = mesh.size(i)
-        shard = pl.dim if pl.is_shard() else None
+        shard = shards[i]
         if shard is not None and p.shape[shard] % n:
             raise ValueError(f"an uneven split of dim {shard} ({p.shape[shard]}) over {n}")
-        if n > 1:
-            dims.append(_MeshDim(n, mesh.get_local_rank(i), mesh.get_group(i), shard,
-                                 i in batch_dims))
+        if n == 1:
+            continue
+        model = split is not None and i == split.mesh_dim
+        if model and keep is not None and shard == keep and shards.count(keep) == 1:
+            continue                              # the module reads this block
+        dims.append(_MeshDim(n, mesh.get_local_rank(i), mesh.get_group(i), shard,
+                             i in batch_dims or model))
     return tuple(dims)
 
 
@@ -136,7 +161,8 @@ class _Gather(torch.autograd.Function):
 class ParamGather:
     """Gathers laid-out parameters whole: ``gather(name, p)`` is ``p``'s
     whole value as a plain tensor (module docstring); the same on a plain
-    ``p`` that holds no layout.
+    ``p`` that holds no layout.  ``gather(name, p, role)``: as a split
+    module reads it (the model axis, module docstring).
 
     ``batch_dims``: the mesh dims the gradients are summed over (default
     ``batch_mesh_dims`` of the parameter's mesh); ``dtype``: each rank's
@@ -152,16 +178,17 @@ class ParamGather:
         self.peak_bytes = 0
         self._lock = threading.Lock()
 
-    def __call__(self, name: str, p: torch.Tensor) -> torch.Tensor:
+    def __call__(self, name: str, p: torch.Tensor, role: Optional[Role] = None
+                 ) -> torch.Tensor:
         if not is_dtensor(p):
-            return p
+            return p if role is None else sum_grad(p, role[0])
         dims = (self.batch_dims if self.batch_dims is not None
                 else batch_mesh_dims(p.device_mesh.mesh_dim_names))
-        plan, local = _plan(p, dims), p.to_local()
+        plan, local = _plan(p, dims, role), p.to_local()
         if self.dtype is not None and local.dtype == torch.float32:
             local = local.to(self.dtype)
-        if not plan:
-            return local
+        if not plan:   # a view: the block itself can pass for a Parameter
+            return local.view_as(local)
         whole = _Gather.apply(local, plan)
         if any(d.shard is not None for d in plan):
             self._count(whole)

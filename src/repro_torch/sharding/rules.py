@@ -28,6 +28,11 @@ axis drops out); ``distribute_model`` places the parameters so.
 rules, or on a plain tensor, it returns ``x``; on a DTensor it
 redistributes to the spec *with* ``allow_uneven``.  The single-process
 paths (serving and its CUDA graphs among them) see plain tensors only.
+The split of heads, channels and the vocabulary across the ranks of a
+mesh axis does not live in ``constrain``: each split module computes its
+block of plain tensors and all-reduces what leaves it
+(``sharding/tensor_parallel.py``), on the axis ``AxisRules.split_axis``
+names.
 """
 
 from __future__ import annotations
@@ -102,6 +107,27 @@ class AxisRules:
         while entries and entries[-1] is None:
             entries.pop()
         return tuple(entries)
+
+    def split_axis(self, name: str, n: int, *, scans: bool = False) -> Optional[str]:
+        """The mesh axis the logical activation ``name`` (a dim of ``n``) is
+        split on across ranks, or None: ``spec(..., allow_uneven=True)``'s
+        axis, where it is one axis of more than one rank.  Heads and
+        channels split only where they divide it; the vocabulary
+        (``act_vocab``) keeps a padded uneven split.  ``scans``: None where
+        ``scan_seq`` maps to the same axis (the recurrent layers then
+        time-shard with whole heads; ``sharding/tensor_parallel.py``)."""
+        spec = self.spec((n,), (name,), allow_uneven=True)
+        if not spec or spec[0] is None:
+            return None
+        axes = (spec[0],) if isinstance(spec[0], str) else tuple(spec[0])
+        if len(axes) != 1:
+            raise NotImplementedError(f"{name!r} split over several mesh axes {axes}")
+        axis, size = axes[0], self.mesh.shape[axes[0]]
+        if size == 1 or (name != "act_vocab" and n % size):
+            return None
+        if scans and axis in self.mesh_axes_for("scan_seq"):
+            return None
+        return axis
 
 
 def _base_table(batch_axes: Tuple[str, ...]) -> Dict[str, MeshAxes]:
@@ -182,7 +208,9 @@ def is_dtensor(x) -> bool:
 
 def constrain(x, *names: Optional[str]):
     """Redistribute a DTensor to the active rules' spec for ``names`` (uneven
-    splits allowed); anything else, and everything without rules, as it is."""
+    splits allowed); anything else, and everything without rules, as it is.
+    A split module's plain activations are its rank's block already
+    (``sharding/tensor_parallel.py``), so they pass through."""
     rules = current_rules()
     if rules is None or not is_dtensor(x):
         return x

@@ -12,7 +12,9 @@ Distribution takes one of two forms:
 
   * data parallel over ``data_group`` (a ``torch.distributed`` group whose
     ranks hold the same plain parameters and each a slice of the global
-    batch): the gradients are averaged over it before the clip;
+    batch): the gradients are averaged over it before the clip (under
+    rules that split the model axis, a split module's gradient is summed
+    over that axis in the backward, so every rank holds it whole);
   * parameters laid out as DTensors (``sharding.distribute_model``: JAX's
     ``param_shardings``, FSDP over the data axes and the model axis's
     splits): the model gathers each period's parameters as it enters the
@@ -25,9 +27,13 @@ Distribution takes one of two forms:
     the step divides by their size: the mean, once.  Each rank runs on its
     slice of the batch.  The moments follow their parameters (JAX's
     ``state_shardings``), the global-norm clip sums over every shard, and
-    the update runs on each rank's blocks.  The compute along the model
-    axis is the same on every rank of it (no activation is split over
-    heads or the MLP's width; see PERF.md).  The step's gather is
+    the update runs on each rank's blocks.  Under rules that split heads,
+    channels or the vocabulary on the model axis, each rank of it computes
+    its block (``sharding/tensor_parallel.py``): a split module's weights
+    reach it as the rank's block, gathered over the batch axes only, and
+    their gradients stay that block; the clip's sum of squares counts a
+    split leaf once a block and a replicated one once
+    (``optimizer.global_norm``).  The step's gather is
     ``train_step.param_gather`` (it counts the gathered bytes alive).
 
 Sequence sharding needs nothing here: under the launcher's rules the

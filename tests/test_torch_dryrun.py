@@ -27,7 +27,16 @@
 * the analytic collectives against a laid-out step's on a (2, 2) gloo CPU
   mesh (``CommDebugMode``'s counts by kind, and every collective's result
   bytes), with and without ``cast_params_bf16``, and under ``remat="full"``
-  (each period gathered again in its recomputation);
+  (each period gathered again in its recomputation); the default rules
+  split goom-rnn's heads and vocabulary on "model", so the parameters'
+  collectives follow the split roles and the rank's split activation
+  collectives (the port's listener) make up the rest;
+* the model axis on the (16, 16) mesh: a smoke config with 16 heads, 256
+  MLP channels and a vocabulary of 256 runs its block on each rank, its
+  activations and FLOPs below the same cell with the split switched off
+  (``torch_dist_workers.FSDP_ONLY``), its split all-reduces counted and its
+  split weights' gathers over "model" gone; its prefill holds its block of
+  the KV heads, JAX's ``cache_shard_bytes``;
 * ``cast_params_bf16``: the port's step against JAX's for 2 steps from the
   same weights, losses within rtol 1e-5.  Both packages round the f32
   weights to the same bf16 values (to nearest even), so both forwards run
@@ -61,6 +70,7 @@ from repro_torch.kernels.goom_scan import diagonal_scan_cuda, matrix_scan_cuda
 from repro_torch.kernels.lmme import lmme_cuda
 from repro_torch.launch import cost, dryrun
 from repro_torch.launch.mesh import make_production_mesh, spawn_ranks
+from repro_torch.launch.roofline import CollectiveOp
 from repro_torch.sharding import NamedMesh, make_rules, param_specs
 from repro_torch.sharding.layout import shard_shape
 from repro_torch.train import AdamW, DataConfig, SyntheticStream, cosine_schedule
@@ -245,7 +255,8 @@ def test_train_and_decode_cells_on_the_production_mesh(capsys):
     assert mem["trace_state_bytes"] == mem["moment_shard_bytes"]
     assert mem["peak_bytes"] == mem["param_shard_bytes"] + mem["moment_shard_bytes"] \
         + mem["above_state_bytes"]
-    assert mem["gathered_param_bytes"] == dryrun.gathered_bytes(model) < mem["param_bytes"]
+    assert mem["gathered_param_bytes"] == dryrun.gathered_bytes(
+        model, rules=make_rules(mesh)) < dryrun.gathered_bytes(model) < mem["param_bytes"]
     assert rf.launches["lmme"] > 0 and rf.collective_bytes > 0
     assert rf.step_time_s == max(rf.compute_s, rf.memory_s, rf.collective_s) > 0
     # with scan_seq on "model", each goom layer adds the gather of its output
@@ -288,7 +299,10 @@ def _check_collectives(r0, cast, remat):
     cfg = dataclasses.replace(get_config("goom-rnn-124m", smoke=True), remat=remat)
     ops = dryrun.train_collectives(rules, params, r0["specs"], cast_params_bf16=cast,
                                    n_metrics=r0["n_metrics"],
-                                   counts=dryrun.gather_counts(cfg, params))
+                                   counts=dryrun.gather_counts(cfg, params), roles=r0["roles"])
+    # the split modules' activation collectives, as the rank's listener saw them
+    ops += [CollectiveOp(kind, n, size) for kind, n, size in r0["split_ops"]]
+    assert r0["split_ops"] and r0["roles"]
     counts = {}
     for op in ops:
         counts[op.kind] = counts.get(op.kind, 0) + 1
@@ -348,3 +362,44 @@ def test_cast_params_bf16_tracks_jax():
         got.append(float(m["loss"]))
     assert all(p.dtype == torch.float32 for p in model.parameters())
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def _heads16(arch):
+    """``arch``'s smoke config with 16 query and KV heads of 4 and 256 MLP
+    channels: every split the (16, 16) mesh's model axis can take."""
+    cfg = get_config(arch, smoke=True)
+
+    def blk(b):
+        attn = dataclasses.replace(b.attn, n_heads=16, n_kv_heads=16, head_dim=4)
+        return dataclasses.replace(b, attn=attn, mlp=dataclasses.replace(b.mlp, d_ff=256))
+
+    from repro_torch.configs.base import transform_blocks
+
+    return transform_blocks(dataclasses.replace(cfg, logit_chunk=16), blk)
+
+
+def test_model_axis_shrinks_a_ranks_cells():
+    """On the (16, 16) mesh a rank of a model whose heads, channels and
+    vocabulary divide 16 runs its block: its train step's activations and
+    FLOPs fall below those of the same cell with the split switched off,
+    the split's all-reduces are counted and its weights' gathers over
+    "model" are not, and its prefill holds its block of the KV heads,
+    JAX's ``cache_shard_bytes``."""
+    mesh = make_production_mesh()
+    cfg = _heads16("olmo-1b")
+    shape = ShapeCfg("t", 32, 32, "train")
+    whole = dryrun.lower_cell(cfg, shape, mesh, rules_overrides=workers.FSDP_ONLY,
+                              verbose=False)
+    split = dryrun.lower_cell(cfg, shape, mesh, verbose=False)
+    ws, ss = whole.memory_per_device, split.memory_per_device
+    assert ss["trace_activations_bytes"] < ws["trace_activations_bytes"]
+    assert ss["above_state_bytes"] < ws["above_state_bytes"]
+    assert split.hlo_flops < whole.hlo_flops / 2
+    # the activations' all-reduces are counted; the split weights' gathers
+    # over "model" are gone
+    assert split.collective_by_kind["all-reduce"] > whole.collective_by_kind["all-reduce"]
+    assert split.collective_by_kind["all-gather"] < whole.collective_by_kind["all-gather"]
+    pre = dryrun.lower_cell(cfg, ShapeCfg("p", 64, 32, "prefill"), mesh, verbose=False)
+    mem = pre.memory_per_device
+    kv = sum(v for k, v in mem.items() if k == "cache_shard_bytes")
+    assert mem["cache_bytes"] == kv > 0

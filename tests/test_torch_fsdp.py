@@ -36,7 +36,11 @@ parameter's layout.  Held here:
   and keeps them plain at 2;
 * a ``prefill_32k``-style cell on the production mesh holds the blocks.
 
-The ranks are ``tests/test_torch_train_dtensor.py``'s spawns
+The ranks lay the parameters out under the default rules with no
+activation split (``torch_dist_workers.FSDP_ONLY``), so each rank of the
+model axis computes whole heads and the one-process checks stay to the
+bit; the split of heads, channels and the vocabulary across ranks is held
+in ``tests/test_torch_model_axis.py``.  The ranks are ``tests/test_torch_train_dtensor.py``'s spawns
 (``torch_dist_workers.layouts_ranks``: ``layouts_world2`` and
 ``layouts_world4`` run these cases too).
 """

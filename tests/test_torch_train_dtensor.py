@@ -21,6 +21,9 @@ against one process.
 * the launcher refuses ``--mesh production`` and ``production-multipod``
   off their worlds, naming them.
 
+The layouts' rules switch the activations' split across ranks off
+(``torch_dist_workers.FSDP_ONLY``): the parameters' splits are held here,
+the model axis's split of the compute in ``tests/test_torch_model_axis.py``.
 The ranks are spawned twice a test run (2 and 4 ranks, ``spawn_ranks``),
 each spawn under its own time limit, and shared with
 ``tests/test_torch_fsdp.py`` (``torch_dist_workers.layouts_ranks``).

@@ -24,6 +24,12 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
+#: the rules' overrides that lay the parameters out on every mesh axis but
+#: split no activation across ranks (no model-axis split of heads, channels
+#: or the vocabulary): the FSDP cases held to one process to the bit
+FSDP_ONLY = {"act_heads": None, "act_kv_heads": None, "act_mlp": None, "act_vocab": None}
+
+
 def _g(pair):
     return None if pair is None else Goom(torch.tensor(pair[0]), torch.tensor(pair[1]))
 
@@ -172,7 +178,8 @@ def _layout_run(shape, steps, variant="shared_a", seq_shards=False, restore=None
                                    make_train_step, state_tree)
 
     mesh = _device_mesh(shape, ("data", "model"), "cpu")
-    rules = make_rules(mesh, overrides={"scan_seq": "model"} if seq_shards else None)
+    rules = make_rules(mesh, overrides=dict(FSDP_ONLY, **({"scan_seq": "model"}
+                                                          if seq_shards else {})))
     model, opt = _train_model(variant)
     distribute_model(model, rules)
     state = init_train_state(model, opt)
@@ -372,7 +379,7 @@ def _fsdp_step(shape, arch, steps=1, int8=False):
     from repro_torch.train.train_loop import _whole
 
     mesh = _device_mesh(shape, ("data", "model"), "cpu")
-    rules = make_rules(mesh)
+    rules = make_rules(mesh, FSDP_ONLY)
     comp = "int8" if int8 else None
     out = {}
     model = _fsdp_model(arch)
@@ -548,6 +555,7 @@ def _dtensor_step_collectives(cast_params_bf16, remat):
     from repro_torch.core import engine as eng
     from repro_torch.launch.mesh import _device_mesh
     from repro_torch.sharding import distribute_model, make_rules, param_specs, use_rules
+    from repro_torch.sharding import tensor_parallel
     from repro_torch.train import init_train_state, make_train_step
 
     _one_thread()
@@ -584,7 +592,9 @@ def _dtensor_step_collectives(cast_params_bf16, remat):
     state = init_train_state(model, opt)
     step = make_train_step(model, opt, rules=rules, cast_params_bf16=cast_params_bf16)
     comm = CommDebugMode()
-    with use_rules(rules), eng.use_backend("torch_reference"), comm, Record():
+    split_ops = []
+    with use_rules(rules), eng.use_backend("torch_reference"), comm, Record(), \
+            tensor_parallel.listening(lambda kind, n, size: split_ops.append((kind, n, size))):
         state, metrics = step(state, _rank_batch(rules, mesh, 0))
     names = {"_allgather_base_": "all_gather_into_tensor", "allreduce_": "all_reduce",
              "_reduce_scatter_base_": "reduce_scatter_tensor"}
@@ -593,4 +603,196 @@ def _dtensor_step_collectives(cast_params_bf16, remat):
         k = str(k).split(".")[-1]
         counts[names.get(k, k)] = counts.get(names.get(k, k), 0) + v
     return {"counts": counts, "seen": seen, "specs": specs, "shapes": shapes,
-            "n_metrics": len(metrics) - 2}
+            "n_metrics": len(metrics) - 2, "split_ops": split_ops,
+            "roles": model.split_roles(rules)}
+
+
+# ---------------------------------------------------------------------------
+# the model axis: heads, channels and the vocabulary split across ranks
+# ---------------------------------------------------------------------------
+#: (arch, goom scan variant) of the model-axis train cases
+MODEL_AXIS_TRAIN = (("goom-rnn-124m", "shared_a"), ("goom-rnn-124m", "generic"),
+                    ("olmo-1b", None), ("gemma3-1b", None), ("jamba-v0.1", None))
+#: the prefill cases: olmo's 4 KV heads split, gemma3's one replicated
+MODEL_AXIS_PREFILL = ("olmo-1b", "gemma3-1b")
+#: the prefill's prompts (rows, tokens) and cache length
+MODEL_AXIS_PROMPT = (2, 12, 16)
+
+
+def model_axis_model(arch, variant=None, f64=False):
+    """``arch``'s smoke model (``variant`` for goom-rnn) at f32 compute on
+    the seed-0 weights; with ``f64`` the same weights cast to float64 and
+    float64 compute (the one-process yardstick)."""
+    model = _smoke_model(arch, variant)
+    if f64:
+        cfg = model.cfg
+        model = model.double()
+        model.cfg = dataclasses.replace(cfg, compute_dtype=torch.float64,
+                                        param_dtype=torch.float64)
+    return model
+
+
+def model_axis_prompt():
+    rows, n, _ = MODEL_AXIS_PROMPT
+    return torch.as_tensor(np.random.default_rng(3).integers(0, 256, (rows, n)))
+
+
+class _Recording:
+    """A ``ParamGather`` that keeps the shape of what it hands each name."""
+
+    def __init__(self, gather):
+        self.gather, self.shapes = gather, {}
+
+    def __call__(self, name, p, role=None):
+        out = self.gather(name, p, role)
+        self.shapes[name] = tuple(out.shape)
+        return out
+
+
+def _model_axis_grads(rules, mesh, arch, variant, laid):
+    """The first-step loss, the clip's global norm and the whole gradients
+    of ``arch`` on this rank's batch slice, its parameters laid out
+    (``laid``) or plain, under ``rules``: each rank's loss and gradients
+    are averaged over the batch ranks, as the train step does
+    (``make_train_step``); the shape each parameter reached its module in."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import distribute_model, use_rules
+    from repro_torch.sharding.gather import ParamGather, batch_mesh_dims, full_tensor
+    from repro_torch.train.optimizer import global_norm
+
+    model = model_axis_model(arch, variant)
+    if laid:
+        distribute_model(model, rules)
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    b = _rank_batch(rules, mesh, 0)
+    dims = batch_mesh_dims(mesh.axis_names, rules)
+    n_batch = int(np.prod([mesh.shape[mesh.axis_names[i]] for i in dims]))
+    gather = _Recording(ParamGather(dims))
+    with use_rules(rules), engine.use_backend("torch_reference"):
+        loss, _ = model.loss(b["tokens"], b["labels"], param_gather=gather)
+        grads = torch.autograd.grad(loss, params)
+    if not laid and n_batch > 1:   # plain parameters: the data ranks' mean by hand
+        for g in grads:
+            dist.all_reduce(g, group=mesh.get_group("data"))
+    norm = float(global_norm(list(grads))) / n_batch    # the clip's, over the layout
+    grads = [full_tensor(g) / n_batch for g in grads]
+    loss = loss.detach().clone()
+    if n_batch > 1:
+        dist.all_reduce(loss, group=mesh.get_group("data"))
+    return {"loss": float(loss) / n_batch, "norm": norm,
+            "grads": {n: g.detach().numpy() for n, g in zip(names, grads)},
+            "gathered": gather.shapes, "roles": model.split_roles(rules)}
+
+
+def _model_axis_prefill(rules, arch):
+    """A fresh-cache prefill of ``MODEL_AXIS_PROMPT`` with the smoke model
+    laid out under ``rules``: the last logits and every cache leaf."""
+    from repro_torch.serve.steps import make_prefill_step
+    from repro_torch.sharding import distribute_model, use_rules
+
+    model = model_axis_model(arch).requires_grad_(False)
+    distribute_model(model, rules)
+    with use_rules(rules):
+        caches = model.init_caches(MODEL_AXIS_PROMPT[0], MODEL_AXIS_PROMPT[2])
+    step = make_prefill_step(model, backend="torch_reference", fresh_caches=True)
+    with use_rules(rules):
+        logits, caches = step(model_axis_prompt(), caches)
+    return {"logits": logits.numpy(),
+            "caches": [{k: v.float().numpy() for k, v in layer.items()} for layer in caches]}
+
+
+def model_axis_world(rank, shape):
+    """The model-axis cases on a ``shape`` ("data", "model") mesh under the
+    default rules: each train case's loss and gradients laid out, goom-rnn's
+    also with plain parameters (the launcher's branch for gloo ranks that
+    share a card), and on (1, 2) each prefill case."""
+    from repro_torch.launch.mesh import _device_mesh
+    from repro_torch.sharding import make_rules
+
+    _one_thread()
+    mesh = _device_mesh(shape, ("data", "model"), "cpu")
+    rules = make_rules(mesh)
+    out = {"train": {case: _model_axis_grads(rules, mesh, *case, laid=True)
+                     for case in MODEL_AXIS_TRAIN},
+           "plain": _model_axis_grads(rules, mesh, "goom-rnn-124m", "shared_a", laid=False)}
+    if shape == (1, 2):
+        out["prefill"] = {arch: _model_axis_prefill(rules, arch) for arch in MODEL_AXIS_PREFILL}
+        out["vocab"] = _vocab_case(rules)
+        out["other_thread"] = _backward_on_another_thread(rules, mesh)
+    return out
+
+
+def _backward_on_another_thread(rules, mesh):
+    """goom-rnn smoke laid out under ``rules`` (remat ``full``): its loss made
+    on this thread, its gradients once here and once on a thread that holds
+    no rules, as autograd's device thread runs a CUDA tensor's backward and
+    the periods' recomputation with it: the largest difference."""
+    import threading
+
+    from repro_torch.sharding import distribute_model, use_rules
+    from repro_torch.sharding.gather import ParamGather, full_tensor
+
+    grads = []
+    for other in (False, True):
+        model = model_axis_model("goom-rnn-124m", "shared_a")
+        assert model.cfg.remat == "full"
+        distribute_model(model, rules)
+        params = list(model.parameters())
+        b = _rank_batch(rules, mesh, 0)
+        with use_rules(rules), engine.use_backend("torch_reference"):
+            loss, _ = model.loss(b["tokens"], b["labels"], param_gather=ParamGather((0,)))
+            if not other:
+                got = torch.autograd.grad(loss, params)
+        if other:
+            box = {}
+
+            def run():
+                with engine.use_backend("torch_reference"):
+                    box["g"] = torch.autograd.grad(loss, params)
+
+            t = threading.Thread(target=run)
+            t.start()
+            t.join()
+            got = box["g"]
+        grads.append([full_tensor(g) for g in got])
+    return max(float((a - b).abs().max()) for a, b in zip(*grads))
+
+
+#: the vocabulary-split case: a vocabulary that two ranks split unevenly
+VOCAB_CASE = dict(vocab=11, rows=3, tokens=5, d=4)
+
+
+def vocab_case_inputs():
+    """Logits (rows, tokens, vocab), labels with a masked -1, tokens and an
+    embedding table, from a seed."""
+    c = VOCAB_CASE
+    rng = np.random.default_rng(5)
+    logits = rng.standard_normal((c["rows"], c["tokens"], c["vocab"])).astype(np.float32) * 3
+    labels = rng.integers(0, c["vocab"], (c["rows"], c["tokens"]))
+    labels[0, 1] = -1
+    table = rng.standard_normal((c["vocab"], c["d"])).astype(np.float32)
+    return logits, labels, labels.clip(0), table
+
+
+def _vocab_case(rules):
+    """This rank's split NLL of ``vocab_case_inputs`` (its block of the
+    logits) with the gradient of its block, and its split embedding lookup
+    with the gradient of the whole table (a plain parameter read split)."""
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.sharding import use_rules
+
+    logits, labels, tokens, table = vocab_case_inputs()
+    v = VOCAB_CASE["vocab"]
+    with use_rules(rules):
+        sp = tp.split_of("act_vocab", v)
+        lo, k = sp.block(v)
+        block = torch.tensor(logits[..., lo:lo + k], requires_grad=True)
+        nll = tp.split_nll(block, torch.tensor(labels), sp, v)
+        (g_block,) = torch.autograd.grad(nll, [block])
+        w = torch.tensor(table, requires_grad=True)
+        x = tp.embedding(torch.tensor(tokens), tp.sum_grad(w, sp), sp, v)
+        (g_w,) = torch.autograd.grad((x * torch.arange(x.numel()).view_as(x)).sum(), [w])
+    return {"block": (lo, k), "nll": float(nll), "grad": g_block.numpy(),
+            "embed": x.detach().numpy(), "embed_grad": g_w.numpy()}
