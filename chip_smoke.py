@@ -534,18 +534,21 @@ def kernel_phase():
 
 # RWKV6's WKV score products (models/ssm.py::rwkv6_scan): 64 heads of 64,
 # (B, H, L, D) ∘ (B, H, D, L) with the second operand k's transposed view;
-# name, B, L
+# name, B, L, H; the model axis's cases are a (1, 2) rank's 32 heads at
+# ``model_axis_rest``'s prefill chunk (B=2, rwkv6-7b's chunk of 128) and decode
 RWKV6_LMME_CASES = [
-    ("rwkv6 decode (4,64,1,64)x(4,64,64,1)", 4, 1),
-    ("rwkv6 chunk (1,64,64,64)x(1,64,64,64)", 1, 64),
-    ("rwkv6 tail (1,64,1,64)x(1,64,64,1)", 1, 1),
+    ("rwkv6 decode (4,64,1,64)x(4,64,64,1)", 4, 1, 64),
+    ("rwkv6 chunk (1,64,64,64)x(1,64,64,64)", 1, 64, 64),
+    ("rwkv6 tail (1,64,1,64)x(1,64,64,1)", 1, 1, 64),
+    ("rwkv6 model axis chunk (2,32,128,64)x(2,32,64,128)", 2, 128, 32),
+    ("rwkv6 model axis decode (2,32,1,64)x(2,32,64,1)", 2, 1, 32),
 ]
 RWKV6_STRONG_DECAY = -60.0   # log a every step and dim: e^-60
 #: the operand kinds each RWKV6 shape runs on (``rwkv6_lmme_operands``)
 RWKV6_LMME_KINDS = ("e200", "decay", "decay_spread")
 
 
-def rwkv6_lmme_operands(b, length, kind, gen):
+def rwkv6_lmme_operands(b, length, kind, gen, heads=64):
     """The WKV's score operands as ``rwkv6_scan`` builds them from r, k ~
     N(0, 1): log r~ = log|r| + cum_prev and log k~ = log|k| - cum, the second
     passed as the (B, H, D, L) transposed view.  ``kind="e200"``: no decay,
@@ -560,13 +563,13 @@ def rwkv6_lmme_operands(b, length, kind, gen):
 
     from repro_torch.core.goom import Goom, nonzero_sign
 
-    shape = (b, 64, length, 64)
+    shape = (b, heads, length, 64)
     r = torch.randn(shape, generator=gen, device="cuda")
     k = torch.randn(shape, generator=gen, device="cuda")
     if kind in ("decay", "decay_spread"):
         la = torch.full(shape, RWKV6_STRONG_DECAY, device="cuda")
         if kind == "decay_spread":
-            la = la * (0.25 + 0.75 * torch.rand((b, 64, 1, 64), generator=gen,
+            la = la * (0.25 + 0.75 * torch.rand((b, heads, 1, 64), generator=gen,
                                                 device="cuda"))
         cum = torch.cumsum(la, dim=-2)
         rl, kl = r.abs().log() + (cum - la), k.abs().log() - cum
@@ -597,9 +600,9 @@ def rwkv6_lmme_phase():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
     rows = {}
-    for name, b, length in RWKV6_LMME_CASES:
+    for name, b, length, heads in RWKV6_LMME_CASES:
         for kind in RWKV6_LMME_KINDS:
-            a, bk = rwkv6_lmme_operands(b, length, kind, gen)
+            a, bk = rwkv6_lmme_operands(b, length, kind, gen, heads)
             batched = lmme_cuda.launches_batched
             got = lmme_cuda(a, bk)
             torch.cuda.synchronize()
@@ -641,7 +644,8 @@ def rwkv6_lmme_phase():
                      f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
             print(f"lmme {name} {kind}: {plan} launch shape, {timed}, bound {bound:.6f} ms "
                   f"({bound_by}), max normalised error {err:.2e}{zeros}", flush=True)
-    check(all(r["plan"] == ("tiled" if "chunk" in n else "batched") for n, r in rows.items()),
+    check(all(r["plan"] == ("tiled" if "chunk" in n else "batched") for n, r in rows.items()
+              if "model axis" not in n),
           f"LMME launch shapes at RWKV6's shapes: {[(n, r['plan']) for n, r in rows.items()]}")
     return rows
 
@@ -3084,11 +3088,11 @@ def f64_gaps(run, got_mu, one):
             "one_leaves": {n: leaf_distance(one["mu"][n], f["mu"][n]) for n in f["mu"]}}
 
 
-def check_f64(gaps, label):
+def check_f64(gaps, label, leaves_are="first moments"):
     """``f64_gaps`` printed, then held: the run's loss and gradient norm
     within F64_SPREAD times one process's distance to float64 (floored at
     F64_LOSS_FLOOR and F64_NORM_FLOOR), every leaf within F64_SPREAD times one
-    process's worst leaf."""
+    process's worst leaf (``leaves_are``: what the leaves hold)."""
     leaves, one = gaps["leaves"], gaps["one_leaves"]
     worst, one_worst = max(leaves, key=leaves.get), max(one, key=one.get)
     bars = {"loss": F64_SPREAD * max(gaps["loss"][1], F64_LOSS_FLOOR),
@@ -3098,7 +3102,7 @@ def check_f64(gaps, label):
           f"and batch; the run / one process at its dtype): loss {gaps['loss'][0]:.3e} / "
           f"{gaps['loss'][1]:.3e} (bar {bars['loss']:.3e}), gradient norm "
           f"{gaps['norm'][0]:.3e} / {gaps['norm'][1]:.3e} (bar {bars['norm']:.3e}); "
-          f"{len(leaves)} leaves' first moments, the run's worst {worst} {leaves[worst]:.3e}, "
+          f"{len(leaves)} leaves' {leaves_are}, the run's worst {worst} {leaves[worst]:.3e}, "
           f"one process's worst {one_worst} {one[one_worst]:.3e} (bar {bars['leaf']:.3e})",
           flush=True)
     check(gaps["loss"][0] <= bars["loss"], f"{label}: loss {gaps['loss']} from float64")
@@ -3290,8 +3294,9 @@ MODEL_AXIS_REF = str(ROOT / "build" / "chip_smoke_model_axis_ref.pt")
 
 def model_axis_dryrun_cells() -> dict:
     """The dry-run's (1, 2) rank of ``model_axis_phase``'s runs: goom-rnn-124m's
-    train step (``fsdp_dryrun_cells``' shape, ``shared_a``, remat full) and
-    olmo-1b's fresh-cache prefill of MODEL_AXIS_PREFILL."""
+    train step (``fsdp_dryrun_cells``' shape, ``shared_a``, remat full),
+    olmo-1b's fresh-cache prefill of MODEL_AXIS_PREFILL and gemma3-1b's of
+    REST_GEMMA_PREFILL (``rest_dryrun_cell``)."""
     from repro_torch import get_config
     from repro_torch.configs import ShapeCfg
     from repro_torch.launch.dryrun import lower_cell
@@ -3305,7 +3310,8 @@ def model_axis_dryrun_cells() -> dict:
                                 perf={"remat": "full", "microbatches": 1}).to_dict(),
             "prefill": lower_cell(model_axis_olmo(), ShapeCfg("chip_prefill", n, rows,
                                                               "prefill"),
-                                  mesh, verbose=False).to_dict()}
+                                  mesh, verbose=False).to_dict(),
+            "rest_prefill": rest_dryrun_cell()}
 
 
 def model_axis_olmo():
@@ -3410,7 +3416,8 @@ def _model_axis_rank(rank, device):
     prefill of MODEL_AXIS_PREFILL, the peak above the floor (a warm-up
     prefill first), the last logits and each layer's cache against the
     rank's block of one process's (``MODEL_AXIS_REF``); then
-    ``_kernel_at_split_shapes``."""
+    ``_kernel_at_split_shapes``; then ``_model_axis_rest_rank`` (one spawn
+    for both: a rank's start costs seconds)."""
     import torch
 
     global DEVICE
@@ -3457,6 +3464,8 @@ def _model_axis_rank(rank, device):
     del model, caches, ref
     free_memory()
     out["kernels"] = _kernel_at_split_shapes(rules)
+    free_memory()
+    out["rest"] = _model_axis_rest_rank(rank, mesh)
     return out
 
 
@@ -3511,7 +3520,8 @@ def model_axis_phase(cells: dict, launcher: dict):
     diagonal scan at Jamba smoke's di/2 = 64 channels, on the operands the
     split layers handed them: each kernel's distance to the float64 plain
     version within twice the f32 plain version's (the kernel phases' bar),
-    and every launch an engine call."""
+    and every launch an engine call.  Then ``model_axis_rest``: RWKV6,
+    the MoE experts and gemma3's sequence-split caches on the same ranks."""
     ma = launcher["model_axis"]
     run, one = ma["run"], ma["one"]
     label = ("model axis: goom-rnn-124m --model-shards 2 (2 gloo ranks on one card, (1, 2), "
@@ -3543,17 +3553,30 @@ def model_axis_phase(cells: dict, launcher: dict):
 
 def model_axis_ranks(cells: dict):
     """``model_axis_phase``'s 2 ranks: olmo-1b's prefill against one
-    process's and the kernels at the split layers' shapes."""
+    process's, the kernels at the split layers' shapes and
+    ``model_axis_rest``'s cases."""
     from repro_torch.launch.mesh import spawn_ranks
 
-    # olmo-1b: one process's prefill first, the ranks' against it
+    # one process's runs first (olmo-1b's prefill, model_axis_rest's), the
+    # ranks' against them
     one_bytes, ref_logits = model_axis_reference()
     tokens = ref_logits.argmax(-1).tolist()
     rows, n = MODEL_AXIS_PREFILL
+    t0 = time.perf_counter()
     try:
-        got = spawn_ranks(_model_axis_rank, 2, DEVICE, timeout=600)
+        rest_one = model_axis_rest_reference()
+        t1 = time.perf_counter()
+        got = spawn_ranks(_model_axis_rank, 2, DEVICE, timeout=900)
     finally:
         pathlib.Path(MODEL_AXIS_REF).unlink(missing_ok=True)
+        pathlib.Path(MODEL_AXIS_REST_REF).unlink(missing_ok=True)
+    print(f"model axis rest: one process's runs {t1 - t0:.1f} s, the ranks' both parts "
+          f"{time.perf_counter() - t1:.1f} s (rank 0's rest parts, s: "
+          f"{ {k: round(v, 1) for k, v in got[0]['rest']['seconds'].items()} }; the float64 "
+          f"checks' parts on each rank: "
+          f"{[{a: f['seconds'] for a, f in r['rest']['f64'].items()} for r in got]})",
+          flush=True)
+    rest = model_axis_rest(cells["rest_prefill"], rest_one, [r.pop("rest") for r in got])
     pcell = cells["prefill"]["memory_per_device"]
     for rank, r in enumerate(got):
         ratio = pcell["above_state_bytes"] / (r["peak"] - r["floor"])
@@ -3598,7 +3621,557 @@ def model_axis_ranks(cells: dict):
               and a["matrix_scan_carry"]["shapes"][0][1] == local["matrix_scan_carry"]
               and a["diagonal_scan_carry"]["shapes"][1][2] == local["diagonal_scan_carry"],
               f"model axis rank {rank}: kernel shapes {a}")
-    return {"prefill": got, "one_cache_bytes": one_bytes, "kernels": kernels}
+    return {"prefill": got, "one_cache_bytes": one_bytes, "kernels": kernels, "rest": rest}
+
+
+# ---------------------------------------------------------------------------
+# phase 13c: the rest of the model axis (RWKV6, MoE experts, sequence-split
+# KV caches) on the same 2 gloo ranks, a (1, 2) mesh
+# ---------------------------------------------------------------------------
+#: rwkv6-7b at the serving phase's depth, and at 2 layers for the train step
+REST_RWKV_LAYERS, REST_RWKV_TRAIN_LAYERS = 4, 2
+#: mixtral-8x7b at the families phase's depth, and at 1 layer for the train
+#: step: at 2 its float64 parameters and gradients (3.2e9 of each, 51 GB)
+#: beside one process's f32 gradients ran the card out of memory (rank 0
+#: held 59.4 GiB of 79.18, the other rank and the parent the rest)
+REST_MIXTRAL_LAYERS, REST_MIXTRAL_TRAIN_LAYERS = 2, 1
+#: rwkv6's and mixtral's fresh prefill (rows, tokens), then REST_DECODES
+#: decode steps (rwkv6, gemma3)
+REST_PREFILL = (2, 512)
+REST_DECODES = 8
+#: gemma3-1b's fresh prefill (rows, tokens), its caches' sequence on "model"
+REST_GEMMA_PREFILL = (2, 8192)
+#: the first train step's batch (rows, tokens): one of rwkv6's 128-token chunks
+REST_TRAIN = (2, 128)
+MODEL_AXIS_REST_REF = str(ROOT / "build" / "chip_smoke_model_axis_rest_ref.pt")
+
+
+def rest_config(arch, layers=None):
+    """``arch`` at full width, f32 compute, cut to ``layers`` of its one
+    repeated layer (None: whole)."""
+    import torch
+
+    from repro_torch import get_config
+
+    cfg = dataclasses.replace(get_config(arch), compute_dtype=torch.float32)
+    if layers is None:
+        return cfg
+    check(len(cfg.groups) == 1 and len(cfg.groups[0].period) == 1, f"{arch}: one layer a period")
+    return dataclasses.replace(cfg, n_layers=layers, groups=(
+        dataclasses.replace(cfg.groups[0], n_periods=layers),))
+
+
+def rest_dryrun_cell() -> dict:
+    """The dry-run's (1, 2) rank of gemma3-1b's fresh prefill of
+    REST_GEMMA_PREFILL (f32 compute; one KV head: the caches' sequence on
+    "model", ``_serve_overrides``)."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.sharding import NamedMesh
+
+    rows, n = REST_GEMMA_PREFILL
+    return lower_cell(rest_config("gemma3-1b"), ShapeCfg("chip_prefill", n, rows, "prefill"),
+                      NamedMesh((1, 2), ("data", "model")), verbose=False).to_dict()
+
+
+def _build(cfg):
+    import torch
+
+    from repro_torch import DecoderLM
+
+    return DecoderLM(cfg, device=DEVICE,
+                     generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+
+
+def _prompt(cfg, rows, n, salt):
+    import torch
+
+    return torch.randint(0, cfg.vocab, (rows, n), device=DEVICE,
+                         generator=torch.Generator(device=DEVICE).manual_seed(SEED + salt))
+
+
+def _prefill_decode(model, prompt, max_len, feed=None, f32_kv=False, decodes=REST_DECODES):
+    """A fresh prefill of ``prompt`` into ``init_caches(rows, max_len)``
+    (under the caller's rules) and ``decodes`` decode steps on the card
+    (``_decode_steps``): (logits of each step's last position (steps, B, V)
+    f32, the caches after the prefill, the caches at the end).  ``f32_kv``:
+    the K/V caches in f32."""
+    from repro_torch.serve.steps import make_prefill_step
+
+    rows, n = prompt.shape
+    caches = model.init_caches(rows, max_len)
+    if f32_kv:
+        caches = [{k: v.float() if k in ("k", "v") else v for k, v in c.items()} for c in caches]
+    logits, first = make_prefill_step(model, backend="cuda", fresh_caches=True)(prompt, caches)
+    steps, caches = _decode_steps(model, first, logits[:, -1].float(), n, decodes, feed)
+    return steps, first, caches
+
+
+def _decode_steps(model, caches, logits, n, decodes, feed=None):
+    """``decodes`` decode steps from the caches of an ``n``-token prefill whose
+    last logits are ``logits`` (B, V), each fed ``feed[i]`` (B,) or else the
+    last step's argmax: (every step's logits (decodes + 1, B, V), caches)."""
+    import torch
+
+    from repro_torch.core import engine
+
+    steps = [logits]
+    index = torch.full((logits.shape[0],), n, dtype=torch.long, device=logits.device)
+    with torch.no_grad(), engine.use_backend("cuda"):
+        for i in range(decodes):
+            tok = steps[-1].argmax(-1) if feed is None else feed[i]
+            out, caches = model.decode_step(tok[:, None], caches, index)
+            steps.append(out[:, -1].float())
+            index = index + 1
+    return torch.stack(steps), caches
+
+
+def _state_bytes(caches, keys):
+    return sum(c[k].numel() * c[k].element_size() for c in caches for k in keys if k in c)
+
+
+def model_axis_rest_reference():
+    """One process's runs of ``model_axis_rest`` (same seeds), saved to
+    MODEL_AXIS_REST_REF for the ranks: rwkv6-7b's prefill and decode steps
+    and its ``wkv`` bytes; mixtral-8x7b's dropless prefill and its experts'
+    bytes; gemma3-1b's bf16 prefill (logits, caches, their bytes) and its
+    f32-KV prefill and decode steps."""
+    import torch
+
+    free_memory()
+    ref = {}
+    rows, n = REST_PREFILL
+    with torch.no_grad():
+        cfg = rest_config("rwkv6-7b", REST_RWKV_LAYERS)
+        model = _build(cfg)
+        prompt = _prompt(cfg, rows, n, 71)
+        steps, _, caches = _prefill_decode(model, prompt, n + REST_DECODES)
+        ref["rwkv6"] = {"prompt": prompt, "logits": steps, "feed": steps[:-1].argmax(-1),
+                        "wkv_bytes": _state_bytes(caches, ("wkv",))}
+        del model, caches
+        free_memory()
+        cfg = rest_config("mixtral-8x7b", REST_MIXTRAL_LAYERS)
+        model = _build(cfg)
+        prompt = _prompt(cfg, rows, n, 72)
+        steps, _, _ = _prefill_decode(model, prompt, n, decodes=0)
+        ref["mixtral"] = {"prompt": prompt, "logits": steps, "expert_bytes": sum(
+            p.numel() * p.element_size() for name, p in model.named_parameters()
+            if name.rsplit(".", 1)[-1] in ("gate", "up", "down"))}
+        del model
+        free_memory()
+        cfg = rest_config("gemma3-1b")
+        model = _build(cfg)
+        g_rows, g_n = REST_GEMMA_PREFILL
+        prompt = _prompt(cfg, g_rows, g_n, 73)
+        steps, _, _ = _prefill_decode(model, prompt, g_n + REST_DECODES, f32_kv=True)
+        feed = steps[:-1].argmax(-1)
+        bf16, first, _ = _prefill_decode(model, prompt, g_n + REST_DECODES, feed=feed)
+        ref["gemma3"] = {"prompt": prompt, "logits": bf16[:1], "f32_logits": steps,
+                         "feed": feed, "bf16_logits": bf16,
+                         "caches": [{k: c[k] for k in ("k", "v")} for c in first],
+                         "cache_bytes": _state_bytes(first, ("k", "v"))}
+        del model, first
+    torch.save(ref, MODEL_AXIS_REST_REF)
+    free_memory()
+    return {k: {n: v.cpu() if n.endswith("logits") else v for n, v in r.items()
+                if n.endswith(("bytes", "logits"))} for k, r in ref.items()}
+
+
+def _record_lmme(calls):
+    """Wrap ``engine.lmme`` so that its first call at each pair of operand
+    shapes keeps its operands (``calls[shapes]``); returns the restore."""
+    from repro_torch.core import engine
+
+    fn = engine.lmme
+
+    def wrapped(a, b, *args, **kw):
+        key = (tuple(a.log_abs.shape), tuple(b.log_abs.shape))
+        if key not in calls:
+            calls[key] = [type(x)(x.log_abs.clone(), x.sign.clone()) for x in (a, b)]
+        return fn(a, b, *args, **kw)
+
+    engine.lmme = wrapped
+    return lambda: setattr(engine, "lmme", fn)
+
+
+def _kernel_hold(args):
+    """The LMME kernel on ``args`` against the float64 plain version, beside
+    the f32 plain version (``_kernel_at_split_shapes``' measure)."""
+    import torch
+
+    from repro_torch.core import engine
+
+    with torch.no_grad():
+        with engine.use_backend("cuda"):
+            got = engine.lmme(*args)
+        with engine.use_backend("torch_reference"):
+            plain = engine.lmme(*args)
+            exact = engine.lmme(*(_as(a, torch.float64) for a in args))
+            scale = engine.lmme(*(_as(a, torch.float64, True) for a in args))
+    return {"dist": goom_dist(got, exact, scale.log_abs),
+            "plain_dist": goom_dist(plain, exact, scale.log_abs),
+            "finite": bool(torch.isfinite(got.log_abs).eq(torch.isfinite(plain.log_abs)).all())}
+
+
+def _gaps(steps, want):
+    """Each step's largest logit gap over the reference step's std, and the
+    argmax tokens (steps, B)."""
+    gaps = [float((a - b).abs().max() / b.std()) for a, b in zip(steps, want)]
+    return max(gaps), steps.argmax(-1).tolist()
+
+
+def _block_bytes(model, leaves):
+    """The bytes of ``model``'s parameters named ``leaves`` as this rank holds them."""
+    total = 0
+    for name, p in model.named_parameters():
+        if name.rsplit(".", 1)[-1] in leaves:
+            local = p.to_local() if hasattr(p, "to_local") else p
+            total += local.numel() * local.element_size()
+    return total
+
+
+def _rest_rank_serve(rank, rules, ref):
+    """rwkv6-7b's and mixtral-8x7b's prefill (and rwkv6's decode steps) laid
+    out on this rank, fed the reference's tokens; gemma3-1b's under
+    ``cache_seq="model"``: its bf16 prefill with the peak above the floor
+    (a warm-up prefill first), its f32-KV prefill and decode steps."""
+    import torch
+
+    from repro_torch.serve.steps import make_prefill_step
+    from repro_torch.sharding import distribute_model, make_rules, use_rules
+
+    out = {}
+    rows, n = REST_PREFILL
+    t0 = time.perf_counter()
+    # rwkv6-7b: the kernels' launches over the run, the LMME operands kept
+    cfg = rest_config("rwkv6-7b", REST_RWKV_LAYERS)
+    model = _build(cfg)
+    distribute_model(model, rules)
+    model.requires_grad_(False)
+    calls = {}
+    restore = _record_lmme(calls)
+    reset_counts()
+    try:
+        with use_rules(rules):
+            steps, _, caches = _prefill_decode(model, ref["rwkv6"]["prompt"], n + REST_DECODES,
+                                               feed=ref["rwkv6"]["feed"])
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches, engine_calls = read_counts()
+    gap, tokens = _gaps(steps, ref["rwkv6"]["logits"])
+    out["rwkv6"] = {"gap": gap, "tokens": tokens, "wkv_bytes": _state_bytes(caches, ("wkv",)),
+                    "wkv_shape": tuple(caches[0]["wkv"].shape), "launches": launches,
+                    "calls": engine_calls,
+                    "lmme": {str(k): dict(_kernel_hold(a), shapes=k) for k, a in calls.items()}}
+    del model, caches, calls
+    free_memory()
+    t1 = time.perf_counter()
+    # mixtral-8x7b: dropless prefill
+    cfg = rest_config("mixtral-8x7b", REST_MIXTRAL_LAYERS)
+    model = _build(cfg)
+    distribute_model(model, rules)
+    model.requires_grad_(False)
+    with use_rules(rules):
+        steps, _, _ = _prefill_decode(model, ref["mixtral"]["prompt"], n, decodes=0)
+    gap, tokens = _gaps(steps, ref["mixtral"]["logits"])
+    out["mixtral"] = {"gap": gap, "tokens": tokens,
+                      "expert_bytes": _block_bytes(model, ("gate", "up", "down"))}
+    del model
+    free_memory()
+    t2 = time.perf_counter()
+    # gemma3-1b whole, its caches' sequence on "model": f32 K/V first (the
+    # decode steps held to one process's; it warms cuBLAS and the allocator
+    # up), then bf16 K/V, the prefill's peak measured, then bf16 decode steps
+    g_rows, g_n = REST_GEMMA_PREFILL
+    seq_rules = make_rules(rules.mesh, {"cache_seq": "model"})
+    model = _build(rest_config("gemma3-1b"))
+    distribute_model(model, seq_rules)
+    model.requires_grad_(False)
+    g = ref["gemma3"]
+    step = make_prefill_step(model, backend="cuda", fresh_caches=True)
+    with use_rules(seq_rules):
+        steps, _, _ = _prefill_decode(model, g["prompt"], g_n + REST_DECODES, f32_kv=True,
+                                      feed=g["feed"])
+        gap, tokens = _gaps(steps, g["f32_logits"])
+        del steps
+        caches = model.init_caches(g_rows, g_n + REST_DECODES)
+        torch.cuda.synchronize()
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        floor = torch.cuda.memory_allocated()
+        logits, first = step(g["prompt"], caches)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del caches
+        excess = 0.0
+        for mine, want in zip(first, g["caches"]):
+            for key in ("k", "v"):
+                half = want[key].shape[1] // 2
+                excess = max(excess, bf16_excess(mine[key],
+                                                 want[key][:, rank * half:(rank + 1) * half]))
+        prefill_gap, _ = _gaps(logits[:, -1:].float().transpose(0, 1), g["logits"])
+        cache_bytes = _state_bytes(first, ("k", "v"))
+        k_shapes = sorted({tuple(c["k"].shape) for c in first})
+        bf16, _ = _decode_steps(model, first, logits[:, -1].float(), g_n, REST_DECODES,
+                                g["feed"])
+    want = g["f32_logits"]
+    out["gemma3"] = {"peak": peak, "floor": floor, "cache_excess": excess,
+                     "prefill_gap": prefill_gap, "cache_bytes": cache_bytes,
+                     "k_shapes": k_shapes, "gap": gap, "tokens": tokens,
+                     "bf16_gap": max(float((a - b).abs().max() / b.std())
+                                     for a, b in zip(bf16, want)),
+                     "one_bf16_gap": max(float((a - b).abs().max() / b.std())
+                                         for a, b in zip(g["bf16_logits"], want))}
+    del model, first, logits, bf16
+    free_memory()
+    out["seconds"] = {"rwkv6": t1 - t0, "mixtral": t2 - t1,
+                      "gemma3": time.perf_counter() - t2}
+    return out
+
+
+def _rest_batch(cfg):
+    """The train step's batch: REST_TRAIN tokens from the seed, labels the
+    next token (the last masked)."""
+    import torch
+
+    rows, n = REST_TRAIN
+    tokens = _prompt(cfg, rows, n, 74)
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], dim=1)
+    return {"tokens": tokens, "labels": labels}
+
+
+def _rest_f64(rank, rules, cfg):
+    """The first train step (f32) split on the two ranks, and on rank 0 the
+    same step on one process in float64 (``f64_step``'s yardstick, the seed's
+    weights cast in place) and in f32: rank 1 sends its gradient blocks to
+    rank 0 (CPU tensors over gloo), which sets each block against its block
+    of the float64 gradients.  Returns on rank 0
+    ``check_f64``'s gaps; on both the rank's expert bytes and the parts'
+    seconds."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import engine
+    from repro_torch.sharding import distribute_model, use_rules
+    from repro_torch.sharding.gather import ParamGather
+
+    clock = [time.perf_counter()]
+    secs = {}
+
+    def lap(what):
+        clock.append(time.perf_counter())
+        secs[what] = round(clock[-1] - clock[-2], 2)
+
+    batch = _rest_batch(cfg)
+    model = _build(cfg)
+    distribute_model(model, rules)
+    named = list(model.named_parameters())
+    model_dim = list(rules.mesh.axis_names).index("model")
+    lap("build")
+    with use_rules(rules), engine.use_backend("cuda"):
+        loss, _ = model.loss(batch["tokens"], batch["labels"], param_gather=ParamGather((0,)))
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+    split_loss = float(loss.detach())
+    # the split gradients' sum of squares: a split leaf's blocks on both
+    # ranks, a replicated leaf once
+    blocks, sq = {}, 0.0
+    for (name, p), g in zip(named, grads):
+        pl = p.placements[model_dim]
+        dim = pl.dim if pl.is_shard() else None
+        local = g.to_local().detach()
+        if dim is not None or rank == 0:
+            sq += float(local.double().square().sum())
+        blocks[name] = (local.cpu(), dim)
+    expert_bytes = _block_bytes(model, ("gate", "up", "down"))
+    del model, grads, named, loss
+    free_memory()
+    lap("split step")
+    if rank == 1:
+        dist.send(torch.tensor([sq], dtype=torch.float64), 0)
+        for blk, dim in blocks.values():
+            if dim is not None:
+                dist.send(blk.contiguous(), 0)
+        dist.barrier()
+        lap("send")
+        return {"expert_bytes": expert_bytes, "seconds": secs}
+    # float64 first: its parameters and gradients, then only its gradients
+    # beside one process's f32 model and gradients (the peak is 4x the f32
+    # parameters, not 5x)
+    model = _build(cfg).double()
+    model.cfg = dataclasses.replace(cfg, compute_dtype=torch.float64, param_dtype=torch.float64)
+    with engine.use_backend("torch_reference"):
+        loss64, g64 = _grads(model, batch)
+    loss64 = float(loss64.detach())
+    g64 = {n: g.detach() for n, g in g64.items()}
+    del model
+    free_memory()
+    lap("float64")
+    model = _build(cfg)
+    with engine.use_backend("cuda"):
+        one_loss, one = _grads(model, batch)
+    one_loss = float(one_loss.detach())
+    one = {n: g.detach() for n, g in one.items()}
+    del model
+    free_memory()
+    lap("one process f32")
+
+    def sq_gap(got, exact):
+        return float((got.to(exact.device, torch.float64) - exact).square().sum())
+
+    other = torch.empty(1, dtype=torch.float64)
+    dist.recv(other, 1)
+    sq += float(other)
+    leaves, one_leaves = {}, {}
+    for name, exact in g64.items():
+        blk, dim = blocks.pop(name)
+        if dim is None:
+            gap = sq_gap(blk, exact)
+        else:
+            k = blk.shape[dim]
+            rest = torch.empty_like(blk)
+            dist.recv(rest, 1)
+            gap = sq_gap(blk, exact.narrow(dim, 0, k)) + sq_gap(rest, exact.narrow(dim, k, k))
+        ref = float(exact.square().sum())
+        leaves[name] = math.sqrt(gap / ref) if ref else math.sqrt(gap)
+        gap1 = sq_gap(one[name], exact)
+        one_leaves[name] = math.sqrt(gap1 / ref) if ref else math.sqrt(gap1)
+    norm64 = math.sqrt(sum(float(g.square().sum()) for g in g64.values()))
+    norm1 = math.sqrt(sum(float(g.double().square().sum()) for g in one.values()))
+    del g64, one
+    free_memory()
+    dist.barrier()
+    lap("distances")
+    rel = lambda x, ref: abs(x - ref) / abs(ref)  # noqa: E731
+    return {"expert_bytes": expert_bytes, "seconds": secs,
+            "gaps": {"loss": (rel(split_loss, loss64), rel(one_loss, loss64)),
+                     "norm": (rel(math.sqrt(sq), norm64), rel(norm1, norm64)),
+                     "leaves": leaves, "one_leaves": one_leaves}}
+
+
+def _model_axis_rest_rank(rank, mesh):
+    """``model_axis_rest``'s part of a (1, 2) rank under the default rules on
+    ``mesh``: ``_rest_rank_serve``, then the float64 train checks of
+    rwkv6-7b at REST_RWKV_TRAIN_LAYERS and mixtral-8x7b at
+    REST_MIXTRAL_TRAIN_LAYERS (``_rest_f64``)."""
+    import torch
+
+    from repro_torch.sharding import make_rules
+
+    rules = make_rules(mesh)
+    ref = torch.load(MODEL_AXIS_REST_REF, map_location=DEVICE)
+    out = _rest_rank_serve(rank, rules, ref)
+    del ref
+    free_memory()
+    out["f64"] = {"rwkv6": _rest_f64(rank, rules, rest_config("rwkv6-7b",
+                                                               REST_RWKV_TRAIN_LAYERS)),
+                  "mixtral": _rest_f64(rank, rules, rest_config("mixtral-8x7b",
+                                                                REST_MIXTRAL_TRAIN_LAYERS))}
+    return out
+
+
+def _near_ties(want, got, what):
+    """``_near_tie`` over every step and row of ``got`` tokens (steps, B)
+    against the reference logits ``want`` (steps, B, V)."""
+    for step, row in enumerate(got):
+        for i, tok in enumerate(row):
+            _near_tie(want[step], i, tok, int(want[step, i].argmax()), f"{what} step {step}")
+
+
+def model_axis_rest(cell: dict, one: dict, got: list):
+    """The rest of the model axis on 2 gloo ranks sharing the card, a (1, 2)
+    mesh under the default rules (gemma3 with ``cache_seq="model"``), at
+    full width and f32 compute.  rwkv6-7b at REST_RWKV_LAYERS (32 of 64
+    heads and 7168 of 14336 channels a rank): a fresh prefill of
+    REST_PREFILL and REST_DECODES decode steps, each rank's ``wkv`` bytes
+    half of one process's, every step's logits within MODEL_AXIS_LOGIT_STD·std
+    of one process's and its tokens equal but at a near tie, LMME launches
+    equal to engine calls, the LMME kernel at the split chunk and decode
+    shapes on the layer's operands within twice the f32 plain version's
+    distance to float64.  mixtral-8x7b at REST_MIXTRAL_LAYERS: a dropless
+    prefill of REST_PREFILL against one process's, each rank's expert bytes
+    half of one process's.  gemma3-1b whole (one KV head, its caches'
+    sequence on "model"): a fresh bf16 prefill of REST_GEMMA_PREFILL, each
+    rank's cache bytes half of one process's and its caches its row block
+    within a bf16 step and MODEL_AXIS_CACHE_EXCESS, the prefill's logits as
+    above, the peak above the floor within FSDP_PEAK_FACTOR of the dry-run's
+    (1, 2) cell; with f32 K/V (a bf16 write can round K/V a step apart)
+    REST_DECODES decode steps, logits and tokens as rwkv6's; with bf16 K/V
+    the same steps (bf16 products, f32 outputs) within F64_SPREAD times one
+    bf16 process's distance to the f32-KV logits.  rwkv6-7b at
+    REST_RWKV_TRAIN_LAYERS and mixtral-8x7b at REST_MIXTRAL_TRAIN_LAYERS
+    (capacity routing): the first f32 train step's loss, norm and each
+    leaf's gradient against float64
+    within F64_SPREAD of one f32 process's distance (``check_f64``).  ``one``
+    is ``model_axis_rest_reference``'s, ``got`` each rank's
+    ``_model_axis_rest_rank``, ``cell`` ``rest_dryrun_cell``'s."""
+    pm = cell["memory_per_device"]
+    heads = rest_config("rwkv6-7b").layer_list[0].rwkv.n_heads // 2
+    for rank, r in enumerate(got):
+        w, m, g = r["rwkv6"], r["mixtral"], r["gemma3"]
+        ratio = pm["above_state_bytes"] / (g["peak"] - g["floor"])
+        print(f"model axis rest, rank {rank} of (1, 2): rwkv6-7b {REST_RWKV_LAYERS} layers "
+              f"prefill {REST_PREFILL[0]}x{REST_PREFILL[1]} + {REST_DECODES} decode steps: "
+              f"wkv {w['wkv_shape']} a layer, {w['wkv_bytes']} bytes of one process's "
+              f"{one['rwkv6']['wkv_bytes']}, logits {w['gap']:.3e}·std (bar "
+              f"{MODEL_AXIS_LOGIT_STD}), LMME launches {w['launches']['lmme']}, engine calls "
+              f"{w['calls']['lmme']}; mixtral-8x7b {REST_MIXTRAL_LAYERS} layers dropless "
+              f"prefill logits {m['gap']:.3e}·std, expert bytes {m['expert_bytes']} of "
+              f"{one['mixtral']['expert_bytes']}; gemma3-1b prefill "
+              f"{REST_GEMMA_PREFILL[0]}x{REST_GEMMA_PREFILL[1]} (cache_seq on model): K "
+              f"{g['k_shapes']}, {g['cache_bytes'] / 2**30:.4f} GiB of one process's "
+              f"{one['gemma3']['cache_bytes'] / 2**30:.4f}, its rows within a bf16 step and "
+              f"{g['cache_excess']:.3e} (bar {MODEL_AXIS_CACHE_EXCESS}), prefill logits "
+              f"{g['prefill_gap']:.3e}·std, f32-KV decode logits {g['gap']:.3e}·std, bf16 "
+              f"decode logits {g['bf16_gap']:.3e}·std from one process's f32-KV (one "
+              f"process's bf16 {g['one_bf16_gap']:.3e}), peak "
+              f"above the floor {(g['peak'] - g['floor']) / 2**30:.4f} GiB, the dry-run's "
+              f"(1, 2) cell {pm['above_state_bytes'] / 2**30:.4f} (ratio {ratio:.4f}); "
+              f"{card_line()}", flush=True)
+        check(2 * w["wkv_bytes"] == one["rwkv6"]["wkv_bytes"], f"rwkv6 rank {rank}: wkv bytes "
+              f"{w['wkv_bytes']}")
+        check(2 * m["expert_bytes"] == one["mixtral"]["expert_bytes"],
+              f"mixtral rank {rank}: expert bytes {m['expert_bytes']}")
+        check(2 * g["cache_bytes"] == one["gemma3"]["cache_bytes"],
+              f"gemma3 rank {rank}: cache bytes {g['cache_bytes']}")
+        check(g["cache_excess"] <= MODEL_AXIS_CACHE_EXCESS,
+              f"gemma3 rank {rank}: caches {g['cache_excess']:.3e} past a bf16 step")
+        for what, gap in (("rwkv6", w["gap"]), ("mixtral", m["gap"]),
+                          ("gemma3 prefill", g["prefill_gap"]), ("gemma3 decode", g["gap"])):
+            check(gap <= MODEL_AXIS_LOGIT_STD, f"model axis rest rank {rank}: {what} logits "
+                  f"{gap:.3e}·std")
+        for what, tokens, want in (("rwkv6", w["tokens"], one["rwkv6"]["logits"]),
+                                   ("mixtral", m["tokens"], one["mixtral"]["logits"]),
+                                   ("gemma3", g["tokens"], one["gemma3"]["f32_logits"])):
+            _near_ties(want, tokens, f"model axis rest rank {rank} {what}")
+        check(g["bf16_gap"] <= F64_SPREAD * max(g["one_bf16_gap"], MODEL_AXIS_LOGIT_STD),
+              f"gemma3 rank {rank}: bf16 decode logits {g['bf16_gap']:.3e}·std, one "
+              f"process's {g['one_bf16_gap']:.3e}")
+        check(w["launches"]["lmme"] == w["calls"]["lmme"] > 0, f"rwkv6 rank {rank}: LMME "
+              f"launches {w['launches']['lmme']} != engine calls {w['calls']['lmme']}")
+        check(1 / FSDP_PEAK_FACTOR <= ratio <= FSDP_PEAK_FACTOR, f"gemma3 rank {rank}: peak "
+              f"above the floor against the dry-run's, ratio {ratio:.3f}")
+        seen = set()
+        for k in w["lmme"].values():
+            a, b = k["shapes"]
+            print(f"model axis rest: rank {rank}'s rwkv6 LMME at {a} x {b}: distance to "
+                  f"float64 on the kernel {k['dist']:.3e}, of the f32 plain version "
+                  f"{k['plain_dist']:.3e} (the kernel within twice it, floor 1e-6), finite "
+                  f"entries alike {k['finite']}", flush=True)
+            check(a[1] == b[1] == heads, f"rwkv6 rank {rank}: LMME at {a} x {b}")
+            check(k["dist"] <= 2.0 * k["plain_dist"] + 1e-6 and k["finite"],
+                  f"rwkv6 rank {rank}: LMME {k}")
+            seen.add("decode" if a[2] == 1 else "chunk")
+        check(seen == {"decode", "chunk"}, f"rwkv6 rank {rank}: LMME shapes {seen}")
+    f64 = {arch: check_f64(got[0]["f64"][arch]["gaps"], f"model axis rest: {label} first f32 "
+                           f"step on (1, 2), {card_line()}", "gradients")
+           for arch, label in (("rwkv6", f"rwkv6-7b {REST_RWKV_TRAIN_LAYERS} layers"),
+                               ("mixtral", f"mixtral-8x7b {REST_MIXTRAL_TRAIN_LAYERS} layer, "
+                                           "capacity routing"))}
+    return {"one": {k: {n: v for n, v in r.items() if n.endswith("bytes")}
+                    for k, r in one.items()},
+            "ranks": got, "f64": f64,
+            "lmme_launches": [r["rwkv6"]["launches"]["lmme"] for r in got]}
 
 
 # ---------------------------------------------------------------------------
@@ -4575,7 +5148,22 @@ def model_axis_summary(ma: dict, dist_runs: dict, card: str) -> str:
             f"{[r['cache_bytes'] for r in pre]} of {ma['one_cache_bytes']}, logits "
             f"{[round(r['logit_gap'], 6) for r in pre]}·std; f32 launcher runs' worst leaf "
             f"from float64: (2, 2) seq {d['seq']['worst']:.3e}, FSDP {d['fsdp']['worst']:.3e} "
-            f"(one process {d['seq']['one_worst']:.3e}); {card}")
+            f"(one process {d['seq']['one_worst']:.3e}); {rest_summary(ma['rest'])}; {card}")
+
+
+def rest_summary(rest: dict) -> str:
+    """``model_axis_rest``'s part of the model axis's summary line."""
+    f, ranks = rest["f64"], rest["ranks"]
+    return (f"rwkv6-7b and mixtral-8x7b first f32 steps' worst leaf from float64 "
+            f"{f['rwkv6']['worst']:.3e}, {f['mixtral']['worst']:.3e} (one process "
+            f"{f['rwkv6']['one_worst']:.3e}, {f['mixtral']['one_worst']:.3e}); rwkv6 logits "
+            f"{[round(r['rwkv6']['gap'], 7) for r in ranks]}·std, LMME launches a rank "
+            f"{rest['lmme_launches']}; gemma3-1b sequence-split caches "
+            f"{[r['gemma3']['cache_bytes'] for r in ranks]} of "
+            f"{rest['one']['gemma3']['cache_bytes']} bytes, decode logits "
+            f"{[round(r['gemma3']['gap'], 7) for r in ranks]}·std, peak above the floor "
+            f"{[round((r['gemma3']['peak'] - r['gemma3']['floor']) / 2**30, 4) for r in ranks]}"
+            " GiB")
 
 
 def long_summary(flash: dict, card: str) -> str:
@@ -4892,6 +5480,8 @@ def main() -> int:
                       for p in FSDP_P},
                    "train model axis (1, 2) (ranks summed)": sum(
                        r["launches"][k] for r in dist_runs["model_axis"]["run"]["ranks"]),
+                   "serve model axis rwkv6 (1, 2) (ranks summed)": sum(
+                       r["rwkv6"]["launches"][k] for r in model_axis["rest"]["ranks"]),
                    "autotune": tune_launches[k],
                    **{f"train remat {r} {v}": remat[v][r]["per_step"][k]
                       for v in remat for r in ("full", "dots")},
@@ -4944,6 +5534,11 @@ def main() -> int:
                            "bound_ms": split_rows[name]["bound_ms"],
                            "launches_a_rank": split_launches[name]}}
            if name in split_rows else {}),
+        **({"rwkv6_model_axis": {
+            **{n: {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}
+               for n, r in rwkv6_rows.items() if "model axis" in n and r["ms"] is not None},
+            "launches_a_rank": model_axis["rest"]["lmme_launches"]}}
+           if name == "lmme" else {}),
     } for name, source, replaces, launches, err, row, shape, path in entries]}))
     print(f"jamba: decode step device busy {trace_j['busy_ms']:.3f} ms, of which the "
           f"diagonal scan {trace_j['diag_scan']:.3f} ms; {card}", flush=True)

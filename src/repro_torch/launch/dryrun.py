@@ -34,23 +34,26 @@ update runs on the blocks.  The peak is the trace's.  The collectives'
 bytes are the collective term below, not memory traffic.
 ``gathered_param_bytes`` is the most a rank holds gathered at once: the
 largest period's parameters and those outside the periods.
-Prefill cells lay the parameters out the same way and gather one period at
-a time without a gradient; a device holds its rows' whole caches, and the
-bytes JAX's cache layout (``_CACHE_AXES``, ``cache_shardings``) would leave
-it are reported beside them (``cache_shard_bytes``).  Decode cells (the
-Engine, whose CUDA graphs keep plain parameters) hold the whole
-parameters.  Cells whose peak passes the card's 80 GB are marked
-``over_hbm``.
+Prefill and decode cells lay the parameters out the same way and gather
+one period at a time without a gradient; a rank's caches come from
+``init_caches`` under the cell's rules (``cache_bytes``), and the bytes
+JAX's cache layout (``_CACHE_AXES``, ``cache_shardings``) would leave it
+are reported beside them (``cache_shard_bytes``).  ``long_500k`` (its
+cache's sequence over "data" too) is traced on one rank's rows with whole
+parameters and caches.  Cells whose peak passes the card's 80 GB are
+marked ``over_hbm``.
 
 **The model axis.**  The traces run under the cell's rules, so a rank
 splits what the port splits (``sharding/tensor_parallel.py``): the
 attention heads, the dense MLP's channels, the goom layer's heads, Mamba's
-channels and the vocabulary run on the rank's block, their split weights
-gathered over the batch axes only.  A prefill rank's caches hold its
-block of the KV heads where they divide the model axis; where they do
-not, JAX puts the cache's sequence on "model" and the rank holds its
-caches whole (``cache_bytes``), JAX's figure beside them as before.  MoE
-experts and RWKV6 stay whole on every rank.
+channels, RWKV6's heads and channels, the MoE experts' channels and the
+vocabulary run on the rank's block, their split weights gathered over the
+batch axes only.  A serve rank's caches hold its block of the KV heads
+where they divide the model axis; where they do not, JAX puts the cache's
+sequence on "model" and so does the port: the rank holds its block of
+each cache's rows.  So ``cache_bytes`` equals ``cache_shard_bytes``
+wherever the port's layout is JAX's.  The MoE's expert dim stays whole
+on every rank of "data".
 
 **Collectives** (train cells on more than one device), as the port's step
 runs them, one op per mesh dim: each parameter's gather, the last mesh dim
@@ -69,7 +72,9 @@ its gradient summed over the model axis too.  The split modules'
 activation collectives (the all-reduces where partial sums leave a split
 region and gradients enter one, the goom layer's max, the split NLL's
 all-gather and all-reduce) are the trace's own, summed by kind
-(``cost.Cost.collectives``).  Serve steps' collectives are not counted.
+(``cost.Cost.collectives``).  A laid-out serve step's collectives are its
+parameters' gathers (as above, without gradients) and the trace's own
+(among them RWKV6's ``ln_x`` sums and a sequence-split decode's combine).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
@@ -190,15 +195,16 @@ def train_collectives(rules: AxisRules, params: Dict[str, Tuple[tuple, torch.dty
                       specs: Dict[str, tuple], *, cast_params_bf16: bool = False,
                       n_metrics: int = 3, time_shards: Optional[List[Tuple[int, list]]] = None,
                       counts: Optional[Dict[str, Tuple[int, int]]] = None,
-                      roles: Optional[Dict[str, Tuple[str, Optional[int]]]] = None
-                      ) -> List[CollectiveOp]:
+                      roles: Optional[Dict[str, Tuple[str, Optional[int]]]] = None,
+                      grads: bool = True) -> List[CollectiveOp]:
     """The collectives of one laid-out train step's parameters (module
     docstring).  ``params``: name -> (whole shape, dtype); ``counts``: name
     -> (gathers, reductions) (``gather_counts``; default one each);
     ``time_shards``: per recurrent layer, (its output's bytes, the bytes of
     each gradient it reads replicated), when ``scan_seq`` maps to a mesh
     axis; ``roles``: name -> (mesh axis, dim) of the weights split modules
-    read (``DecoderLM.split_roles``)."""
+    read (``DecoderLM.split_roles``).  ``grads=False``: the gathers alone
+    (a serve step's)."""
     size = rules.mesh.shape
     names = list(rules.mesh.axis_names)
     batch = set(a for a in rules.mesh_axes_for("batch") if a in size)
@@ -220,7 +226,7 @@ def train_collectives(rules: AxisRules, params: Dict[str, Tuple[tuple, torch.dty
                 part *= size[a]
                 ops.extend([CollectiveOp("all-gather", part, size[a])] * gathers)
         local = part                       # the gradient as the step makes it
-        for a in (a for a in names if size[a] > 1 and a != kept):
+        for a in (a for a in names if size[a] > 1 and a != kept and grads):
             if (a in batch or a == summed) and a in axes:
                 local //= size[a]
                 ops.extend([CollectiveOp("reduce-scatter", local, size[a])] * reductions)
@@ -228,6 +234,8 @@ def train_collectives(rules: AxisRules, params: Dict[str, Tuple[tuple, torch.dty
                 ops.extend([CollectiveOp("all-reduce", local, size[a])] * reductions)
             elif a in axes:
                 local //= size[a]          # this rank's slice, no collective
+    if not grads:
+        return ops
     ops.extend(CollectiveOp("all-reduce", 4 * n_metrics, size[a]) for a in names
                if a in batch)
     ops.extend(CollectiveOp("all-reduce", 4, size[a]) for a in names if a in sharded_dims)
@@ -436,10 +444,11 @@ def serve_trace(cfg, shape: ShapeCfg, rows: int, rules: Optional[AxisRules] = No
                 ) -> cost.Cost:
     """One trace of the prefill step (``prefill`` shapes: ``rows`` prompts
     of ``seq_len`` into fresh caches, ``fresh_caches=True``: the single-shot
-    prefill attends over the prompt; with ``rules`` over a ``fake_ranks``
-    mesh, on one rank's blocks, gathered a period at a time) or of one decode step (caches of
+    prefill attends over the prompt) or of one decode step (caches of
     ``seq_len`` positions, the token at the last), the engine on its
-    ``cuda`` backend."""
+    ``cuda`` backend; with ``rules`` over a ``fake_ranks`` mesh, on one
+    rank's parameter blocks, gathered a period at a time, and its caches
+    (``init_caches`` under the rules)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from ..serve.steps import make_decode_step, make_prefill_step
@@ -538,9 +547,10 @@ def _serve_overrides(cfg, shape: ShapeCfg, mesh, overrides: Dict) -> Dict:
     """JAX's KV-cache rules: heads over "model" when every attention layer's
     KV heads divide it, else the cache's sequence on "model"; long decode
     shards the cache's sequence over "data" too (context parallelism).
-    These rules give ``cache_shard_bytes``; the traced prefill rank holds
-    its block of each layer's KV heads where they divide the model axis
-    (``act_kv_heads``), else that layer's caches whole."""
+    These rules give ``cache_shard_bytes`` and the traced serve rank's
+    caches: its block of each layer's KV heads where they divide the model
+    axis (``act_kv_heads``), else its block of the rows (``cache_seq``;
+    ``long_500k``'s, over "data" and "model", is not split: whole caches)."""
     overrides = dict(overrides)
     min_kv = min((blk.attn.n_kv_heads for blk in cfg.layer_list if blk.attn is not None),
                  default=0)
@@ -602,11 +612,11 @@ def lower_cell(arch, shape: Union[str, ShapeCfg], mesh, *, perf: Optional[Dict] 
     whole_model = DecoderLM(cfg, device="meta")
     params = {n: (tuple(p.shape), p.dtype) for n, p in whole_model.named_parameters()}
     param_bytes = sum(_bytes(s, d) for s, d in params.values())
-    laid_out = chips > 1 and shape_cfg.kind in ("train", "prefill")
+    laid_out = chips > 1 and shape_cfg.kind in ("train", "prefill", "decode")
     mem: Dict[str, float] = {}
     ops: List[CollectiveOp] = []
     specs = param_specs(rules, whole_model)
-    if shape_cfg.kind in ("train", "prefill"):
+    if shape_cfg.kind in ("train", "prefill", "decode"):
         dtype = torch.bfloat16 if cast and shape_cfg.kind == "train" else None
         mem.update(param_shard_bytes=float(sum(
             _bytes(shard_shape(s, specs[n], mesh.shape), d) for n, (s, d) in params.items())),
@@ -640,6 +650,9 @@ def lower_cell(arch, shape: Union[str, ShapeCfg], mesh, *, perf: Optional[Dict] 
                           for i, layer in enumerate(caches) for k, leaf in layer.items())
         mem.update(cache_shard_bytes=float(cache_shard),
                    cache_bytes=float(c.memory["state"]))
+        if laid_out:
+            ops = train_collectives(rules, params, specs, roles=whole_model.split_roles(rules),
+                                    grads=False) + activation_collectives(c)
     peak = c.memory["peak"]
     coll_bytes, coll_by_kind = collective_bytes_per_device(ops)
     mem.update({f"trace_{k}_bytes": float(v) for k, v in c.memory.items()})

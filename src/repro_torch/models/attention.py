@@ -43,8 +43,17 @@ The model axis (``sharding/tensor_parallel.py``): under rules that split
 ``act_heads``, a rank runs its block of query heads (q column-split, o
 row-split and all-reduced) and of KV heads where ``act_kv_heads`` splits on
 the same axis; where it does not (KV heads that do not divide the axis),
-k and v are computed whole, the caches hold them whole, and each rank
-attends with the KV heads its query heads need.
+k and v are computed whole and each rank attends with the KV heads its
+query heads need.  Its caches then hold every KV head: whole, or, where
+the rules put ``cache_seq`` on one mesh axis (JAX's rule for such KV
+heads; the heads' axis, or any where the query heads do not split), the
+rank's block of the rows (a rolling buffer's too).  A fresh prefill writes
+the rows of its block; a decode step writes the new K/V only where its
+row's slot lies in the block, attends over its rows for every query head
+(q gathered over the heads' group where they split) and combines the
+partials across ranks (the all-reduced max of each score row, then the
+sum of the exponentials and of the weighted V, in f32), then keeps its
+heads' block.  A chunked prefill or a paged decode on such a cache raises.
 """
 
 from __future__ import annotations
@@ -57,8 +66,9 @@ from torch import nn
 
 from ..configs.base import AttentionCfg
 from ..core.goom import safe_log
-from ..sharding.rules import constrain
-from ..sharding.tensor_parallel import Split, enter, leave, split_of
+from ..sharding.rules import constrain, current_rules
+from ..sharding.tensor_parallel import (Split, all_max, enter, gather_last, leave, split_of,
+                                       split_on)
 from .common import Dense, wide
 from .norms import RMSNorm
 from .rope import apply_mrope, apply_rope
@@ -69,12 +79,15 @@ Cache = Dict[str, torch.Tensor]
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
-            scale: float) -> torch.Tensor:
+            scale: float, rows: Optional[Split] = None) -> torch.Tensor:
     """Decode's masked softmax over a whole cache row, GQA by head groups
     (JAX's ``_decode_attention``): q (B, 1, H, D); k, v (B, L, KVH, D);
     ``valid`` broadcasts to (B, 1, L).  Masked scores are ``NEG_INF``; ``p``
     is rounded to v's dtype before the product.  Returns (B, 1, H, D) f32
-    (f64 for f64 inputs).
+    (f64 for f64 inputs).  ``rows``: the cache holds this rank's block of
+    the rows; each score row's max is all-reduced before the exponentials
+    and the sums of ``p`` and of ``p·v`` after (:func:`_combined`), so every
+    rank returns the whole row's softmax.
 
     As JAX's ``preferred_element_type``, a bf16 cache on the card is
     contracted in its own dtype with f32 products out (``torch.bmm(...,
@@ -85,16 +98,17 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tens
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     if k.is_cuda and k.dtype in (torch.bfloat16, torch.float16):
-        return _attend_narrow(q, k, v, valid, scale)
+        return _attend_narrow(q, k, v, valid, scale, rows)
     qg = wide(q).reshape(b, sq, kvh, h // kvh, d)
     s = torch.einsum("bqhgd,bkhd->bqhgk", qg, wide(k)) * scale
     s = s.masked_fill(~valid[:, :, None, None, :], NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))   # max-rescaled softmax; goomcheck: disable=GC202
+    p = torch.exp(s - all_max(s.amax(dim=-1, keepdim=True), rows))   # max-rescaled softmax; goomcheck: disable=GC202
     acc = torch.einsum("bqhgk,bkhd->bqhgd", wide(p.to(v.dtype)), wide(v))
-    return (acc / p.sum(dim=-1, keepdim=True)).reshape(b, sq, h, d)
+    acc, total = _combined(acc, p.sum(dim=-1, keepdim=True), rows)
+    return (acc / total).reshape(b, sq, h, d)
 
 
-def _attend_narrow(q, k, v, valid, scale):
+def _attend_narrow(q, k, v, valid, scale, rows=None):
     """:func:`_attend` on a bf16 (or f16) cache on the card: each KV head's
     scores and its values' sum as bf16 products with f32 outputs."""
     b, sq, h, d = q.shape
@@ -105,12 +119,22 @@ def _attend_narrow(q, k, v, valid, scale):
     s = torch.stack([torch.bmm(qg[:, i], k[:, :, i].transpose(1, 2), out_dtype=torch.float32)
                      for i in range(kvh)], 1).mul_(scale)          # (B, KVH, Sq·G, L)
     s = s.view(b, kvh, sq, g, -1).masked_fill_(~valid[:, None, :, None, :], NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))   # max-rescaled softmax; goomcheck: disable=GC202
+    p = torch.exp(s - all_max(s.amax(dim=-1, keepdim=True), rows))   # max-rescaled softmax; goomcheck: disable=GC202
     pv = p.to(v.dtype).view(b, kvh, sq * g, -1)
     acc = torch.stack([torch.bmm(pv[:, i], v[:, :, i], out_dtype=torch.float32)
                        for i in range(kvh)], 1)                    # (B, KVH, Sq·G, D)
-    out = acc.view(b, kvh, sq, g, d) / p.sum(dim=-1, keepdim=True)
-    return out.permute(0, 2, 1, 3, 4).reshape(b, sq, h, d)
+    acc, total = _combined(acc.view(b, kvh, sq, g, d), p.sum(dim=-1, keepdim=True), rows)
+    return (acc / total).permute(0, 2, 1, 3, 4).reshape(b, sq, h, d)
+
+
+def _combined(acc: torch.Tensor, total: torch.Tensor, rows: Optional[Split]):
+    """A row-split softmax's weighted values and sums of exponentials (both
+    taken after the all-reduced max) summed over the ranks in one f32
+    all-reduce; as they are without a split."""
+    if rows is None:
+        return acc, total
+    both = leave(torch.cat([acc, total], dim=-1), rows)
+    return both[..., :-1], both[..., -1:]
 
 
 # ---------------------------------------------------------------------------
@@ -365,10 +389,7 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         h, kvh = cfg.n_heads, cfg.n_kv_heads
         scale = cfg.query_scale if cfg.query_scale is not None else cfg.head_dim ** -0.5
-        sp = split_of("act_heads", h)
-        kv_sp = split_of("act_kv_heads", kvh) if sp is not None else None
-        if kv_sp is not None and kv_sp.axis != sp.axis:
-            kv_sp = None
+        sp, kv_sp, rows = _splits(cfg)
         sel = _kv_select(sp, h, kvh) if sp is not None and kv_sp is None else None
         x = enter(x, sp)
         q = self.q(x, compute_dtype=cd, split=(sp, 1, h))
@@ -404,12 +425,18 @@ class Attention(nn.Module):
         elif "pages" in cache:
             if s != 1:
                 raise ValueError("a paged KV cache takes one token per row")
+            if rows is not None:
+                raise NotImplementedError("a paged decode under rules that split the KV "
+                                          "cache's sequence across ranks")
             out, new_cache = self._paged_decode(q, k, v, cache, scale, sel)
         elif s > 1:
+            if rows is not None and not fresh_cache:
+                raise NotImplementedError("a chunked (non-fresh) prefill into a KV cache "
+                                          "split by sequence across ranks")
             out, new_cache = self._prefill(q, k, v, cache, positions, scale,
-                                           fresh=fresh_cache, sel=sel)
+                                           fresh=fresh_cache, sel=sel, rows=rows)
         else:
-            out, new_cache = self._decode(q, k, v, cache, scale, sel)
+            out, new_cache = self._decode(q, k, v, cache, scale, sel, rows, sp)
         out = constrain(out.to(cd), "batch", "act_seq", "act_heads", None).reshape(b, s, -1)
         o = self.o.w if sp is None else sp.take(self.o.w, 0, h)
         y = out @ o.to(cd).reshape(-1, cfg.d_model)
@@ -422,12 +449,14 @@ class Attention(nn.Module):
                                block_kv=self.cfg.block_kv)
 
     def _prefill(self, q, k_new, v_new, cache: Cache, positions, scale, *, fresh: bool,
-                 sel=None):
+                 sel=None, rows: Optional[Split] = None):
         """One prompt chunk from row 0's ``index`` (a prefill batch shares
         its positions), JAX's ``_prefill_attention`` branch for branch (the
         module docstring); ``fresh`` (static) takes the index as 0.  ``sel``
         picks a split rank's KV heads from whole ones (:func:`_kv_select`)
-        where the attention reads them; the cache keeps what it is given."""
+        where the attention reads them; the cache keeps what it is given.
+        ``rows`` (fresh only): the cache holds the rank's block of rows, and
+        gets the rows of the whole cache's write that fall in it."""
         s = q.shape[1]
         window = self.cfg.window
         length = cache["k"].shape[1]
@@ -437,6 +466,10 @@ class Attention(nn.Module):
         new_index = cache["index"] + s
         if fresh:   # nothing cached: the chunk is all there is to attend to
             out = self._flash(q, k_new, v_new, pos, pos, scale, window, sel)
+        if rows is not None:
+            k, v = (_fresh_block(new, cache[key], s, window is not None, rows)
+                    for new, key in ((k_new, "k"), (v_new, "v")))
+            return out, {"k": k, "v": v, "index": new_index}
 
         if window is None:
             if s >= length:
@@ -480,30 +513,46 @@ class Attention(nn.Module):
             v = cache["v"].index_copy(1, at, v_new.to(dt))
         return out, {"k": k, "v": v, "index": new_index}
 
-    def _decode(self, q, k_new, v_new, cache: Cache, scale, sel=None):
+    def _decode(self, q, k_new, v_new, cache: Cache, scale, sel=None,
+                rows: Optional[Split] = None, heads: Optional[Split] = None):
         """One token per row, written at the row's own ``index`` (a write
         past the end of a global row is dropped; a rolling buffer writes at
-        ``index % length``), attending over the row's valid positions."""
+        ``index % length``), attending over the row's valid positions.
+        ``rows``: the cache holds the rank's block of rows; the write lands
+        only where its slot lies in the block, every query head (q gathered
+        over the group where ``heads`` splits them) attends over the block,
+        the partials combine across ranks (:func:`_attend`) and the rank
+        keeps its heads."""
         b = q.shape[0]
         length = cache["k"].shape[1]
+        whole, lo = (length, 0) if rows is None else (length * rows.size, rows.index * length)
         index = cache["index"]
-        rows = torch.arange(b, device=q.device)
+        at_row = torch.arange(b, device=q.device)
         window = self.cfg.window
         k, v = cache["k"].clone(), cache["v"].clone()
         if window is None:
-            at = index.clamp(max=length - 1)
-            keep = (index < length)[:, None, None]
-            k[rows, at] = torch.where(keep, k_new[:, 0].to(k.dtype), k[rows, at])
-            v[rows, at] = torch.where(keep, v_new[:, 0].to(v.dtype), v[rows, at])
-            slots = torch.arange(length, device=q.device)
+            at = index.clamp(max=whole - 1)
+            keep = index < whole
+            slots = lo + torch.arange(length, device=q.device)
             valid = slots[None, :] <= index[:, None]
         else:
-            at = index % length
-            k[rows, at] = k_new[:, 0].to(k.dtype)
-            v[rows, at] = v_new[:, 0].to(v.dtype)
-            abs_pos = _ring_positions(index, length)
+            at = index % whole
+            keep = torch.ones_like(index, dtype=torch.bool)
+            abs_pos = _ring_positions(index, whole)[:, lo:lo + length]
             valid = (abs_pos >= 0) & (abs_pos > index[:, None] - window)
-        out = _attend(q, *_selected(sel, k, v), valid[:, None, :], scale)
+        local = at - lo
+        keep = (keep & (local >= 0) & (local < length))[:, None, None]
+        local = local.clamp(0, length - 1)
+        k[at_row, local] = torch.where(keep, k_new[:, 0].to(k.dtype), k[at_row, local])
+        v[at_row, local] = torch.where(keep, v_new[:, 0].to(v.dtype), v[at_row, local])
+        if rows is None:
+            out = _attend(q, *_selected(sel, k, v), valid[:, None, :], scale)
+        elif heads is None:
+            out = _attend(q, k, v, valid[:, None, :], scale, rows)
+        else:
+            h = self.cfg.n_heads
+            q_all = gather_last(q.movedim(2, -1), heads, h).movedim(-1, 2)
+            out = heads.take(_attend(q_all, k, v, valid[:, None, :], scale, rows), 2, h)
         return out, {"k": k, "v": v, "index": index + 1}
 
     @staticmethod
@@ -556,12 +605,62 @@ def _selected(sel, k, v):
     return (k, v) if sel is None else (sel(k), sel(v))
 
 
+def _splits(cfg: AttentionCfg) -> Tuple[Optional[Split], Optional[Split], Optional[Split]]:
+    """Under the active rules: the split of the query heads, of the KV heads
+    (None unless on the same axis) and of the caches' rows: the one mesh
+    axis ``cache_seq`` maps to, where the KV heads stay whole on it and the
+    query heads split on it or not at all (JAX's rule for KV heads that do
+    not divide the axis)."""
+    sp = split_of("act_heads", cfg.n_heads)
+    kv = split_of("act_kv_heads", cfg.n_kv_heads) if sp is not None else None
+    if kv is not None and kv.axis == sp.axis:
+        return sp, kv, None
+    rules = current_rules()
+    if rules is None or getattr(rules.mesh, "device_mesh", None) is None:
+        return sp, None, None
+    seq = rules.mesh_axes_for("cache_seq")
+    if len(seq) != 1 or rules.mesh.shape[seq[0]] == 1 or (sp is not None
+                                                          and sp.axis != seq[0]):
+        return sp, None, None
+    return sp, None, sp if sp is not None else split_on(rules, seq[0])
+
+
 def kv_heads(cfg: AttentionCfg) -> int:
     """The KV heads a rank's cache holds under the active rules: its block
     where the KV heads split with the query heads, else all of them."""
-    sp = split_of("act_heads", cfg.n_heads)
-    kv = split_of("act_kv_heads", cfg.n_kv_heads) if sp is not None else None
-    return cfg.n_kv_heads if kv is None or kv.axis != sp.axis else kv.block(cfg.n_kv_heads)[1]
+    _, kv, _ = _splits(cfg)
+    return cfg.n_kv_heads if kv is None else kv.block(cfg.n_kv_heads)[1]
+
+
+def cache_rows(cfg: AttentionCfg, length: int) -> int:
+    """The rows a rank's cache of ``length`` rows holds under the active
+    rules: its block where they split the cache's sequence (which must then
+    divide the axis), else all."""
+    _, _, rows = _splits(cfg)
+    if rows is None:
+        return length
+    if length % rows.size:
+        raise ValueError(f"a KV cache of {length} rows does not split over the "
+                         f"{rows.size} ranks of {rows.axis!r}")
+    return length // rows.size
+
+
+def _fresh_block(new: torch.Tensor, cache: torch.Tensor, s: int, windowed: bool,
+                 rows: Split) -> torch.Tensor:
+    """A rank's block of the rows a fresh prefill of ``s`` tokens leaves in
+    a whole cache (``Attention._prefill``): ``new`` (B, s, KVH, D), ``cache``
+    the rank's (B, L/M, KVH, D).  A prompt no shorter than the whole cache
+    keeps its last L tokens (a rolling buffer rolled so that position p sits
+    in row p % L); a shorter one fills rows 0..s-1 and leaves the rest."""
+    length = cache.shape[1]
+    whole = length * rows.size
+    r = torch.arange(rows.index * length, (rows.index + 1) * length, device=new.device)
+    if s >= whole:
+        off = s - whole
+        src = off + ((r - off) % whole if windowed else r)
+        return new.index_select(1, src).to(cache.dtype)
+    written = new.index_select(1, r.clamp(max=s - 1)).to(cache.dtype)
+    return torch.where((r < s)[None, :, None, None], written, cache)
 
 
 def _roll_rows(x: torch.Tensor, shift) -> torch.Tensor:
@@ -578,9 +677,10 @@ def attention_init_cache(batch: int, cfg: AttentionCfg, max_len: int, *,
     the next token): every row is its own slot.  A global layer holds
     ``max_len`` positions; a windowed one a rolling buffer of ``min(max_len,
     window)`` rows; of the rank's KV heads under rules that split them
-    (:func:`kv_heads`)."""
+    (:func:`kv_heads`), and of its block of the rows under rules that split
+    the cache's sequence (:func:`cache_rows`)."""
     length = max_len if cfg.window is None else min(max_len, cfg.window)
-    shape = (batch, length, kv_heads(cfg), cfg.head_dim)
+    shape = (batch, cache_rows(cfg, length), kv_heads(cfg), cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "index": torch.zeros(batch, dtype=torch.long, device=device)}

@@ -14,10 +14,12 @@ serving).  RWKV6's channel mix token-shifts its *normed* input, so the
 block caches that (``cm_x_prev``) beside the time mix's state.
 
 Under rules that split heads or channels across ranks (the model axis,
-``sharding/tensor_parallel.py``) the attention, goom and Mamba mixers and
-the dense MLP run the rank's block and all-reduce what leaves it, so a
-block's input and output are whole on every rank; ``block_init_cache``
-then holds the rank's KV heads, goom heads and Mamba channels.
+``sharding/tensor_parallel.py``) the attention, goom, Mamba and RWKV6
+mixers, the dense MLP, RWKV6's channel mix and the MoE experts run the
+rank's block and all-reduce what leaves it, so a block's input and output
+are whole on every rank; ``block_init_cache`` then holds the rank's KV
+heads (or its block of the KV rows, where the rules put the caches'
+sequence on the axis), goom heads, Mamba channels and RWKV6 heads.
 """
 
 from __future__ import annotations

@@ -20,6 +20,16 @@ routing (serving) returns none: nothing reads them there, and in eager
 PyTorch they would cost some twenty launches a layer a decode step (JAX
 computes them in both and XLA drops the unused).  Plain tensor ops: the JAX
 package leaves the MoE to XLA, no Pallas kernel.
+
+Under rules that split ``act_mlp`` (``sharding/tensor_parallel.py``) a rank
+runs its block of each expert's channels (``Moe.split_dims``, JAX's
+``expert_mlp`` on "model"): ``gate``/``up`` column-split, ``down``
+row-split.  The router, the top-k, the aux losses and the dispatch run
+whole and alike on every rank; the dispatch's copy of x and the gate
+values enter the split (the router's x does not, or its gradient would be
+summed M times), and the combined (B, S, d) output, linear in the experts'
+partial sums, is all-reduced (not the (B, E·C, d) expert buffers).  The
+expert dim stays whole on every rank of "data".
 """
 
 from __future__ import annotations
@@ -114,15 +124,24 @@ class Moe(nn.Module):
         self.down = normal_param((e, f, d), f ** -0.5, axes=("expert", "expert_mlp", "embed"),
                                  **kw)
 
+    def split_dims(self, rules) -> Tuple[Optional[str], Dict[str, Optional[int]]]:
+        """The axis the experts' channels split on (None: whole) and the dim
+        of each weight a rank reads a block of (``Attention.split_dims``)."""
+        axis = rules.split_axis("act_mlp", self.cfg.d_ff)
+        return (None, {}) if axis is None else (axis, {"gate": 2, "up": 2, "down": 1})
+
     def forward(self, x: torch.Tensor, *, compute_dtype: torch.dtype = torch.bfloat16,
                 dropless: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Returns (output, aux).  With capacity routing aux =
         {load_balance_loss, router_z_loss}: E·Σ_e mean(probs_e)·mean(top-k
         hits_e) and router_z_loss · mean(logsumexp(logits)²), as
-        ``repro/models/mlp.py`` computes them; dropless, aux is empty."""
+        ``repro/models/mlp.py`` computes them; dropless, aux is empty.
+        Under rules that split ``act_mlp`` a rank runs its block of the
+        experts' channels (module docstring)."""
         cfg, cd = self.cfg, compute_dtype
         b, s, d = x.shape
-        e, k = cfg.n_experts, cfg.top_k
+        e, k, f = cfg.n_experts, cfg.top_k, cfg.d_ff
+        sp = split_of("act_mlp", f)
         cap = s if dropless else max(1, int(math.ceil(k * s * cfg.capacity_factor / e)))
 
         logits = dense_apply(self.router.w, x.float())             # (B, S, E) f32
@@ -142,23 +161,27 @@ class Moe(nn.Module):
         # takes slot (entries of x before it); slot >= cap is dropped into
         # the trash row e*cap
         flat_expert = expert_idx.reshape(b, s * k)
-        flat_gate = gate_vals.reshape(b, s * k)
+        flat_gate = enter(gate_vals.reshape(b, s * k), sp)
         flat_token = torch.arange(s, device=x.device).repeat_interleave(k)
         onehot = F.one_hot(flat_expert, e)
         slot = (onehot.cumsum(dim=1) * onehot).sum(dim=-1) - 1
         keep = slot < cap
         dst = torch.where(keep, flat_expert * cap + slot, e * cap)
         buf = torch.zeros(b, e * cap + 1, d, dtype=cd, device=x.device)
-        buf.scatter_(1, dst[..., None].expand(-1, -1, d), x.to(cd)[:, flat_token])
+        buf.scatter_(1, dst[..., None].expand(-1, -1, d), enter(x.to(cd), sp)[:, flat_token])
         buf = constrain(buf[:, :-1].reshape(b, e, cap, d), "batch", "act_expert", None, None)
 
-        g = torch.einsum("becd,edf->becf", buf, self.gate.to(cd))
-        u = torch.einsum("becd,edf->becf", buf, self.up.to(cd))
+        w_gate, w_up, w_down = self.gate, self.up, self.down
+        if sp is not None:
+            w_gate, w_up, w_down = (sp.take(w_gate, 2, f), sp.take(w_up, 2, f),
+                                    sp.take(w_down, 1, f))
+        g = torch.einsum("becd,edf->becf", buf, w_gate.to(cd))
+        u = torch.einsum("becd,edf->becf", buf, w_up.to(cd))
         h = constrain(self.act(g) * u, "batch", "act_expert", None, "act_mlp")
-        out_buf = torch.einsum("becf,efd->becd", h, self.down.to(cd))
+        out_buf = torch.einsum("becf,efd->becd", h, w_down.to(cd))
         out_buf = out_buf.reshape(b, e * cap, d)
 
         gathered = out_buf.gather(1, dst.clamp(max=e * cap - 1)[..., None].expand(-1, -1, d))
         gathered = torch.where(keep[..., None], gathered.float(), 0.0)
         out = (gathered * flat_gate[..., None]).reshape(b, s, k, d).sum(dim=2)
-        return out.to(cd), aux
+        return leave(out, sp).to(cd), aux

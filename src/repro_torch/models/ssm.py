@@ -45,7 +45,17 @@ compute dtype; a step writes its last (compute-dtype) row back into them,
 which f32 holds exactly.  JAX instead replaces the f32 buffer by the
 compute-dtype row, so in JAX a cache's first bf16 step shifts in f32; one
 dtype per buffer is what a replayed CUDA graph's static tensors need.
-RWKV6 keeps whole heads and channels on every rank of the model axis.
+
+Under rules that split ``act_heads`` (``sharding/tensor_parallel.py``) the
+time mix runs the rank's H/M heads (``Rwkv6TimeMix.split_dims``): r, k, v
+and g column-split, ``out`` row-split and all-reduced, the WKV (its LMME
+calls among it) and the ``wkv`` state at H/M heads.  The token shift, the
+ddlerp and the decay LoRA's hidden run whole on every rank; each enters the
+split where it meets a split weight, so their gradients are whole.
+``ln_x`` normalises over all d channels: the f32 sum of squares of the
+rank's block is all-reduced.  Under rules that split ``act_mlp`` the channel
+mix runs the rank's block of d_ff (k column-split, v row-split and
+all-reduced); its receptance ``r`` runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -64,8 +74,8 @@ from ..core.goom import Goom, from_goom, nonzero_sign, safe_abs, safe_log
 from ..core.scan import associative_scan
 from ..sharding.layout import TimeShards, time_shards
 from ..sharding.rules import constrain
-from ..sharding.tensor_parallel import enter, leave, reduce, split_of
-from .common import Dense, dense_apply, normal_param, with_axes
+from ..sharding.tensor_parallel import Split, enter, leave, reduce, split_of
+from .common import Dense, dense_apply, normal_param, wide, with_axes
 from .norms import RMSNorm
 
 __all__ = ["MambaCfg", "Mamba", "segment_states", "mamba_init_state", "Rwkv6Cfg",
@@ -291,12 +301,17 @@ class _Lora(nn.Module):
     def __init__(self, d: int, rank: int, out: int, *, device=None,
                  dtype=torch.float32, generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.out = out
         self.a = normal_param((d, rank), 0.01, axes=("embed", None), device=device,
                               dtype=dtype, generator=generator)
         self.b = with_axes(torch.zeros(rank, out, device=device, dtype=dtype), (None, "embed"))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.tanh(x @ self.a.to(x.dtype)) @ self.b.to(x.dtype)
+    def forward(self, x: torch.Tensor, sp: Optional[Split] = None) -> torch.Tensor:
+        """With ``sp``, the rank's block of the output: the whole hidden
+        enters the split and meets ``b``'s block of columns."""
+        hid = torch.tanh(x @ self.a.to(x.dtype))
+        b = self.b if sp is None else sp.take(self.b, 1, self.out)
+        return enter(hid, sp) @ b.to(x.dtype)
 
 
 _MIX = ("w", "k", "v", "r", "g")
@@ -334,32 +349,63 @@ class Rwkv6TimeMix(nn.Module):
         self.out = Dense(d, (d,), in_axis="heads", out_axes=("embed",), **gk)
         self.ln_x = RMSNorm(d, **kw)
 
+    def split_dims(self, rules) -> Tuple[Optional[str], Dict[str, Optional[int]]]:
+        """The axis the heads split on (None: whole) and the dim of each
+        weight a rank reads a block of (``Attention.split_dims``): r, k, v, g
+        column-split, ``out`` row-split, and the per-channel ``bonus``,
+        ``decay_base``, the decay LoRA's ``b`` and ``ln_x``'s scale read as
+        the heads' block of channels."""
+        axis = rules.split_axis("act_heads", self.cfg.n_heads)
+        if axis is None:
+            return None, {}
+        return axis, {"r.w": 1, "k.w": 1, "v.w": 1, "g.w": 1, "out.w": 0, "bonus": 0,
+                      "decay_base": 0, "decay_lora.b": 1, "ln_x.scale": 0}
+
     def forward(self, x: torch.Tensor, *, state: Optional[Dict[str, torch.Tensor]] = None,
                 compute_dtype: torch.dtype = torch.bfloat16):
         """x (B, S, d) → (out (B, S, d), new state or None); ``state`` holds
-        ``x_prev`` (B, 1, d) and ``wkv`` (B, H, hd, hd) f32."""
+        ``x_prev`` (B, 1, d) and ``wkv`` (B, H, hd, hd) f32, of the rank's
+        H/M heads under rules that split them (:meth:`split_dims`)."""
         cfg, cd = self.cfg, compute_dtype
         b, s, d = x.shape
         h, hd = cfg.n_heads, cfg.head_dim
+        sp = split_of("act_heads", h)
+        hl = h if sp is None else sp.block(h)[1]
         dx = _token_shift(x, None if state is None else state["x_prev"]) - x
         xxx = x + dx * self.mu_x.to(x.dtype)
         xw, xk, xv, xr, xg = (x + dx * (self.mu[m].to(x.dtype) + self.lora[m](xxx))
                               for m in _MIX)
-        r = self.r(xr, compute_dtype=cd).reshape(b, s, h, hd)
-        k = self.k(xk, compute_dtype=cd).reshape(b, s, h, hd)
-        v = self.v(xv, compute_dtype=cd).reshape(b, s, h, hd)
-        g = F.silu(self.g(xg, compute_dtype=cd))
+        col = (sp, 1, d)
+        r = self.r(enter(xr, sp), compute_dtype=cd, split=col).reshape(b, s, hl, hd)
+        k = self.k(enter(xk, sp), compute_dtype=cd, split=col).reshape(b, s, hl, hd)
+        v = self.v(enter(xv, sp), compute_dtype=cd, split=col).reshape(b, s, hl, hd)
+        g = F.silu(self.g(enter(xg, sp), compute_dtype=cd, split=col))
+        base, bonus = self.decay_base, self.bonus
+        if sp is not None:
+            base, bonus = sp.take(base, 0, d), sp.take(bonus, 0, h)
         # the log-decay, exact in log space: log a = -exp(w) < 0
-        w = self.decay_base.float() + self.decay_lora(xw.float())
+        w = base.float() + self.decay_lora(xw.float(), sp)
         # bounded: -exp(w) < 0; goomcheck: disable=GC202
-        log_a = -torch.exp(w).reshape(b, s, h, hd)
-        y, wkv = rwkv6_scan(r.float(), k.float(), v.float(), log_a, self.bonus.float(),
+        log_a = -torch.exp(w).reshape(b, s, hl, hd)
+        y, wkv = rwkv6_scan(r.float(), k.float(), v.float(), log_a, bonus.float(),
                             cfg, h0=None if state is None else state["wkv"])
-        y = self.ln_x(y.reshape(b, s, d)).to(cd) * g
-        out = self.out(y, compute_dtype=cd)
+        y = y.reshape(b, s, hl * hd)
+        y = (self.ln_x(y) if sp is None else
+             _split_rmsnorm(y, sp.take(self.ln_x.scale, 0, d), d, sp)).to(cd) * g
+        out = leave(self.out(y, compute_dtype=cd, split=(sp, 0, d)), sp)
         if state is None:
             return out, None
         return out, {"x_prev": x[:, -1:].to(state["x_prev"].dtype), "wkv": wkv}
+
+
+def _split_rmsnorm(y: torch.Tensor, scale: torch.Tensor, d: int, sp: Split,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """``rmsnorm_apply`` over all ``d`` channels of a rank's block ``y``
+    (..., d/M) of them: the f32 sum of squares all-reduced over the group,
+    forward and backward (every rank's output depends on every block)."""
+    yf = wide(y)
+    var = reduce(yf.square().sum(dim=-1, keepdim=True), sp) / d
+    return (yf * torch.rsqrt(var + eps) * scale.to(yf.dtype)).to(y.dtype)
 
 
 def rwkv6_scan(r, k, v, log_a, u, cfg: Rwkv6Cfg, h0=None):
@@ -423,7 +469,10 @@ def rwkv6_scan(r, k, v, log_a, u, cfg: Rwkv6Cfg, h0=None):
 class Rwkv6ChannelMix(nn.Module):
     """RWKV6's channel mix: sigmoid(r(x_r)) · v(relu(k(x_k))²) over the
     token-shifted input; parameters ``mu_k``, ``mu_r``, ``k.w`` (d, d_ff),
-    ``v.w`` (d_ff, d), ``r.w`` (d, d)."""
+    ``v.w`` (d_ff, d), ``r.w`` (d, d).  Under rules that split ``act_mlp`` a
+    rank runs its block of d_ff: only x_k enters the split; the receptance
+    runs whole on every rank (were x to enter, its gradient through r would
+    be summed M times)."""
 
     def __init__(self, cfg: Rwkv6Cfg, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -435,22 +484,32 @@ class Rwkv6ChannelMix(nn.Module):
         self.k = Dense(d, (f,), generator=generator, **kw)
         self.v = Dense(f, (d,), generator=generator, in_axis="mlp", out_axes=("embed",), **kw)
         self.r = Dense(d, (d,), generator=generator, out_axes=(None,), **kw)
+        self.d_ff = f
+
+    def split_dims(self, rules) -> Tuple[Optional[str], Dict[str, Optional[int]]]:
+        """The axis d_ff splits on (None: whole): k column-split, v row-split."""
+        axis = rules.split_axis("act_mlp", self.d_ff)
+        return (None, {}) if axis is None else (axis, {"k.w": 1, "v.w": 0})
 
     def forward(self, x: torch.Tensor, *, x_prev: Optional[torch.Tensor] = None,
                 compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-        cd = compute_dtype
+        cd, f = compute_dtype, self.d_ff
+        sp = split_of("act_mlp", f)
         dx = _token_shift(x, x_prev) - x
         xk = x + dx * self.mu_k.to(x.dtype)
         xr = x + dx * self.mu_r.to(x.dtype)
-        k = constrain(torch.relu(self.k(xk, compute_dtype=cd)).square(),
+        k = constrain(torch.relu(self.k(enter(xk, sp), compute_dtype=cd,
+                                        split=(sp, 1, f))).square(),
                       "batch", "act_seq", "act_mlp")
-        kv = self.v(k, compute_dtype=cd)
+        kv = leave(self.v(k, compute_dtype=cd, split=(sp, 0, f)), sp)
         return torch.sigmoid(self.r(xr, compute_dtype=cd)) * kv
 
 
 def rwkv6_init_state(batch: int, cfg: Rwkv6Cfg, *, device) -> Dict[str, torch.Tensor]:
     """The time mix's decode state, f32 and zero: ``x_prev`` (B, 1, d) and
-    ``wkv`` (B, H, hd, hd)."""
+    ``wkv`` (B, H, hd, hd), of the rank's heads under rules that split them."""
     d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    sp = split_of("act_heads", h)
+    h = h if sp is None else sp.block(h)[1]
     return {"x_prev": torch.zeros(batch, 1, d, device=device),
             "wkv": torch.zeros(batch, h, hd, hd, device=device)}

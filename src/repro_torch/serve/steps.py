@@ -59,7 +59,9 @@ def make_prefill_step(model: DecoderLM, *, backend: str = "auto", mesh=None,
     model gathers its parameters a period at a time and, where the rules
     split heads, channels or the vocabulary, each rank runs its block (its
     caches, from ``model.init_caches`` under the same rules, hold its KV
-    heads) and the logits come back whole."""
+    heads, or its block of the rows where the rules put ``cache_seq`` on
+    the axis) and the logits come back whole; ``make_decode_step`` runs
+    under the same rules and caches."""
 
     @torch.no_grad()
     def prefill_step(tokens, caches, **kw):

@@ -239,10 +239,11 @@ def param_placements(rules: AxisRules, model) -> Dict[str, tuple]:
 def distribute_model(model, rules: AxisRules):
     """Replace every parameter of ``model`` by a DTensor laid out by
     :func:`param_placements` over ``rules.mesh``'s ``DeviceMesh`` (each rank
-    keeps its own block of the values it holds; every rank must hold the
-    same values, as a model built from one seed does).  Returns ``model``."""
+    keeps its own block of the values it holds, a copy, and moves nothing:
+    every rank must hold the same values, as a model built from one seed
+    does).  Returns ``model``."""
     import torch
-    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor import DTensor
 
     mesh = rules.mesh.device_mesh
     if mesh is None:
@@ -250,7 +251,17 @@ def distribute_model(model, rules: AxisRules):
     pl = param_placements(rules, model)
     for name, p in list(model.named_parameters()):
         owner, leaf = _owner(model, name)
-        dt = distribute_tensor(p.detach(), mesh, pl[name])
+        local = p.detach()
+        for i, place in enumerate(pl[name]):   # nested in mesh order, as DTensor splits
+            if place.is_shard():
+                n = mesh.size(i)
+                if local.shape[place.dim] % n:
+                    raise ValueError(f"{name}: dim {place.dim} of {tuple(local.shape)} does "
+                                     f"not split over {n}")
+                k = local.shape[place.dim] // n
+                local = local.narrow(place.dim, mesh.get_local_rank(i) * k, k)
+        dt = DTensor.from_local(local.clone(memory_format=torch.contiguous_format), mesh,
+                                pl[name], run_check=False, shape=p.shape, stride=p.stride())
         setattr(owner, leaf, torch.nn.Parameter(dt, requires_grad=p.requires_grad))
     return model
 

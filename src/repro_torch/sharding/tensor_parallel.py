@@ -1,5 +1,6 @@
-"""The model axis: heads, MLP channels, Mamba channels and the vocabulary
-split across ranks (Megatron's column/row split).
+"""The model axis: heads, MLP channels, Mamba channels, RWKV6's heads and
+channels, the MoE experts' channels and the vocabulary split across ranks
+(Megatron's column/row split), and KV caches split by sequence.
 
 JAX's table maps ``act_heads``, ``act_kv_heads``, ``act_mlp`` and
 ``act_vocab`` to "model" (``sharding/rules.py``) and XLA runs each rank on
@@ -13,7 +14,10 @@ on that block alone.
     drops the split, the tensor is replicated.  Heads and channels are split
     only where they divide M (a padded uneven split of heads is replicated
     instead: a departure, qwen2-vl's 28 heads over 16); the vocabulary keeps
-    ``allow_uneven``'s padded blocks of ``ceil(V / M)``.  The goom layer and
+    ``allow_uneven``'s padded blocks of ``ceil(V / M)``.  Where the KV heads
+    stay whole, ``cache_seq`` on one mesh axis splits the KV caches' rows
+    (``models/attention.py``: a decode step's softmax combined across ranks
+    by an all-reduced max and sums).  The goom layer and
     Mamba (``scans=True``) keep whole heads and channels under rules that
     time-shard the scans on that same axis.
   * **Forward collectives.**  An activation enters a split region through

@@ -37,6 +37,12 @@
   (``torch_dist_workers.FSDP_ONLY``), its split all-reduces counted and its
   split weights' gathers over "model" gone; its prefill holds its block of
   the KV heads, JAX's ``cache_shard_bytes``;
+* the rest of the model axis on the (16, 16) mesh: rwkv6-7b at full width
+  (train_4k's batch, 256 tokens: a train_4k cell takes 100 s of host time)
+  holds fewer bytes above its state, in the forward and gathered a rank
+  than with the split off; Jamba's gathered period keeps 1/16 of its MoE's bytes; a gemma3-1b
+  ``decode_32k`` rank (one KV head: its caches' rows on "model") holds
+  JAX's ``cache_shard_bytes``;
 * ``cast_params_bf16``: the port's step against JAX's for 2 steps from the
   same weights, losses within rtol 1e-5.  Both packages round the f32
   weights to the same bf16 values (to nearest even), so both forwards run
@@ -70,7 +76,7 @@ from repro_torch.kernels.goom_scan import diagonal_scan_cuda, matrix_scan_cuda
 from repro_torch.kernels.lmme import lmme_cuda
 from repro_torch.launch import cost, dryrun
 from repro_torch.launch.mesh import make_production_mesh, spawn_ranks
-from repro_torch.launch.roofline import CollectiveOp
+from repro_torch.launch.roofline import CollectiveOp, collective_bytes_per_device
 from repro_torch.sharding import NamedMesh, make_rules, param_specs
 from repro_torch.sharding.layout import shard_shape
 from repro_torch.train import AdamW, DataConfig, SyntheticStream, cosine_schedule
@@ -277,7 +283,15 @@ def test_train_and_decode_cells_on_the_production_mesh(capsys):
     want = _shard_bytes({f"{i}.{k}": (tuple(v.shape), v.dtype) for i, layer in
                          enumerate(caches) for k, v in layer.items()}, cspecs, mesh.shape)
     assert dec.memory_per_device["cache_shard_bytes"] == want
-    assert dec.memory_per_device["rows"] == 8 and dec.collective_bytes == 0
+    # a decode rank is laid out as a prefill rank: it holds its parameter
+    # blocks and gathers a period at a time, without gradients
+    dm = dec.memory_per_device
+    assert dm["rows"] == 8 and dm["trace_parameters_bytes"] == mem["param_shard_bytes"]
+    gathers = dryrun.train_collectives(make_rules(mesh), params, specs, grads=False,
+                                       roles=model.split_roles(make_rules(mesh)))
+    assert {op.kind for op in gathers} == {"all-gather"}
+    ring = collective_bytes_per_device(gathers)[1]["all-gather"]
+    assert dec.collective_by_kind["all-gather"] >= ring > 0
     assert dec.launches["lmme"] == 2 * cfg.n_layers   # B·u and the carry fold a layer
     assert "costed in" in capsys.readouterr().out
 
@@ -403,3 +417,38 @@ def test_model_axis_shrinks_a_ranks_cells():
     mem = pre.memory_per_device
     kv = sum(v for k, v in mem.items() if k == "cache_shard_bytes")
     assert mem["cache_bytes"] == kv > 0
+
+
+def test_rwkv6_rank_shrinks_by_the_model_axis():
+    mesh = make_production_mesh()
+    shape = ShapeCfg("train_4k_256", 256, 256, "train")
+    whole = dryrun.lower_cell("rwkv6-7b", shape, mesh, rules_overrides=workers.FSDP_ONLY,
+                              verbose=False).memory_per_device
+    split = dryrun.lower_cell("rwkv6-7b", shape, mesh, verbose=False).memory_per_device
+    # above the state: the activations and temporaries at the peak (the split's
+    # in the backward, the whole's at the loss's vocabulary-wide logits)
+    assert split["above_state_bytes"] < whole["above_state_bytes"] / 2
+    assert split["trace_peak_forward_bytes"] < whole["trace_peak_forward_bytes"]
+    assert split["gathered_param_bytes"] < whole["gathered_param_bytes"] / 4
+
+
+def test_jamba_gathered_period_keeps_a_sixteenth_of_its_moe(monkeypatch):
+    from repro_torch.models.mlp import Moe
+
+    rules = make_rules(make_production_mesh())
+    model = DecoderLM(get_config("jamba-v0.1"), device="meta")
+    split = dryrun.gathered_bytes(model, rules=rules)
+    moe = max(sum(p.numel() * p.element_size() for i in range(lo, hi)
+                  for n, p in model.layers[i].named_parameters()
+                  if n in ("channel.gate", "channel.up", "channel.down"))
+              for lo, hi in model._periods)
+    monkeypatch.setattr(Moe, "split_dims", lambda self, rules: (None, {}))
+    whole = dryrun.gathered_bytes(model, rules=rules)
+    assert moe > 0 and whole - split == moe * 15 // 16
+
+
+def test_gemma3_decode_rank_holds_jax_cache_shard():
+    rf = dryrun.lower_cell("gemma3-1b", "decode_32k", make_production_mesh(), verbose=False)
+    mem = rf.memory_per_device
+    assert mem["cache_bytes"] == mem["cache_shard_bytes"] > 0
+    assert rf.collective_by_kind["all-reduce"] > 0     # the rows' combine

@@ -7,7 +7,7 @@ model_axis_world``), each rank runs its block of the attention heads, the
 dense MLP's channels, the goom layer's heads, Mamba's channels and the
 vocabulary.  Held here, on the smoke configs of goom-rnn-124m (both scan
 variants), olmo-1b, gemma3-1b (one KV head: replicated, each rank reads
-it) and jamba-v0.1 (Mamba split, the MoE whole):
+it) and jamba-v0.1 (Mamba and the MoE split):
 
 * the first step's f32 loss and each leaf's gradient, the parameters laid
   out, against one process on the global batch, by their distance to the
@@ -102,7 +102,9 @@ def one_process(arch, variant, count, f64=False):
 
 
 def _distance(got, ref):
-    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    """|got - ref| / |ref|; |got| where ref is zero (a leaf no loss reaches)."""
+    norm = np.linalg.norm(ref)
+    return float(np.linalg.norm(got - ref) / norm if norm else np.linalg.norm(got))
 
 
 def _check_against_f64(run, arch, variant, shape):

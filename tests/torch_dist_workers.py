@@ -86,10 +86,16 @@ def sharded_cases(rank, p, cases, batch_case=None):
 
 
 def _smoke_model(arch, variant=None, periods=None):
+    """``arch``'s smoke model at f32 compute on the seed-0 weights; ``variant``
+    the goom layers' ``scan_variant``, or RWKV6's ``scan_impl``."""
     from repro_torch import DecoderLM, get_config
+    from repro_torch.configs.base import transform_blocks
 
     cfg = dataclasses.replace(get_config(arch, smoke=True), compute_dtype=torch.float32)
-    if variant is not None:
+    if variant is not None and arch.startswith("rwkv6"):
+        cfg = transform_blocks(cfg, lambda b: dataclasses.replace(
+            b, rwkv=dataclasses.replace(b.rwkv, scan_impl=variant)))
+    elif variant is not None:
         from torch_parity import with_scan_variant
 
         cfg = with_scan_variant(cfg, variant)
@@ -796,3 +802,197 @@ def _vocab_case(rules):
         (g_w,) = torch.autograd.grad((x * torch.arange(x.numel()).view_as(x)).sum(), [w])
     return {"block": (lo, k), "nll": float(nll), "grad": g_block.numpy(),
             "embed": x.detach().numpy(), "embed_grad": g_w.numpy()}
+
+
+# ---------------------------------------------------------------------------
+# the rest of the model axis: RWKV6, the MoE experts, sequence-split caches
+# ---------------------------------------------------------------------------
+#: (arch, variant) of the train cases: RWKV6 in both scans (``scan_impl``),
+#: mixtral's capacity-routed MoE, Jamba's Mamba and MoE both split
+MODEL_AXIS_REST_TRAIN = (("rwkv6-7b", "float"), ("rwkv6-7b", "goom"), ("mixtral-8x7b", None),
+                         ("jamba-v0.1", None))
+#: gemma3-1b smoke under ``cache_seq="model"``: (prompt tokens, cache length);
+#: 14 of 24: the prompt fills rows on both ranks, and decoding from position
+#: 14 crosses the 16-row rolling buffer's wrap; 20 of 16: the prompt outgrows
+#: both caches (the global keeps its last 16, the rolling buffer rolls)
+SEQ_SPLIT_CASES = ((14, 24), (20, 16))
+SEQ_SPLIT_DECODES = 3
+
+
+def seq_split_prompt(n):
+    return torch.as_tensor(np.random.default_rng(4).integers(0, 256, (2, n)))
+
+
+def seq_split_run(model, n, length, rules=None, f32_kv=False):
+    """A fresh prefill of ``seq_split_prompt(n)`` into caches of ``length``
+    and ``SEQ_SPLIT_DECODES`` greedy decode steps, under ``rules``: each
+    step's logits (whole), its tokens, the caches after the prefill and at
+    the end.  The caches' K/V are bf16, or with ``f32_kv`` f32: a decode
+    step writes K/V computed a rounding apart on the ranks and on one
+    process, which bf16 can round a step apart (and the next layers' K/V
+    then several steps near zero), so only f32 caches keep the decode an
+    f32 rounding apart."""
+    from repro_torch.serve.steps import make_prefill_step
+    from repro_torch.sharding import use_rules
+
+    prompt = seq_split_prompt(n)
+    rows = prompt.shape[0]
+    prefill = make_prefill_step(model, backend="torch_reference", fresh_caches=True)
+    with use_rules(rules):
+        caches = model.init_caches(rows, length)
+        if f32_kv:
+            caches = [{k: v.float() if k in ("k", "v") else v for k, v in c.items()}
+                      for c in caches]
+        logits, caches = prefill(prompt, caches)
+        first = [{k: v.float().numpy() for k, v in layer.items()} for layer in caches]
+        steps, tokens = [logits[:, -1].numpy()], []
+        index = torch.full((rows,), n, dtype=torch.long)
+        for _ in range(SEQ_SPLIT_DECODES):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            tokens.append(tok[:, 0].numpy())
+            with engine.use_backend("torch_reference"):
+                logits, caches = model.decode_step(tok, caches, index)
+            steps.append(logits[:, -1].numpy())
+            index = index + 1
+    return {"logits": np.stack(steps), "tokens": np.stack(tokens), "prefill_caches": first,
+            "caches": [{k: v.float().numpy() for k, v in layer.items()} for layer in caches]}
+
+
+def _rest_prefill_moe(rules):
+    """mixtral smoke's fresh prefill (dropless routing) laid out under
+    ``rules``: the last logits."""
+    from repro_torch.serve.steps import make_prefill_step
+    from repro_torch.sharding import distribute_model, use_rules
+
+    model = model_axis_model("mixtral-8x7b").requires_grad_(False)
+    distribute_model(model, rules)
+    step = make_prefill_step(model, backend="torch_reference", fresh_caches=True)
+    with use_rules(rules):
+        logits, _ = step(model_axis_prompt(), model.init_caches(MODEL_AXIS_PROMPT[0],
+                                                                 MODEL_AXIS_PROMPT[2]))
+    return logits.numpy()
+
+
+def _seq_split_cases(mesh):
+    """gemma3 smoke laid out under the default rules with ``cache_seq`` on
+    "model": ``seq_split_run`` of each ``SEQ_SPLIT_CASES``, bf16 and f32 K/V."""
+    from repro_torch.sharding import distribute_model, make_rules
+
+    rules = make_rules(mesh, {"cache_seq": "model"})
+    model = model_axis_model("gemma3-1b").requires_grad_(False)
+    distribute_model(model, rules)
+    return {(case, f32): seq_split_run(model, *case, rules=rules, f32_kv=f32)
+            for case in SEQ_SPLIT_CASES for f32 in (False, True)}
+
+
+def _lmme_shapes(rules, mesh):
+    """The operand shapes of each LMME call of RWKV6 smoke's (``goom``) split
+    loss on this rank."""
+    calls = []
+    saved = engine.lmme
+
+    def recording(a, b, *args, **kw):
+        calls.append((tuple(a.log_abs.shape), tuple(b.log_abs.shape)))
+        return saved(a, b, *args, **kw)
+
+    engine.lmme = recording
+    try:
+        _model_axis_grads(rules, mesh, "rwkv6-7b", "goom", laid=True)
+    finally:
+        engine.lmme = saved
+    return sorted(set(calls))
+
+
+def _entered_x(cls, module, width):
+    """``cls.forward`` mutated as if its whole input x entered the split at
+    the top (every ``enter`` inside the module made the identity): the
+    trap an ``enter`` placed at the top of a block falls into."""
+    import contextlib
+
+    from repro_torch.sharding import tensor_parallel as tp
+
+    @contextlib.contextmanager
+    def mutated():
+        forward, inner = cls.forward, module.enter
+
+        def wrapped(self, x, **kw):
+            x = tp.enter(x, tp.split_of("act_mlp", width(self)))
+            module.enter = lambda t, sp: t
+            try:
+                return forward(self, x, **kw)
+            finally:
+                module.enter = inner
+
+        cls.forward = wrapped
+        try:
+            yield
+        finally:
+            cls.forward = forward
+
+    return mutated()
+
+
+def _mutations(rules, mesh):
+    """The split step with x entering at the top of the channel mix (RWKV6,
+    ``float``) and of the MoE (mixtral): loss and gradients as
+    ``_model_axis_grads``."""
+    from repro_torch.models import mlp, ssm
+
+    out = {}
+    with _entered_x(ssm.Rwkv6ChannelMix, ssm, lambda m: m.d_ff):
+        out[("rwkv6-7b", "float")] = _model_axis_grads(rules, mesh, "rwkv6-7b", "float", True)
+    with _entered_x(mlp.Moe, mlp, lambda m: m.cfg.d_ff):
+        out[("mixtral-8x7b", None)] = _model_axis_grads(rules, mesh, "mixtral-8x7b", None, True)
+    return out
+
+
+#: the split RMSNorm case: rows, channels, and a seed
+LN_X_CASE = dict(rows=6, d=8)
+
+
+def ln_x_inputs():
+    rng = np.random.default_rng(6)
+    c = LN_X_CASE
+    return (rng.standard_normal((c["rows"], c["d"])).astype(np.float32) * 3,
+            rng.standard_normal(c["d"]).astype(np.float32),
+            rng.standard_normal((c["rows"], c["d"])).astype(np.float32))
+
+
+def _ln_x_case(rules):
+    """RWKV6's ``ln_x`` on this rank's block of ``ln_x_inputs``' channels:
+    the block's output and the gradient of its block of y (the loss
+    sum(out · w) over every rank's block)."""
+    from repro_torch.models.ssm import _split_rmsnorm
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.sharding import use_rules
+
+    y, scale, w = ln_x_inputs()
+    d = LN_X_CASE["d"]
+    with use_rules(rules):
+        sp = tp.split_of("act_heads", d)
+        lo, k = sp.block(d)
+        yb = torch.tensor(y[:, lo:lo + k], requires_grad=True)
+        out = _split_rmsnorm(yb, torch.tensor(scale[lo:lo + k]), d, sp)
+        (g,) = torch.autograd.grad((out * torch.tensor(w[:, lo:lo + k])).sum(), [yb])
+    return {"block": (lo, k), "out": out.detach().numpy(), "grad": g.numpy()}
+
+
+def model_axis_rest_world(rank, shape):
+    """The rest of the model axis on a ``shape`` ("data", "model") mesh under
+    the default rules: each ``MODEL_AXIS_REST_TRAIN`` case's loss and
+    gradients laid out (``_model_axis_grads``); on (1, 2) also mixtral's
+    dropless prefill, gemma3's sequence-split caches, RWKV6's LMME shapes,
+    the two ``enter`` mutations and the split ``ln_x``."""
+    from repro_torch.launch.mesh import _device_mesh
+    from repro_torch.sharding import make_rules
+
+    _one_thread()
+    mesh = _device_mesh(shape, ("data", "model"), "cpu")
+    rules = make_rules(mesh)
+    out = {"train": {case: _model_axis_grads(rules, mesh, *case, laid=True)
+                     for case in MODEL_AXIS_REST_TRAIN}}
+    if shape == (1, 2):
+        out.update(moe_prefill=_rest_prefill_moe(rules), seq_split=_seq_split_cases(mesh),
+                   lmme_shapes=_lmme_shapes(rules, mesh), mutated=_mutations(rules, mesh),
+                   ln_x=_ln_x_case(rules))
+    return out

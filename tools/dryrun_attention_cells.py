@@ -5,7 +5,9 @@ By default the cells attention moves: ``prefill_32k`` of the ten assigned
 archs and goom-rnn-124m, and ``train_4k`` of olmo-1b, gemma3-1b and
 musicgen-large.  With ``--fsdp``, those the per-period gather moves:
 ``train_4k`` of the ten assigned archs and goom-rnn-124m, and
-``prefill_32k`` of the MoEs and Jamba (whose parameters dominate).  Each
+``prefill_32k`` of the MoEs and Jamba (whose parameters dominate).  With
+``--decode``, ``decode_32k`` of the ten assigned archs and goom-rnn-124m
+(laid out a period at a time, their caches under the cell's rules).  Each
 on both production meshes (``launch.dryrun``'s cells: the port's real step
 on fake tensors, on the CPU; estimates under the H100 datasheet constants,
 not card times); merged into ``--out`` and, with ``--before`` (an earlier
@@ -35,8 +37,10 @@ FSDP_PREFILL_ARCHS = ("mixtral-8x7b", "phi3.5-moe", "jamba-v0.1")
 GIB = 2 ** 30
 
 
-def cells(fsdp: bool = False):
+def cells(fsdp: bool = False, decode: bool = False):
     archs = list(ASSIGNED_ARCHS) + ["goom-rnn-124m"]
+    if decode:
+        return [(a, "decode_32k", pod) for pod in (False, True) for a in archs]
     if fsdp:
         return ([(a, "train_4k", pod) for pod in (False, True) for a in archs]
                 + [(a, "prefill_32k", pod) for pod in (False, True)
@@ -72,8 +76,9 @@ def main():
     ap.add_argument("--before", default=None)
     ap.add_argument("--fsdp", action="store_true",
                     help="the cells the per-period gather moves (module docstring)")
+    ap.add_argument("--decode", action="store_true", help="the decode_32k cells")
     args = ap.parse_args()
-    todo = cells(args.fsdp)
+    todo = cells(args.fsdp, args.decode)
     t0 = time.time()
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(args.workers, mp_context=ctx) as pool:
